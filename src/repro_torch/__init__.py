@@ -1,0 +1,45 @@
+"""repro_torch: the PyTorch + CUDA port of the dense-retrieval toolkit.
+
+The JAX package ``repro`` stays as the reference; this package sits
+beside it, imports ``torch`` and never ``jax`` or anything of ``repro``,
+and runs on an NVIDIA card unless the caller passes ``device="cpu"``.
+Its hand-written kernels (``repro_torch.kernels``) are CUDA C++ for
+Hopper, built from the sources in the checkout at first use.
+
+Exports resolve lazily (PEP 562), so importing the package loads no
+torch module it does not need.
+"""
+
+import importlib
+
+_EXPORTS = {
+    "RetrievalCollator": "repro_torch.core.collator",
+    "DataArguments": "repro_torch.core.config",
+    "EvaluationArguments": "repro_torch.core.config",
+    "ModelArguments": "repro_torch.core.config",
+    "RetrievalEvaluator": "repro_torch.core.evaluator",
+    "compute_metrics": "repro_torch.core.metrics",
+    "FastResultHeapq": "repro_torch.core.result_heap",
+    "FairSharder": "repro_torch.core.fair_sharding",
+    "ShardedSearchDriver": "repro_torch.core.sharded_search",
+    "HashTokenizer": "repro_torch.data.tokenizer",
+    "DefaultEncoder": "repro_torch.models.encoder",
+    "PretrainedEncoder": "repro_torch.models.encoder",
+    "get_encoder": "repro_torch.models.encoder",
+    "BiEncoderRetriever": "repro_torch.models.retriever",
+    "PretrainedRetriever": "repro_torch.models.retriever",
+    "params_from_jax": "repro_torch.models.convert",
+    "resolve_device": "repro_torch.device",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        return getattr(importlib.import_module(_EXPORTS[name]), name)
+    raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")
+
+
+def __dir__():
+    return __all__

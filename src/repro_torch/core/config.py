@@ -1,0 +1,82 @@
+"""Configuration objects of the port (paper §3.1).
+
+The port's own ``DataArguments`` / ``ModelArguments`` /
+``EvaluationArguments``.  ``EvaluationArguments`` validates the port's
+backend names in ``__post_init__`` without importing anything: the
+reference class imports the JAX heap and driver to validate, and its
+names (``jax``, ``pallas``, ``pallas_fused``) are not the port's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+# Scoring backends of ShardedSearchDriver: "numpy" = host q @ d.T
+# baseline; "torch" = device matmul then the heap merge; "fused" = the
+# fused score + top-k kernel (K1), the (Q, N) score matrix never exists.
+SCORE_IMPLS = ("numpy", "torch", "fused")
+# FastResultHeapq merges: "python" = heapq baseline; "torch" = the plain
+# sort-based merge; "kernel" = the streaming top-k merge kernel (K2).
+HEAP_IMPLS = ("python", "torch", "kernel")
+
+
+@dataclasses.dataclass
+class DataArguments:
+    query_max_len: int = 32
+    passage_max_len: int = 128
+    append_eos: bool = False
+    vocab_size: int = 50304              # hashing-tokenizer vocab
+    pad_to_multiple: int = 8
+
+
+@dataclasses.dataclass
+class ModelArguments:
+    # the inference fields; loss, LoRA and dtype come with training
+    encoder_class: str = "lm"            # encoder registry alias
+    temperature: float = 0.02
+
+
+@dataclasses.dataclass
+class EvaluationArguments:
+    topk: int = 100
+    encode_batch_size: int = 32
+    query_batch_size: int = 256
+    metrics: tuple[str, ...] = ("ndcg@10", "mrr@10", "recall@100")
+    heap_impl: str = "kernel"            # kernel | torch | python
+    score_impl: str = "fused"            # fused | torch | numpy
+    # Double-buffered chunk pipeline: chunk i+1's load/encode overlaps
+    # chunk i's scoring.  Same results either way.
+    async_prefetch: bool = True
+    # Superchunk executor (device score/heap backends): fold this many
+    # streamed chunks into one call of kernels.ops.superchunk_update.
+    # 0 = autotune from a warmup measurement; 1 = one call per chunk;
+    # N > 1 = fixed.  Identical rankings either way.
+    superchunk_size: int = 0
+    # Cap on the stacked (S, C, d) superchunk tile per call.
+    superchunk_max_mb: int = 64
+    # Bucketed encode pipeline: ladder rung count; 0 = per-batch
+    # pad-to-longest encoding.
+    encode_buckets: int = 6
+    tokenizer_workers: int = 2
+    # Windows of text tokenized ahead of the device encode stage.
+    encode_pipeline_depth: int = 2
+
+    def __post_init__(self):
+        if self.score_impl not in SCORE_IMPLS:
+            raise ValueError(
+                f"unknown score_impl {self.score_impl!r}; expected one "
+                f"of {list(SCORE_IMPLS)}")
+        if self.heap_impl not in HEAP_IMPLS:
+            raise ValueError(
+                f"unknown heap_impl {self.heap_impl!r}; expected one "
+                f"of {list(HEAP_IMPLS)}")
+        for name, floor in (("topk", 1), ("encode_batch_size", 1),
+                            ("query_batch_size", 1),
+                            ("superchunk_size", 0),
+                            ("superchunk_max_mb", 1),
+                            ("encode_buckets", 0),
+                            ("tokenizer_workers", 0),
+                            ("encode_pipeline_depth", 0)):
+            if getattr(self, name) < floor:
+                raise ValueError(
+                    f"{name} must be >= {floor}, got {getattr(self, name)}")

@@ -1,0 +1,310 @@
+"""RetrievalEvaluator: evaluation + hard-negative mining (paper §3.5).
+
+The port's counterpart of ``repro.core.evaluator`` for one worker, a
+flat index and no embedding cache.  Every search entry point is a thin
+instantiation of :class:`~repro_torch.core.sharded_search.
+ShardedSearchDriver`:
+
+  * :meth:`RetrievalEvaluator.search` / :meth:`evaluate` /
+    :meth:`mine_hard_negatives` — the paper's pipeline: the corpus is
+    encoded online through the bucketed encode pipeline and streamed,
+    device-resident, into the driver's superchunk executor;
+  * :meth:`prepare_corpus` (``device_resident=True``) +
+    :meth:`search_texts` — the serving regime: the corpus is encoded
+    once and kept on the card, each request encodes its queries and
+    scores them.
+
+Scoring is ``EvaluationArguments.score_impl`` (``numpy | torch |
+fused``) and the heap ``heap_impl`` (``python | torch | kernel``); all
+combinations return the same rankings.  Queries and corpora are
+``{id: text}`` dicts or :class:`~repro_torch.data.views.DatasetView`s.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.config import EvaluationArguments
+from repro_torch.core.encode_pipeline import (EncodePipeline,
+                                              PipelineChunkSource)
+from repro_torch.core.fair_sharding import FairSharder
+from repro_torch.core.faults import SearchOutcome
+from repro_torch.core.metrics import compute_metrics
+from repro_torch.core.sharded_search import ShardedSearchDriver
+from repro_torch.data.table import stable_id_hash, stable_id_hash_array
+from repro_torch.data.views import DatasetView, as_view
+from repro_torch.device import resolve_device
+
+
+def select_hard_negatives(q_ids: Sequence[str], run_ids: np.ndarray,
+                          scores: np.ndarray,
+                          qrels: dict[str, dict[str, float]],
+                          hash_to_raw: dict[int, str],
+                          exclude_positives: bool = True
+                          ) -> list[tuple[str, str, float]]:
+    """Turn ranked (Q, depth) id hashes into negative qrel triplets."""
+    out: list[tuple[str, str, float]] = []
+    for qi, q in enumerate(q_ids):
+        row = run_ids[qi]
+        keep = row >= 0
+        if exclude_positives:
+            pos = [d for d, g in qrels.get(q, {}).items() if g > 0]
+            if pos:
+                keep &= ~np.isin(row, stable_id_hash_array(pos))
+        out.extend(
+            (q, hash_to_raw[h], s)
+            for h, s in zip(row[keep].tolist(),
+                            scores[qi][keep].tolist()))
+    return out
+
+
+def format_metrics_table(results: dict[str, dict]) -> str:
+    """Markdown table: one row per dataset, one column per metric."""
+    if not results:
+        return "(no results)\n"
+    metrics = list(next(iter(results.values())).keys())
+    widths = [max(len("dataset"),
+                  *(len(n) for n in results))] + [
+        max(len(m), 6) for m in metrics]
+
+    def fmt_row(cells):
+        return "| " + " | ".join(
+            c.ljust(w) for c, w in zip(cells, widths)) + " |\n"
+    out = fmt_row(["dataset"] + metrics)
+    out += "|" + "|".join("-" * (w + 2) for w in widths) + "|\n"
+    for name, vals in results.items():
+        out += fmt_row([name] + [f"{vals[m]:.4f}" for m in metrics])
+    return out
+
+
+class PreparedCorpus:
+    """A corpus resolved once for repeated searches: its id hashes, the
+    sized object the sharder partitions, and the chunk loader the driver
+    streams (encode pipeline or device-resident slices)."""
+
+    __slots__ = ("hashes", "n_docs", "load_chunk", "sized")
+
+    def __init__(self, hashes: np.ndarray, n_docs: int, load_chunk,
+                 sized=None):
+        self.hashes = hashes
+        self.n_docs = n_docs
+        self.load_chunk = load_chunk
+        self.sized = n_docs if sized is None else sized
+
+    def __len__(self) -> int:
+        return self.n_docs
+
+    def positions_to_ids(self, pos: np.ndarray) -> np.ndarray:
+        """Map the driver's int32 global positions to 63-bit id hashes
+        on the host (-1 marks empty slots)."""
+        return np.where(pos >= 0, self.hashes[np.clip(pos, 0, None)], -1)
+
+
+class RetrievalEvaluator:
+    """Parameters
+    ----------
+    args : :class:`EvaluationArguments`.
+    retriever : encoder holder (``retriever.encoder.encode``,
+        ``format_query`` / ``format_passage``).
+    collator : :class:`RetrievalCollator` (tokenizer + length budgets).
+    params : the encoder's parameters, on ``device``.
+    device : where encoding and the device backends run; ``"cuda"`` by
+        default, and construction raises when no card is present unless
+        ``device="cpu"`` is passed.
+    sharder : optional :class:`FairSharder` shared across searches.
+    """
+
+    def __init__(self, args: EvaluationArguments, retriever, collator,
+                 params, *, device: str | torch.device = "cuda",
+                 sharder: FairSharder | None = None):
+        self.device = resolve_device(device)
+        self.args = args
+        self.retriever = retriever
+        self.collator = collator
+        self.params = params
+        self.sharder = FairSharder(1) if sharder is None else sharder
+        self.encode_pipeline = (EncodePipeline(
+            self._encode_batch, collator.tokenizer,
+            append_eos=collator.append_eos,
+            pad_to_multiple=collator.args.pad_to_multiple,
+            buckets=args.encode_buckets,
+            batch_size=args.encode_batch_size,
+            tokenizer_workers=args.tokenizer_workers,
+            depth=args.encode_pipeline_depth, device=self.device)
+            if args.encode_buckets > 0 else None)
+        # (corpus_obj, key list, DictView): dict corpora are wrapped and
+        # hashed once, reused across search/evaluate/mine_hard_negatives
+        self._corpus_view_cache: tuple[dict, list, DatasetView] | None = None
+        # the last search's driver stats (executor, calls, devices)
+        self.last_search_stats: dict = {}
+
+    # -- encoding ------------------------------------------------------------
+    def _encode_batch(self, params, batch):
+        return self.retriever.encoder.encode(params, batch)
+
+    def _encode_texts(self, texts: Sequence[str], is_query: bool,
+                      device: bool = False, min_batch_dim: int = 8):
+        """Encode texts -> (N, d) float32: a tensor on ``self.device``
+        with ``device=True``, else a numpy array.  ``min_batch_dim``
+        floors the pipeline's small-input batch dim."""
+        fmt = (self.retriever.format_query if is_query
+               else self.retriever.format_passage)
+        bs = (self.args.query_batch_size if is_query
+              else self.args.encode_batch_size)
+        max_len = self.collator.max_len_for(is_query)
+        if self.encode_pipeline is not None:
+            return self.encode_pipeline.encode(
+                self.params, list(texts), max_len, fmt=fmt, device=device,
+                batch_size=bs, min_batch_dim=min_batch_dim)
+        out = []
+        for lo in range(0, len(texts), bs):
+            chunk = [fmt(t) for t in texts[lo: lo + bs]]
+            batch = self.collator.encode_texts(chunk, max_len)
+            batch = {name: torch.from_numpy(a).to(self.device)
+                     for name, a in batch.items()}
+            with torch.no_grad():
+                out.append(self._encode_batch(self.params, batch))
+        enc = (torch.cat(out) if out
+               else torch.empty((0, 0), device=self.device))
+        return enc if device else enc.cpu().numpy()
+
+    def _corpus_view(self, corpus) -> DatasetView:
+        """Coerce a corpus/query container to a view; dicts are wrapped
+        once per (object, key list)."""
+        if isinstance(corpus, DatasetView):
+            return corpus
+        if isinstance(corpus, dict):
+            keys = list(corpus.keys())
+            cached = self._corpus_view_cache
+            if (cached is not None and cached[0] is corpus
+                    and cached[1] == keys):
+                return cached[2]
+            view = as_view(corpus)
+            self._corpus_view_cache = (corpus, keys, view)
+            return view
+        return as_view(corpus)
+
+    # -- search --------------------------------------------------------------
+    def make_driver(self) -> ShardedSearchDriver:
+        return ShardedSearchDriver(
+            sharder=self.sharder, score_impl=self.args.score_impl,
+            heap_impl=self.args.heap_impl,
+            chunk_size=self.args.encode_batch_size,
+            prefetch=self.args.async_prefetch,
+            superchunk_size=self.args.superchunk_size,
+            superchunk_max_mb=self.args.superchunk_max_mb,
+            device=self.device)
+
+    def _on_device(self) -> bool:
+        return self.args.score_impl != "numpy"
+
+    def prepare_corpus(self, corpus, *,
+                       device_resident: bool = False) -> PreparedCorpus:
+        """Resolve a corpus once for repeated searches against it.
+
+        Online (default): chunks are encoded as the driver streams them,
+        through the bucketed encode pipeline.  ``device_resident=True``
+        encodes the whole corpus now and keeps the embeddings where
+        scoring happens (the card for the device backends, the host for
+        ``numpy``): chunk loads become zero-copy slices.
+        """
+        on_device = self._on_device()
+        corpus_v = self._corpus_view(corpus)
+        texts = corpus_v.texts()
+        hashes = np.asarray(corpus_v.id_hashes)
+        n_docs = len(corpus_v)
+        if device_resident:
+            embs = self._encode_texts(texts, False, device=on_device)
+            return PreparedCorpus(hashes, n_docs, lambda lo, hi: embs[lo:hi])
+        if self.encode_pipeline is not None:
+            load_chunk = PipelineChunkSource(
+                self.encode_pipeline, self.params, texts,
+                self.collator.max_len_for(False),
+                fmt=self.retriever.format_passage, device=on_device)
+        else:
+            def load_chunk(lo: int, hi: int):
+                return self._encode_texts(texts[lo:hi], False,
+                                          device=on_device)
+        return PreparedCorpus(hashes, n_docs, load_chunk, sized=corpus_v)
+
+    def _search_embedded(self, q_emb, prepared: PreparedCorpus,
+                         topk: int):
+        driver = self.make_driver()
+        out = driver.search(q_emb, prepared.sized, prepared.load_chunk,
+                            topk)
+        self.last_search_stats = driver.stats
+        return out
+
+    def search_prepared(self, queries, prepared: PreparedCorpus,
+                        topk: int | None = None) -> SearchOutcome:
+        """:meth:`search` against an already-prepared corpus."""
+        topk = topk or self.args.topk
+        q_view = self._corpus_view(queries)
+        q_emb = self._encode_texts(q_view.texts(), True,
+                                   device=self._on_device())
+        out = self._search_embedded(q_emb, prepared, topk)
+        vals, pos = out
+        return SearchOutcome((np.asarray(q_view.id_hashes),
+                              prepared.positions_to_ids(pos), vals),
+                             coverage=out.coverage, degraded=out.degraded)
+
+    def search_texts(self, texts: Sequence[str], prepared: PreparedCorpus,
+                     topk: int | None = None,
+                     min_batch_dim: int = 8) -> SearchOutcome:
+        """Raw-text query search against a prepared corpus — the serve
+        backends' entry point.  Returns ``(doc_id_hashes (Q, k), scores
+        (Q, k))``."""
+        topk = topk or self.args.topk
+        q_emb = self._encode_texts(list(texts), True,
+                                   device=self._on_device(),
+                                   min_batch_dim=min_batch_dim)
+        out = self._search_embedded(q_emb, prepared, topk)
+        vals, pos = out
+        return SearchOutcome((prepared.positions_to_ids(pos), vals),
+                             coverage=out.coverage, degraded=out.degraded)
+
+    def search(self, queries, corpus,
+               topk: int | None = None) -> SearchOutcome:
+        """Dense retrieval: -> (qid_hashes, doc_id_hashes (Q, k), scores).
+
+        Device-side top-k tracks int32 global corpus positions; they are
+        mapped back to id hashes on the host.
+        """
+        return self.search_prepared(queries, self.prepare_corpus(corpus),
+                                    topk)
+
+    # -- public API ----------------------------------------------------------
+    def evaluate(self, queries, corpus,
+                 qrels: dict[str, dict[str, float]]) -> dict:
+        """Metrics for one (queries, corpus, qrels) scenario; ``qrels``
+        may be keyed by raw ids or by stable hashes."""
+        q_hashes, run_ids, _ = self.search(queries, corpus)
+        qrels_h = {
+            stable_id_hash(q): {stable_id_hash(d): float(g)
+                                for d, g in docs.items()}
+            for q, docs in qrels.items()}
+        return compute_metrics(self.args.metrics, run_ids, q_hashes,
+                               qrels_h)
+
+    def mine_hard_negatives(self, queries, corpus,
+                            qrels: dict[str, dict[str, float]],
+                            depth: int | None = None,
+                            exclude_positives: bool = True,
+                            output_path: str | None = None):
+        """Top-ranked non-positives per query -> negative qrel triplets."""
+        depth = depth or self.args.topk
+        q_ids = self._corpus_view(queries).raw_ids()
+        _, run_ids, scores = self.search(queries, corpus, topk=depth)
+        corpus_v = self._corpus_view(corpus)
+        hashes = np.asarray(corpus_v.id_hashes)
+        hash_to_raw = dict(zip(hashes.tolist(), corpus_v.raw_ids()))
+        out = select_hard_negatives(q_ids, run_ids, scores, qrels,
+                                    hash_to_raw, exclude_positives)
+        if output_path:
+            with open(output_path, "w") as f:
+                for q, d, s in out:
+                    f.write(f"{q}\t{d}\t{s}\n")
+        return out

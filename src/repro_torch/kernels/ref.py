@@ -1,0 +1,77 @@
+"""Plain PyTorch versions of the streaming top-k kernels.
+
+These compute exactly what the CUDA kernels in ``csrc/topk.cu`` compute.
+The kernel wrappers (``kernels/topk.py``) take them for CPU tensors; the
+CPU tests hold them against the reference package, and ``chip_smoke.py``
+holds the kernels against them on the card.
+
+Selection rule (shared by every path of the port): the new state is the
+first k of a **stable** descending sort over the concatenation
+``[state | candidates]``, with NaN read as -inf.  The state starts as k
+slots of (-inf, -1) ahead of every candidate and ties go to the earlier
+entry of the concatenation, so the lower stream position wins a tie and
+a -inf (or NaN) candidate never surfaces an id.  ``torch.topk`` is never
+used: it promises no order among ties on CUDA.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = float("-inf")
+
+
+def score_matrix(queries: torch.Tensor, docs: torch.Tensor) -> torch.Tensor:
+    """(Q, d) x (N, d) -> (Q, N) float32 dot-product scores.
+
+    On the CPU the products are summed in float64 and rounded once, so
+    the scores do not depend on how the corpus was cut into chunks (a
+    BLAS may pick its summation order by shape) and every CPU backend
+    of the port agrees bitwise.  On the card the float32 product is used
+    as it is (TF32 off, see ``device.require_full_f32``).
+    """
+    if queries.device.type == "cpu":
+        return (queries.double() @ docs.double().T).float()
+    return queries.float() @ docs.float().T
+
+
+def select_topk(vals: torch.Tensor, ids: torch.Tensor,
+                cand_v: torch.Tensor, cand_i: torch.Tensor):
+    """First k of the stable descending sort of ``[state | candidates]``.
+
+    vals (Q, k) f32, ids (Q, k) i32, cand_v (Q, m) f32, cand_i (Q, m)
+    i32 -> new (vals, ids), sorted descending.
+    """
+    k = vals.shape[1]
+    cv = torch.cat([vals, cand_v.float()], dim=1)
+    cv = torch.where(torch.isnan(cv), NEG_INF, cv)
+    ci = torch.cat([ids, cand_i.to(ids.dtype)], dim=1)
+    top_v, pos = torch.sort(cv, dim=1, descending=True, stable=True)
+    return top_v[:, :k].contiguous(), torch.gather(ci, 1, pos[:, :k])
+
+
+def topk_update_ref(vals: torch.Tensor, ids: torch.Tensor,
+                    scores: torch.Tensor, chunk_ids: torch.Tensor):
+    """K2: merge a (Q, C) score chunk with ids (C,) into the (Q, k)
+    state -> new (vals, ids)."""
+    cand_i = chunk_ids.to(ids.dtype)[None, :].expand(scores.shape)
+    return select_topk(vals, ids, scores, cand_i)
+
+
+def fused_score_topk_ref(vals: torch.Tensor, ids: torch.Tensor,
+                         queries: torch.Tensor, tile: torch.Tensor,
+                         offsets: torch.Tensor, n_valids: torch.Tensor):
+    """K1: fold an (S, C, d) superchunk into the (Q, k) state.
+
+    Step ``s`` scores rows ``r < n_valids[s]`` of ``tile[s]`` with id
+    ``offsets[s] + r``; rows at or past ``n_valids[s]`` are (-inf, -1).
+    Returns new (vals, ids).
+    """
+    s, c, d = tile.shape
+    scores = score_matrix(queries, tile.reshape(s * c, d))
+    row = torch.arange(c, device=tile.device, dtype=torch.int32)
+    valid = row[None, :] < n_valids[:, None]                     # (S, C)
+    cand_i = torch.where(valid, offsets[:, None] + row[None, :], -1)
+    scores = torch.where(valid.reshape(1, s * c), scores, NEG_INF)
+    return select_topk(vals, ids, scores,
+                       cand_i.reshape(1, s * c).expand(scores.shape))

@@ -1,0 +1,152 @@
+"""Wrappers of the streaming top-k kernels (CUDA C++, ``csrc/topk.cu``).
+
+K1 :func:`fused_score_topk_` replaces the TPU kernel
+``src/repro/kernels/topk.py::fused_score_topk_pallas`` and, taking a
+whole superchunk per launch, the scan that hosted it.  K2
+:func:`topk_update_` replaces ``topk_update_pallas``.  Both update the
+(Q, k) state **in place**, as the TPU kernels alias their state inputs
+and outputs.  The source note in ``csrc/topk.cu`` says what bounds each
+kernel on an H100 and what its design does about it.
+
+A wrapper checks device, dtype, shape and contiguity and raises on
+anything else.  For CPU tensors it runs the plain version
+(``kernels/ref.py``); for CUDA tensors it launches the kernel on the
+current stream or raises — there is no fallback.  Each launch adds one
+to the kernel's count in :data:`LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+
+# Largest k the kernels take (csrc/topk.cu kMaxK).
+MAX_K = 256
+# Shared memory one block may use on Hopper (227 KB).
+_MAX_SMEM = 232_448
+
+# Kernel launches since the last reset_launch_counts(), by kernel name.
+LAUNCHES = {"fused_score_topk": 0, "topk_update": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
+           device: torch.device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got "
+                        f"{type(t).__name__}")
+    if t.dtype != dtype or t.dim() != ndim:
+        raise ValueError(f"{name} must be a {ndim}-d {dtype} tensor, got "
+                         f"{t.dim()}-d {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, the state on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_state(vals: torch.Tensor, ids: torch.Tensor) -> None:
+    _check(vals, "vals", torch.float32, 2, vals.device)
+    _check(ids, "ids", torch.int32, 2, vals.device)
+    if ids.shape != vals.shape:
+        raise ValueError(f"ids {tuple(ids.shape)} != vals "
+                         f"{tuple(vals.shape)}")
+    k = vals.shape[1]
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k must be in [1, {MAX_K}], got {k}")
+
+
+def _launch(fn, *args) -> None:
+    code = fn(*args)
+    if code != 0:
+        from repro_torch.kernels._build import load_library
+        msg = load_library().repro_cuda_error_string(code).decode()
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {code} "
+                           f"({msg})")
+
+
+def fused_score_topk_(vals: torch.Tensor, ids: torch.Tensor,
+                      queries: torch.Tensor, tile: torch.Tensor,
+                      offsets: torch.Tensor, n_valids: torch.Tensor) -> None:
+    """K1, in place: fold the (S, C, d) superchunk ``tile`` into the
+    (Q, k) state ``(vals, ids)``.
+
+    Step ``s`` scores rows ``r < n_valids[s]`` of ``tile[s]`` against
+    ``queries`` (Q, d) with id ``offsets[s] + r``; ``offsets`` and
+    ``n_valids`` are (S,) int32 on the state's device.
+    """
+    _check_state(vals, ids)
+    dev = vals.device
+    _check(queries, "queries", torch.float32, 2, dev)
+    _check(tile, "tile", torch.float32, 3, dev)
+    _check(offsets, "offsets", torch.int32, 1, dev)
+    _check(n_valids, "n_valids", torch.int32, 1, dev)
+    q, k = vals.shape
+    s, c, d = tile.shape
+    if queries.shape != (q, d):
+        raise ValueError(f"queries {tuple(queries.shape)} != ({q}, {d})")
+    if offsets.shape != (s,) or n_valids.shape != (s,):
+        raise ValueError(f"offsets/n_valids must be ({s},), got "
+                         f"{tuple(offsets.shape)}/{tuple(n_valids.shape)}")
+    if q == 0 or s * c == 0:
+        return
+    if dev.type == "cpu":
+        v, i = ref.fused_score_topk_ref(vals, ids, queries, tile, offsets,
+                                        n_valids)
+        vals.copy_(v)
+        ids.copy_(i)
+        return
+    lib = _library_for(dev, fused=True, d=d, k=k)
+    with torch.cuda.device(dev):
+        _launch(lib.repro_fused_score_topk, queries.data_ptr(),
+                tile.data_ptr(), offsets.data_ptr(), n_valids.data_ptr(), q,
+                d, s, c, k, vals.data_ptr(), ids.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    LAUNCHES["fused_score_topk"] += 1
+
+
+def topk_update_(vals: torch.Tensor, ids: torch.Tensor,
+                 scores: torch.Tensor, chunk_ids: torch.Tensor) -> None:
+    """K2, in place: merge ``scores`` (Q, C) f32 with ``chunk_ids`` (C,)
+    int32 into the (Q, k) state ``(vals, ids)``.  NaN scores count as
+    -inf."""
+    _check_state(vals, ids)
+    dev = vals.device
+    _check(scores, "scores", torch.float32, 2, dev)
+    _check(chunk_ids, "chunk_ids", torch.int32, 1, dev)
+    q, k = vals.shape
+    c = scores.shape[1]
+    if scores.shape[0] != q or chunk_ids.shape != (c,):
+        raise ValueError(f"scores {tuple(scores.shape)} / chunk_ids "
+                         f"{tuple(chunk_ids.shape)} do not match state "
+                         f"({q}, {k})")
+    if q == 0 or c == 0:
+        return
+    if dev.type == "cpu":
+        v, i = ref.topk_update_ref(vals, ids, scores, chunk_ids)
+        vals.copy_(v)
+        ids.copy_(i)
+        return
+    lib = _library_for(dev, fused=False, d=0, k=k)
+    with torch.cuda.device(dev):
+        _launch(lib.repro_topk_update, vals.data_ptr(), ids.data_ptr(),
+                scores.data_ptr(), chunk_ids.data_ptr(), q, c, k,
+                torch.cuda.current_stream(dev).cuda_stream)
+    LAUNCHES["topk_update"] += 1
+
+
+def _library_for(dev: torch.device, *, fused: bool, d: int, k: int):
+    """The loaded kernel library, after checking the launch fits."""
+    if dev.type != "cuda":
+        raise ValueError(f"the kernels take CUDA or CPU tensors, got {dev}")
+    from repro_torch.kernels._build import load_library
+    lib = load_library()
+    need = lib.repro_topk_smem_bytes(int(fused), d, k)
+    if need > _MAX_SMEM:
+        raise ValueError(f"d={d}, k={k} needs {need} bytes of shared "
+                         f"memory per block; the card offers {_MAX_SMEM}")
+    return lib

@@ -1,0 +1,80 @@
+"""Encoder wrappers + registry (paper §3.3 / Appendix B).
+
+An encoder bundles ``encode(params, batch) -> (B, d)`` embeddings, input
+formatting callbacks and parameter construction.  Subclasses register
+under ``_alias`` so experiments swap encoders by name; any object with
+the same duck-type also works.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.models import transformer
+
+ENCODER_REGISTRY: dict[str, type["PretrainedEncoder"]] = {}
+
+
+class PretrainedEncoder:
+    _alias = ""
+
+    def __init_subclass__(cls, **kw):
+        super().__init_subclass__(**kw)
+        if cls._alias:
+            ENCODER_REGISTRY[cls._alias] = cls
+
+    def init_params(self, generator: torch.Generator,
+                    device: str | torch.device = "cuda"):
+        raise NotImplementedError
+
+    def encode(self, params, batch: dict[str, torch.Tensor]):
+        """batch {"tokens", "mask"} -> (B, d) L2-normalized embeddings."""
+        raise NotImplementedError
+
+    def format_query(self, text: str) -> str:
+        return text
+
+    def format_passage(self, text: str, title: str = "") -> str:
+        return f"{title} {text}".strip() if title else text
+
+
+def get_encoder(alias: str, *args, **kw) -> PretrainedEncoder:
+    return ENCODER_REGISTRY[alias](*args, **kw)
+
+
+class DefaultEncoder(PretrainedEncoder):
+    """LM-transformer encoder (dense backbone)."""
+
+    _alias = "lm"
+
+    def __init__(self, cfg: transformer.LMConfig):
+        self.cfg = cfg
+
+    def init_params(self, generator, device="cuda"):
+        return transformer.init_params(self.cfg, generator, device)
+
+    def encode(self, params, batch):
+        return transformer.encode(self.cfg, params, batch["tokens"],
+                                  batch["mask"])
+
+
+class EncoderWithInstruction(DefaultEncoder):
+    """Paper Appendix B example: E5-Mistral-style instruction formatting."""
+
+    _alias = "encoder_with_inst"
+
+    instruction = "Given a web search query, retrieve relevant passages"
+
+    def format_query(self, text: str) -> str:
+        return f"Instruct: {self.instruction}\nQuery: {text}"
+
+
+class MeanPoolEncoder(DefaultEncoder):
+    """Paper Appendix B example: overriding the pooling method."""
+
+    _alias = "encoder_mean_pool"
+
+    def __init__(self, cfg: transformer.LMConfig):
+        super().__init__(dataclasses.replace(cfg, pooling="mean"))

@@ -1,0 +1,64 @@
+"""The port's import boundary, and chip_smoke.py's refusal without a card.
+
+``repro_torch`` imports ``torch``, never ``jax`` and nothing of
+``repro`` (not even its JAX-free modules).  A subprocess imports every
+module of the port with ``sys.modules["jax"] = None`` (so any JAX import
+fails) and lists the loaded module names; a name is the reference
+package when it is ``repro`` or starts with ``repro.`` — ``repro_torch``
+shares the prefix and must not count.
+"""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(REPO, "src")
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+sys.modules["jax"] = None
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+loaded = sorted(n for n, m in sys.modules.items() if m is not None)
+print(json.dumps({"imported": names, "loaded": loaded}))
+"""
+
+
+def _env():
+    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
+    env.pop("CUDA_VISIBLE_DEVICES", None)
+    return env
+
+
+def test_port_imports_no_jax_and_no_reference():
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                          env=_env(), capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert {"repro_torch.kernels.topk", "repro_torch.core.evaluator",
+            "repro_torch.models.convert",
+            "repro_torch.configs.trove_base"} <= set(out["imported"])
+    leaked = [m for m in out["loaded"]
+              if m in ("jax", "repro") or m.startswith(("jax.", "repro."))]
+    assert leaked == []
+
+
+def test_chip_smoke_refuses_without_card_or_checkout(tmp_path):
+    """No CUDA device here: chip_smoke.py exits non-zero and prints no
+    result line; alone in a directory it fails the same way."""
+    alone = tmp_path / "alone"
+    alone.mkdir()
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), alone)
+    for cwd in (REPO, str(alone)):
+        proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                              env=_env(), capture_output=True, text=True,
+                              timeout=300)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
