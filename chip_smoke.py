@@ -9,12 +9,12 @@ CUDA toolkit (``nvcc``):
 Phases, each printing its own lines:
   (a) the card (``nvidia-smi`` name and power limit), torch / CUDA
       versions, and the build of the CUDA kernels from the sources in the
-      checkout;
-  (b) each kernel against its plain PyTorch version on the card, at the
-      main-path shapes and at edge shapes: bitwise on integer-valued
-      inputs, within TOL on random unit vectors; then each kernel's time,
-      its plain version's, one library call's for the same function, and
-      its bound;
+      checkout (one ``nvcc`` per source, all started together);
+  (b) each kernel (K1, K2 streaming top-k; K4 EmbeddingBag) against its
+      plain PyTorch version on the card, at the main-path shapes and at
+      edge shapes: bitwise on integer-valued inputs, within TOL on random
+      floats; then each kernel's time, its plain version's, one library
+      call's for the same function, and its bound;
   (c) trove-base at full width (12 x 768, bf16, seeded random weights) on
       a synthetic dataset through ``RetrievalEvaluator.evaluate`` /
       ``search`` / ``mine_hard_negatives`` with the backend pairs
@@ -22,12 +22,21 @@ Phases, each printing its own lines:
   (d) serving: ``prepare_corpus(device_resident=True)``, then
       ``search_texts`` requests, each timed, the first held against an
       exact float64 top-k;
-  (e) launches per path: the counts are set to 0 just before each
-      evaluate / search / mine_hard_negatives call of (c) and the serving
-      requests of (d), and read just after; each kernel of that path must
-      have launched exactly as often as the driver's own stats say (one
-      K1 launch per superchunk call, one K2 launch per scored chunk), and
-      a kernel off the path not at all.
+  (e) launches per path: every kernel's count is set to 0 just before
+      each evaluate / search / mine_hard_negatives call of (c), the
+      serving requests of (d) and each recsys cell of (f), and read just
+      after; each kernel of that path must have launched exactly as often
+      as predicted (``ShardedSearchDriver.stats`` on (c) / (d): one K1
+      launch per superchunk call, one K2 launch per scored chunk; the
+      model on (f): K4 twice per DeepFM forward, once per Wide&Deep
+      forward, K2 once per retrieval), and a kernel off the path not at
+      all;
+  (f) recsys scoring at the full published widths (seeded random weights
+      drawn on the card): DeepFM serve_p99 / serve_bulk / retrieval_cand,
+      Wide&Deep serve_p99 / retrieval_cand, AutoInt and BST serve_p99;
+      probabilities in (0, 1), 8 DeepFM rows against a float64 host
+      recomputation, each retrieval top-k against an exact float64 top-k
+      of the same scores; latencies, examples/s and peak memory.
 The second-to-last line is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and the script
 exits non-zero without that line.  It imports nothing of JAX and nothing
@@ -54,6 +63,13 @@ TOL = 1e-5
 # a superchunk of 64 chunks of encode_batch_size = 32 rows (K1), and a
 # K2 chunk of 4096 scores.
 Q, D, K, S, C, C2 = 256, 768, 100, 64, 32, 4096
+# the recsys path's shapes: candidates per user at retrieval_cand (top-K
+# of them), and K4's batches (serve_p99, serve_bulk, retrieval_cand)
+NC = 1_000_000
+BAG_BATCHES = (512, 262144, NC)
+# Cycles the card spins before each timed call (~0.2 ms at 1.98 GHz:
+# longer than a wrapper takes to enqueue one launch).
+SPIN_CYCLES = 400_000
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # and device memory bandwidth.
 F32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
@@ -74,7 +90,12 @@ def card_line() -> str:
 def median_ms(fn, reset, n: int = 30) -> float:
     """Median time of ``fn`` between two CUDA events, ``reset`` run
     outside the events before every call (the in-place kernels would
-    otherwise find the state already full and do less work)."""
+    otherwise find the state already full and do less work).
+
+    A spin of SPIN_CYCLES on the card precedes the start event, so the
+    card is still busy while the host enqueues ``fn``: the events then
+    time the device's work, not the wrapper's Python before the launch
+    (which otherwise lands between the events when ``fn`` is short)."""
     import torch
     for _ in range(3):
         reset()
@@ -84,6 +105,7 @@ def median_ms(fn, reset, n: int = 30) -> float:
         reset()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -211,6 +233,9 @@ def phase_kernels(dev) -> dict:
                                          device=dev), K, True)
     k2_case("k=256 > C", ints(7, 50),
             torch.arange(50, dtype=torch.int32, device=dev), 256, True)
+    # the recsys retrieval_cand shape: one user, 10^6 candidates, k = 100
+    k2_case("retrieval_cand int", ints(1, NC, lo=-50, hi=51),
+            torch.arange(NC, dtype=torch.int32, device=dev), K, True)
     # an empty slice launches nothing and answers the empty state
     ev, ei = ops.fused_score_topk(unit(4, D), unit(0, D), K)
     if not (torch.isneginf(ev).all() and (ei == -1).all()):
@@ -290,28 +315,222 @@ def phase_kernels(dev) -> dict:
               f"{info['ms']:.4f} ms, plain {info['plain_ms']:.4f} ms, "
               f"library {info['library_ms']:.4f} ms, bound "
               f"{out[name]['bound_ms']:.4f} ms ({out[name]['bound_by']})")
+
+    # K2 at the recsys retrieval_cand shape (Q = 1: one block)
+    rs = unit(1, NC)
+    rc = torch.arange(NC, dtype=torch.int32, device=dev)
+    rv, ri = ops.empty_state(1, K, dev)
+
+    def rreset():
+        rv.fill_(float("-inf"))
+        ri.fill_(-1)
+
+    t_bytes = (4 * 2 * NC + 2 * K * 8) / HBM_BYTES_S * 1e3
+    t_ops = NC / F32_FLOPS * 1e3
+    k2_q1 = {
+        "shape": f"retrieval_cand Q=1 C={NC} k={K}",
+        "ms": median_ms(lambda: topk.topk_update_(rv, ri, rs, rc), rreset),
+        "plain_ms": median_ms(lambda: ref.topk_update_ref(rv, ri, rs, rc),
+                              rreset),
+        "library_ms": median_ms(lambda: torch.topk(rs, K), rreset),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    out["topk_update"]["timings"] = [k2_q1]
+    print(f"[b] topk_update at {k2_q1['shape']}: kernel "
+          f"{k2_q1['ms']:.4f} ms, plain {k2_q1['plain_ms']:.4f} ms, "
+          f"library {k2_q1['library_ms']:.4f} ms, bound "
+          f"{k2_q1['bound_ms']:.4f} ms ({k2_q1['bound_by']})")
     return out
+
+
+def bag_compare(name, got, want, exact: bool) -> float:
+    """Check a K4 output against its plain version: NaN in the same
+    places, the rest bitwise (``exact``) or within TOL; returns the max
+    abs error."""
+    import torch
+    if got.dtype != want.dtype or got.shape != want.shape:
+        fail(f"K4 {name}: {got.dtype} {tuple(got.shape)} != "
+             f"{want.dtype} {tuple(want.shape)}")
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    if not torch.equal(nan_g, nan_w):
+        fail(f"K4 {name}: NaN in other places than the plain version's")
+    g = torch.where(nan_g, 0.0, got.float())
+    w = torch.where(nan_w, 0.0, want.float())
+    if exact and not torch.equal(g, w):
+        bad = (g != w).any(1).nonzero().flatten()
+        fail(f"K4 {name}: not bitwise equal to the plain version (rows "
+             f"{bad[:8].tolist()})")
+    err = (g - w).abs().max().item() if g.numel() else 0.0
+    if not err <= TOL:
+        fail(f"K4 {name}: max abs error {err} above {TOL}")
+    return err
+
+
+def phase_bag(dev) -> dict:
+    """(b) for K4: the kernel against its plain version at the recsys
+    path's shapes and at the edges, then its times at the serve shapes."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    deepfm, wide = get_arch("deepfm"), get_arch("wide-deep")
+
+    def ids(b, vocab, pad=0.0):
+        """Field-offset ids as the recsys path makes them, a share
+        ``pad`` of them set to -1."""
+        sizes = torch.tensor(vocab, dtype=torch.float64, device=dev)
+        offs = torch.cumsum(sizes, 0) - sizes
+        r = torch.rand(b, len(vocab), dtype=torch.float64, generator=g,
+                       device=dev)
+        out = (offs + (r * sizes).floor()).to(torch.int32)
+        if pad:
+            out[torch.rand(b, len(vocab), generator=g, device=dev)
+                < pad] = -1
+        return out.contiguous()
+
+    def ints(*shape, lo=-3, hi=4):
+        return torch.randint(lo, hi, shape, generator=g, device=dev).float()
+
+    def case(name, table, idx, w, exact):
+        want = ref.embedding_bag_ref(table, idx, w)
+        got = ops.embedding_bag(table, idx, w)
+        torch.cuda.synchronize()
+        err = bag_compare(name, got, want, exact)
+        print(f"[b] K4 {name}: B={idx.shape[0]} L={idx.shape[1]} "
+              f"D={table.shape[1]} {str(table.dtype)[6:]} "
+              f"{'weighted' if w is not None else 'unweighted'} "
+              f"{'bitwise' if exact else f'max_abs_err={err:.3g}'} ok")
+        return err
+
+    v = deepfm.cfg.total_vocab
+    err = 0.0
+    # the path's shapes: serve_p99, serve_bulk and retrieval_cand batches
+    # over DeepFM's 39 fields (FM sum D = 10, linear term D = 1), and
+    # Wide&Deep's 40 fields (wide term D = 1)
+    for d in (10, 1):
+        t_int, t_norm = ints(v, d), torch.randn(v, d, generator=g,
+                                                device=dev)
+        for b in BAG_BATCHES:
+            idx = ids(b, deepfm.cfg.vocab_sizes, pad=0.05)
+            case(f"path int D={d}", t_int, idx,
+                 ints(*idx.shape, lo=-2, hi=3), True)
+            case(f"path int D={d}", t_int, idx, None, True)
+            err = max(err, case(f"path float D={d}", t_norm, idx, None,
+                                False))
+        del t_int, t_norm
+    t_wide = ints(wide.cfg.total_vocab, 1)
+    for b in (BAG_BATCHES[0], BAG_BATCHES[-1]):
+        case("path int (Wide&Deep)", t_wide, ids(b, wide.cfg.vocab_sizes),
+             None, True)
+    del t_wide
+    # edges, on a 1000-row table
+    def uni(b, n_slots, pad=0.0):
+        out = torch.randint(0, 1000, (b, n_slots), generator=g, device=dev,
+                            dtype=torch.int32)
+        if pad:
+            out[torch.rand(b, n_slots, generator=g, device=dev) < pad] = -1
+        return out
+
+    small = ints(1000, 10)
+    case("B=1", small, uni(1, 39), None, True)
+    case("B*D=370, not a multiple of the block", small, uni(37, 39, 0.3),
+         ints(37, 39), True)
+    case("all slots padded", small,
+         torch.full((300, 39), -1, dtype=torch.int32, device=dev), None,
+         True)
+    case("L=1", small, uni(1000, 1), ints(1000, 1), True)
+    case("L=0", small, uni(5, 0), None, True)
+    case("bf16", small.bfloat16(), uni(4099, 39, 0.1), ints(4099, 39), True)
+    case("bf16 float", torch.randn(1000, 10, generator=g,
+                                   device=dev).bfloat16(),
+         uni(4099, 39, 0.1), None, False)
+    past = uni(64, 39)
+    past[3, 5], past[17, 0] = 1000, 123_456_789
+    case("id >= V (NaN rows)", small, past, None, True)
+    inf0 = small.clone()
+    inf0[0] = float("inf")
+    rows1 = uni(64, 39).clamp(min=1)              # row 0 only as padding
+    rows1[:, ::7] = -1
+    case("inf in row 0 under padding", inf0, rows1, None, True)
+    pad_idx = uni(64, 39, 0.1)
+    w_inf = ints(64, 39)
+    w_inf[pad_idx < 0] = float("inf")
+    case("inf weight under padding", small, pad_idx, w_inf, True)
+
+    # times at the serve shapes: DeepFM's tables at init_params' scale,
+    # the ids of smoke_inputs; L2 flushed before every launch, as a
+    # request finds the table rows cold
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def cold():
+        flush.zero_()
+
+    tables = {10: torch.randn(v, 10, generator=g, device=dev).mul_(0.01),
+              1: torch.randn(v, 1, generator=g, device=dev).mul_(0.01)}
+    timings = []
+    for shape in ("serve_p99", "serve_bulk"):
+        idx = deepfm.smoke_inputs(shape, np.random.default_rng(SEED),
+                                  dev)["sparse_idx"]
+        b, n_slots = idx.shape
+        lib_idx = idx.long()                 # in range: no clamp needed
+        psw = torch.ones(b, n_slots, device=dev)        # w * mask
+        rows = int(torch.unique(idx[idx >= 0]).numel())
+        for d, table in tables.items():
+            nbytes = 4 * (idx.numel() + rows * d + b * d)
+            t_bytes = nbytes / HBM_BYTES_S * 1e3
+            t_ops = 2 * b * n_slots * d / F32_FLOPS * 1e3
+            t = {"shape": f"{shape} B={b} L={n_slots} D={d}",
+                 "distinct_rows": rows,
+                 "ms": median_ms(lambda: ops.embedding_bag(table, idx),
+                                 cold),
+                 "plain_ms": median_ms(
+                     lambda: ref.embedding_bag_ref(table, idx), cold),
+                 "library_ms": median_ms(lambda: F.embedding_bag(
+                     lib_idx, table, per_sample_weights=psw, mode="sum"),
+                     cold),
+                 "bound_ms": max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            timings.append(t)
+            print(f"[b] embedding_bag at {t['shape']} ({rows} distinct "
+                  f"rows): kernel {t['ms']:.4f} ms, plain "
+                  f"{t['plain_ms']:.4f} ms, library (F.embedding_bag) "
+                  f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                  f"({t['bound_by']})")
+    del tables, flush
+    torch.cuda.empty_cache()
+    head = timings[2]                       # serve_bulk, D = 10 (FM sum)
+    return {"name": "embedding_bag", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+            "replaces": "src/repro/kernels/embedding_bag.py:47",
+            "launches": 0, "max_abs_err": err, "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "timings": timings}
 
 
 # -- (c) + (d) the main path --------------------------------------------------
 
 
 def on_path(paths: dict, path: str, kernel: str | None, fn, want):
-    """Drive one main path with every launch count set to 0 just before
-    it and read just after it.  ``kernel`` (if any) must have launched;
-    ``want(out)`` gives each kernel's expected launches from the driver's
-    own stats of that run (one K1 launch per superchunk call, one K2
-    launch per scored chunk, 0 off the path)."""
-    from repro_torch.kernels import topk
-    topk.reset_launch_counts()
+    """Drive one main path with every kernel's launch count set to 0 just
+    before it and read just after it.  ``kernel`` (if any) must have
+    launched; ``want(out)`` gives each kernel's expected launches for that
+    run (from ``ShardedSearchDriver.stats`` on the retrieval paths: one K1
+    launch per superchunk call, one K2 launch per scored chunk; from the
+    model on the recsys paths), 0 for every kernel off the path."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
     out = fn()
-    got = dict(topk.LAUNCHES)
+    got = ops.launch_counts()
     expected = want(out)
     if got != expected or (kernel is not None and got[kernel] < 1):
         fail(f"{path}: kernel launches {got}, expected {expected}")
     paths[path] = got
-    print(f"[e] {path}: launches {json.dumps(got)} (as the driver's "
-          f"calls predict)")
+    print(f"[e] {path}: launches {json.dumps(got)} (as predicted)")
     return out
 
 
@@ -364,7 +583,8 @@ def phase_main_path(dev, card: str) -> dict:
             return {"fused_score_topk": (st["dispatch_rounds"]
                                          if score == "fused" else 0),
                     "topk_update": (st["chunks"] if (score, heap) == (
-                        "torch", "kernel") else 0)}
+                        "torch", "kernel") else 0),
+                    "embedding_bag": 0}
 
         t0 = time.perf_counter()
         metrics = on_path(paths, f"evaluate ({score}, {heap})", kernel,
@@ -452,7 +672,8 @@ def phase_main_path(dev, card: str) -> dict:
     req, (ids, vals) = on_path(
         paths, "serve: 8 x search_texts (fused, kernel)",
         "fused_score_topk", serve,
-        lambda _: {"fused_score_topk": sum(rounds), "topk_update": 0})
+        lambda _: {"fused_score_topk": sum(rounds), "topk_update": 0,
+                   "embedding_bag": 0})
     # request 0 against an exact float64 top-k over the same embeddings
     q_emb = ev.encode_pipeline.encode(
         params, req, collator.max_len_for(True),
@@ -476,6 +697,161 @@ def phase_main_path(dev, card: str) -> dict:
     print(f"[d] of which the search round (stream + kernels + finalize), "
           f"ms: {json.dumps([round(x, 3) for x in search_ms])}")
     return paths
+
+
+# -- (f) recsys scoring at full width -----------------------------------------
+
+# (arch, shapes run): AutoInt's and BST's bulk / retrieval attention
+# tensors alone are 12-28 GB and run no kernel, so they run serve_p99 only
+RECSYS_PLAN = (("deepfm", ("serve_p99", "serve_bulk", "retrieval_cand")),
+               ("wide-deep", ("serve_p99", "retrieval_cand")),
+               ("autoint", ("serve_p99",)), ("bst", ("serve_p99",)))
+# K4 launches per forward: DeepFM's linear term and FM sum, Wide&Deep's
+# wide term; AutoInt and BST gather only
+BAGS_PER_FORWARD = {"deepfm": 2, "wide_deep": 1, "autoint": 0, "bst": 0}
+
+
+def deepfm_logits_f64(params, idx, n_mlp):
+    """DeepFM's logits in float64 on the host, from the parameter rows
+    the ids touch (the reference formula, summed in another precision)."""
+    import torch
+    emb = params["table"][idx].double().cpu()              # (B, F, D)
+    lin = params["linear_table"][idx][..., 0].double().cpu().sum(-1)
+    sum_v = emb.sum(1)
+    fm = 0.5 * ((sum_v * sum_v) - (emb * emb).sum(1)).sum(-1)
+    x = emb.reshape(emb.shape[0], -1)
+    for i in range(n_mlp):
+        x = x @ params[f"mlp_w{i}"].double().cpu() + params[
+            f"mlp_b{i}"].double().cpu()
+        if i < n_mlp - 1:
+            x = torch.relu(x)
+    return lin + fm + x[:, 0] + params["bias"].double().cpu()[0]
+
+
+def timed(fn) -> float:
+    """Host-clock ms of ``fn`` ending in a synchronize."""
+    import torch
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_recsys(dev, card: str) -> dict:
+    """(f) the recsys serve and retrieval cells at full published width,
+    seeded random weights drawn on the card; returns each path's launch
+    counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import recsys
+
+    paths: dict = {}
+    for name, shapes in RECSYS_PLAN:
+        arch = get_arch(name)
+        cfg = arch.cfg
+        torch.cuda.reset_peak_memory_stats()
+        params = {}
+        t_init = timed(lambda: params.update(recsys.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED), dev)))
+        n_params = sum(p.numel() for p in params.values())
+        print(f"[f] {name}: {cfg.n_fields} fields, table "
+              f"{cfg.total_vocab} x {cfg.embed_dim}, {n_params / 1e6:.1f} M "
+              f"params {str(cfg.dtype)[6:]}, drawn on the card in "
+              f"{t_init:.1f} ms")
+        bags = BAGS_PER_FORWARD[cfg.kind]
+        rng = np.random.default_rng(SEED)
+        for shape in shapes:
+            spec = arch.shapes[shape]
+            cell = arch.build_cell(shape, dev)
+            batch = arch.smoke_inputs(shape, rng, dev)
+            retrieval = spec["kind"] == "retrieval"
+            want = {"fused_score_topk": 0, "topk_update": int(retrieval),
+                    "embedding_bag": bags}
+            kernel = "topk_update" if retrieval else (
+                "embedding_bag" if bags else None)
+            path = f"recsys {name} {shape}"
+
+            def run(cell=cell, batch=batch):
+                out = cell.fn(params, batch)
+                torch.cuda.synchronize()
+                return out
+
+            out = on_path(paths, path, kernel, run, lambda _, w=want: w)
+            if retrieval:
+                check_retrieval(path, cfg, params, batch, out, spec["topk"])
+                lat = [timed(lambda: run()) for _ in range(3)]
+                print(f"[f] {path} latency ms on {card}: "
+                      f"{json.dumps([round(x, 3) for x in lat])} (median "
+                      f"{statistics.median(lat):.3f}; 1 user x "
+                      f"{spec['n_candidates']} candidates, top-"
+                      f"{spec['topk']})")
+                continue
+            b = spec["batch"]
+            if out.shape != (b,) or not bool(((out > 0) & (out < 1)).all()):
+                fail(f"{path}: probabilities not in (0, 1) / shape "
+                     f"{tuple(out.shape)}")
+            if cfg.kind == "deepfm" and shape == "serve_p99":
+                idx = batch["sparse_idx"][:8]
+                want64 = deepfm_logits_f64(params, idx.long(),
+                                           len(cfg.mlp_dims) + 1)
+                got = recsys.forward(cfg, params, batch)[:8].double().cpu()
+                err = float((got - want64).abs().max())
+                perr = float((out[:8].double().cpu()
+                              - torch.sigmoid(want64)).abs().max())
+                if not (err <= 1e-4 and perr <= 1e-4):
+                    fail(f"{path}: logits vs float64 error {err}, "
+                         f"probabilities {perr} (atol 1e-4)")
+                print(f"[f] {path}: 8 rows vs a float64 host recomputation: "
+                      f"logit max abs error {err:.3g}, probability "
+                      f"{perr:.3g} (atol 1e-4)")
+            if shape == "serve_p99":
+                batches = [arch.smoke_inputs(shape, rng, dev)
+                           for _ in range(20)]
+                lat = [timed(lambda bb=bb: cell.fn(params, bb))
+                       for bb in batches]
+                print(f"[f] {path} batch latency on {card}: median "
+                      f"{statistics.median(lat):.3f} ms, p90 "
+                      f"{sorted(lat)[17]:.3f} ms over 20 batches of {b} "
+                      f"(max {max(lat):.3f})")
+            else:
+                lat = [timed(lambda: cell.fn(params, batch))
+                       for _ in range(5)]
+                med = statistics.median(lat)
+                print(f"[f] {path} on {card}: median {med:.3f} ms per batch "
+                      f"of {b}, {b / med * 1e3:.0f} examples/s")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        held = sum(p.numel() * p.element_size() for p in params.values())
+        print(f"[f] {name}: peak device memory {peak:.2f} GiB (params "
+              f"{held / 2 ** 30:.2f} GiB)")
+        del params
+        torch.cuda.empty_cache()
+    return paths
+
+
+def check_retrieval(path, cfg, params, batch, out, k) -> None:
+    """The cell's top-k against an exact float64 top-k of the same
+    scores: values within TOL, ids equal wherever neighbours are more
+    than TOL apart."""
+    import torch
+
+    from repro_torch.models import recsys
+    vals, ids = out
+    if vals.shape != (k,) or ids.shape != (k,) or not bool(
+            torch.isfinite(vals).all()):
+        fail(f"{path}: bad top-k {tuple(vals.shape)} / {tuple(ids.shape)}")
+    scores = recsys.retrieval_scores(cfg, params, batch).double()
+    wv, wpos = torch.sort(scores, descending=True, stable=True)
+    wv = wv[:k].float()[None]
+    want_ids = batch["cand_idx"][wpos[:k]]
+    err = float((vals[None] - wv).abs().max())
+    sep = separated(wv)[0]
+    if err > TOL or not torch.equal(ids[sep], want_ids[sep]):
+        fail(f"{path}: top-k vs exact float64 top-k: error {err}")
+    print(f"[f] {path}: top-{k} vs exact float64 top-k: max abs error "
+          f"{err:.3g}, ids equal on all {int(sep.sum())} slots separated "
+          f"by more than {TOL}")
 
 
 def main() -> int:
@@ -509,7 +885,10 @@ def main() -> int:
 
     kernels = phase_kernels(dev)
 
+    kernels["embedding_bag"] = phase_bag(dev)
+
     paths = phase_main_path(dev, card)
+    paths.update(phase_recsys(dev, card))
     for name, info in kernels.items():
         info["launches_by_path"] = {p: c[name] for p, c in paths.items()}
         info["launches"] = sum(info["launches_by_path"].values())

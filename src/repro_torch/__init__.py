@@ -29,6 +29,9 @@ _EXPORTS = {
     "BiEncoderRetriever": "repro_torch.models.retriever",
     "PretrainedRetriever": "repro_torch.models.retriever",
     "params_from_jax": "repro_torch.models.convert",
+    "recsys_params_from_jax": "repro_torch.models.convert",
+    "RecSysArch": "repro_torch.configs.recsys_arch",
+    "get_arch": "repro_torch.configs",
     "resolve_device": "repro_torch.device",
 }
 

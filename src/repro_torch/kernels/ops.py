@@ -1,24 +1,37 @@
-"""Public operations on top of the streaming top-k kernels.
+"""Public operations on top of the port's kernels.
 
 The counterparts of ``repro.kernels.ops``: :func:`fused_score_topk`,
-:func:`topk_update` and :func:`superchunk_update`, with the reference's
-rules — an empty docs slice yields an empty (-inf, -1) state, and a
-superchunk carries per-step ``offsets`` / ``n_valids`` with padded steps
-at ``n_valid == 0``.  The TPU's alignment padding (Q to 8 rows, the
-chunk axis to 128 lanes) is not carried over: the kernels mask ragged
-edges themselves.
+:func:`topk_update` and :func:`superchunk_update` over the streaming
+top-k kernels (K1, K2), and :func:`embedding_bag` over K4, with the
+reference's rules — an empty docs slice yields an empty (-inf, -1)
+state, and a superchunk carries per-step ``offsets`` / ``n_valids`` with
+padded steps at ``n_valid == 0``.  The TPU's alignment padding (Q and the
+bags to 8 rows, the chunk axis to 128 lanes) is not carried over: the
+kernels mask ragged edges themselves.  :func:`launch_counts` and
+:func:`reset_launch_counts` cover every kernel's launch count.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import embedding_bag as _bag
 from repro_torch.kernels import ref, topk
 
 NEG_INF = ref.NEG_INF
 
 SUPERCHUNK_SCORES = ("fused", "torch")
 SUPERCHUNK_MERGES = ("kernel", "torch")
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel's launches since the last :func:`reset_launch_counts`."""
+    return {**topk.LAUNCHES, **_bag.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    topk.reset_launch_counts()
+    _bag.reset_launch_counts()
 
 
 def empty_state(n_queries: int, k: int, device) -> tuple[torch.Tensor,
@@ -105,3 +118,21 @@ def superchunk_update(vals: torch.Tensor, ids: torch.Tensor,
                                                               tile[s]),
                              NEG_INF)
         merge_(vals, ids, scores, torch.where(valid, row + offsets[s], -1))
+
+
+def embedding_bag(table: torch.Tensor, idx: torch.Tensor,
+                  weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Fused gather + bag sum (K4): table (V, D), idx (B, L) with idx < 0
+    as padding, optional weights (B, L) -> (B, D) in the table's dtype.
+
+    B = 0 returns (0, D) without a launch.
+    """
+    idx = idx.to(torch.int32).contiguous()
+    out = torch.empty((idx.shape[0], table.shape[1]), dtype=table.dtype,
+                      device=table.device)
+    if idx.shape[0] == 0:
+        return out
+    if weights is not None:
+        weights = weights.float().contiguous()
+    _bag.embedding_bag_(out, table.contiguous(), idx, weights)
+    return out

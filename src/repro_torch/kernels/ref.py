@@ -1,9 +1,10 @@
-"""Plain PyTorch versions of the streaming top-k kernels.
+"""Plain PyTorch versions of the port's kernels.
 
-These compute exactly what the CUDA kernels in ``csrc/topk.cu`` compute.
-The kernel wrappers (``kernels/topk.py``) take them for CPU tensors; the
-CPU tests hold them against the reference package, and ``chip_smoke.py``
-holds the kernels against them on the card.
+These compute exactly what the CUDA kernels in ``csrc/topk.cu`` (K1, K2)
+and ``csrc/embedding_bag.cu`` (K4) compute.  The kernel wrappers
+(``kernels/topk.py``, ``kernels/embedding_bag.py``) take them for CPU
+tensors; the CPU tests hold them against the reference package, and
+``chip_smoke.py`` holds the kernels against them on the card.
 
 Selection rule (shared by every path of the port): the new state is the
 first k of a **stable** descending sort over the concatenation
@@ -75,3 +76,33 @@ def fused_score_topk_ref(vals: torch.Tensor, ids: torch.Tensor,
     scores = torch.where(valid.reshape(1, s * c), scores, NEG_INF)
     return select_topk(vals, ids, scores,
                        cand_i.reshape(1, s * c).expand(scores.shape))
+
+
+def embedding_bag_ref(table: torch.Tensor, idx: torch.Tensor,
+                      weights: torch.Tensor | None = None) -> torch.Tensor:
+    """K4: bag sums ``out[b] = sum_l table[idx[b, l]] * weights[b, l]``.
+
+    table (V, D) float32 or bfloat16, idx (B, L) int32, weights (B, L)
+    float32 or None (all ones) -> (B, D) in the table's dtype.  Slots are
+    added in order l = 0..L-1 in float32 as ``acc + (row * w) * mask``
+    and the sum is rounded once to the table's dtype, as the kernel does.
+    The reference's semantics (``repro.kernels.ref.embedding_bag_ref``)
+    hold at the edges: a slot with idx < 0 is padding that reads row 0
+    and multiplies it by 0 (so a non-finite ``table[0]`` or weight there
+    gives NaN), an id >= V reads a NaN row (``jnp.take``'s fill mode), and
+    L = 0 gives zeros.
+    """
+    b, n_slots = idx.shape
+    v, d = table.shape
+    acc = torch.zeros((b, d), dtype=torch.float32, device=table.device)
+    nan_row = torch.full((d,), float("nan"), device=table.device)
+    for l in range(n_slots):
+        rid = idx[:, l].long()
+        safe = rid.clamp(min=0)
+        inside = safe < v
+        row = torch.where(inside[:, None],
+                          table[torch.where(inside, safe, 0)].float(),
+                          nan_row)
+        w = 1.0 if weights is None else weights[:, l, None].float()
+        acc = acc + (row * w) * (rid >= 0)[:, None].float()
+    return acc.to(table.dtype)

@@ -44,7 +44,7 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} must be a {ndim}-d {dtype} tensor, got "
                          f"{t.dim()}-d {t.dtype}")
     if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, the state on {device}")
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
