@@ -13,8 +13,12 @@ Phases, each printing its own lines:
   (b) each kernel (K1, K2 streaming top-k; K4 EmbeddingBag) against its
       plain PyTorch version on the card, at the main-path shapes and at
       edge shapes: bitwise on integer-valued inputs, within TOL on random
-      floats; then each kernel's time, its plain version's, one library
-      call's for the same function, and its bound;
+      floats for K1 (K2 only compares and copies: bitwise on every input,
+      at split and one-range shapes); then each kernel's time, its plain
+      version's, one library call's for the same function, and its bound
+      (K2 at three shapes, with the split count its wrapper chose, and
+      where it splits, at half, one and two blocks per SM; each of its two
+      kernels' device time from torch.profiler comes after phase (f));
   (c) trove-base at full width (12 x 768, bf16, seeded random weights) on
       a synthetic dataset through ``RetrievalEvaluator.evaluate`` /
       ``search`` / ``mine_hard_negatives`` with the backend pairs
@@ -60,8 +64,9 @@ SEED = 0
 # d = 768 terms carries ~1e-7 of rounding; 1e-5 leaves two decades).
 TOL = 1e-5
 # Main-path shapes: a query batch, trove-base's width, the default depth,
-# a superchunk of 64 chunks of encode_batch_size = 32 rows (K1), and a
-# K2 chunk of 4096 scores.
+# a superchunk of 64 chunks of encode_batch_size = 32 rows (K1; K2 merges
+# one such chunk of 32 scores per launch on the (torch, kernel) path), and
+# a larger K2 chunk of 4096 scores.
 Q, D, K, S, C, C2 = 256, 768, 100, 64, 32, 4096
 # the recsys path's shapes: candidates per user at retrieval_cand (top-K
 # of them), and K4's batches (serve_p99, serve_bulk, retrieval_cand)
@@ -73,6 +78,10 @@ SPIN_CYCLES = 400_000
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # and device memory bandwidth.
 F32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
+# (timing entry, call, reset) of each K2 timing whose two kernels
+# torch.profiler times after the last phase: its CUDA tracing may leave a
+# cost on every launch that follows it.
+PROFILED = []
 
 
 def fail(msg: str) -> None:
@@ -179,21 +188,32 @@ def phase_kernels(dev) -> dict:
               f"{'bitwise' if exact else f'max_abs_err={err:.3g}'} ok")
         return err
 
-    def k2_case(name, scores, cids, k, exact):
-        v, i = ops.empty_state(scores.shape[0], k, dev)
-        err = 0.0
+    def k2_case(name, scores, cids, k, state=None, splits=None):
+        """Two in-place launches on one state (empty unless given, then
+        full), each bitwise against the plain version: K2 only compares
+        and copies, so float inputs must agree exactly too.  ``splits``
+        given calls the C entry point at that many ranges instead of the
+        wrapper (see k2_at_splits)."""
+        q, c = scores.shape
+        v, i = ops.empty_state(q, k, dev) if state is None else state
+        n_splits, span = (topk.split_plan(q, c, topk.sm_count(dev))
+                          if splits is None else topk.ranges(c, splits))
         for rep in range(2):
             want = ref.topk_update_ref(v, i, scores, cids)
-            topk.topk_update_(v, i, scores, cids)
+            if splits is None:
+                topk.topk_update_(v, i, scores, cids)
+            else:
+                k2_at_splits(dev, v, i, scores, cids, splits)
             torch.cuda.synchronize()
-            err = max(err, compare(f"K2 {name} #{rep}", (v, i), want,
-                                   exact))
-            cids = cids + scores.shape[1]
+            compare(f"K2 {name} #{rep}", (v, i), want, True)
+            if not torch.equal(v.view(torch.int32),
+                               want[0].view(torch.int32)):
+                fail(f"K2 {name} #{rep}: value bits differ (signed zeros)")
+            cids = cids + c
             scores = scores.flip(1).contiguous()
-        print(f"[b] K2 {name}: Q={scores.shape[0]} C={scores.shape[1]} "
-              f"k={k} {'bitwise' if exact else f'max_abs_err={err:.3g}'} "
-              f"ok")
-        return err
+        print(f"[b] K2 {name}: Q={q} C={c} k={k} splits={n_splits} "
+              f"span={span} bitwise ok")
+        return v, i
 
     def steps(s, c, n_valid=None):
         offs = torch.arange(s, dtype=torch.int32, device=dev) * c + 11
@@ -205,11 +225,13 @@ def phase_kernels(dev) -> dict:
     k1_case("main int", ints(Q, D), ints(S, C, D), *steps(S, C), K, True)
     k1_err = k1_case("main float", unit(Q, D), unit(S, C, D), *steps(S, C),
                      K, False)
-    k2_case("main int", ints(Q, C2, lo=-4, hi=5),
-            torch.arange(C2, dtype=torch.int32, device=dev), K, True)
-    k2_err = k2_case("main float", unit(Q, C2),
-                     torch.arange(C2, dtype=torch.int32, device=dev), K,
-                     False)
+    def ar(c):
+        return torch.arange(c, dtype=torch.int32, device=dev)
+
+    k2_case("main int", ints(Q, C2, lo=-4, hi=5), ar(C2), K)
+    k2_case("main float", unit(Q, C2), ar(C2), K)
+    k2_case("path int", ints(Q, C, lo=-4, hi=5), ar(C), K)
+    k2_case("path float", unit(Q, C), ar(C), K)
     # edges: Q not a multiple of 8 with n_valid < C and a padded step;
     # k > N; duplicated rows (ties); NaN and -inf scores; k = 1 and the
     # largest k
@@ -229,13 +251,57 @@ def phase_kernels(dev) -> dict:
     sc = ints(13, 300, lo=-3, hi=4)
     sc[torch.rand(13, 300, generator=g, device=dev) < 0.2] = float("nan")
     sc[torch.rand(13, 300, generator=g, device=dev) < 0.2] = float("-inf")
-    k2_case("nan/-inf", sc, torch.arange(300, dtype=torch.int32,
-                                         device=dev), K, True)
-    k2_case("k=256 > C", ints(7, 50),
-            torch.arange(50, dtype=torch.int32, device=dev), 256, True)
-    # the recsys retrieval_cand shape: one user, 10^6 candidates, k = 100
-    k2_case("retrieval_cand int", ints(1, NC, lo=-50, hi=51),
-            torch.arange(NC, dtype=torch.int32, device=dev), K, True)
+    k2_case("nan/-inf", sc, ar(300), K)
+    k2_case("k=256 > C", ints(7, 50), ar(50), 256)
+    # the recsys retrieval_cand shape: one user, 10^6 candidates, k = 100,
+    # split into ranges over the SMs (two stages)
+    k2_case("retrieval_cand int", ints(1, NC, lo=-50, hi=51), ar(NC), K)
+    k2_case("retrieval_cand float", unit(1, NC), ar(NC), K)
+    v, i = k2_case("all equal", torch.full((1, NC), 0.5, device=dev),
+                   ar(NC), K)
+    if not torch.equal(i[0], ar(K)):
+        fail("K2 all equal: ids are not the first k columns")
+    # ties straddling range boundaries: 120 columns of the top value
+    # around each of three boundaries, so the top-k is all ties
+    span = topk.split_plan(1, NC, topk.sm_count(dev))[1]
+    sc = ints(1, NC, lo=-50, hi=51)
+    for r in (1, 2, 7):
+        sc[0, r * span - 60: r * span + 60] = 100.0
+    k2_case("ties across range boundaries", sc, ar(NC), K)
+    # whole ranges of NaN and of -inf, and a row with only 50 finite
+    # scores (the rest of the state stays (-inf, -1))
+    sc = unit(2, NC)
+    sc[:, :10 * span] = float("nan")
+    sc[:, 10 * span: 20 * span] = float("-inf")
+    sc[1, 20 * span:] = float("nan")
+    sc[1, 30 * span: 30 * span + 50] = 1.0
+    k2_case("NaN / -inf ranges", sc, ar(NC), K)
+    # an unsorted incoming state with ties against the candidates and a
+    # NaN slot, on the split path and on the one-range path
+    for q, c in ((1, NC), (Q, C)):
+        sv = ints(q, K, lo=-50, hi=51)
+        sv[:, 3] = float("nan")
+        si = (torch.randperm(q * K, generator=g, device=dev).reshape(q, K)
+              .to(torch.int32) + 5 * NC)
+        k2_case(f"unsorted state Q={q}", ints(q, c, lo=-50, hi=51), ar(c),
+                K, state=(sv, si))
+    k2_case("Q=3 split grid", ints(3, NC, lo=-50, hi=51), ar(NC), K)
+    # C not a multiple of the span, rows not 16-byte aligned, and a view
+    # whose data starts 4 bytes into its storage
+    k2_case(f"C={NC - 1}", unit(3, NC - 1), ar(NC - 1), K)
+    k2_case("offset view", unit(1, NC + 1).flatten()[1:].view(1, NC),
+            ar(NC), K)
+    k2_case("k=256 split", unit(1, NC), ar(NC), 256)
+    # signed zeros tie (IEEE ==): the earlier entry wins, whatever its sign
+    sz = torch.where(torch.rand(1, NC, generator=g, device=dev) < 0.5,
+                     -0.0, 0.0)
+    sz[0, ::9973] = 1.0
+    k2_case("signed zeros", sz, ar(NC), K)
+    # ranges shorter than k, and k > C, at a split grid (split counts the
+    # wrapper's plan does not pick: its ranges are at least MIN_SPAN long)
+    k2_case("k > C > span", ints(2, 200), ar(200), 256, splits=5)
+    k2_case("forced splits", ints(5, 1000, lo=-3, hi=4), ar(1000), K,
+            splits=7)
     # an empty slice launches nothing and answers the empty state
     ev, ei = ops.fused_score_topk(unit(4, D), unit(0, D), K)
     if not (torch.isneginf(ev).all() and (ei == -1).all()):
@@ -252,8 +318,6 @@ def phase_kernels(dev) -> dict:
     # before each launch, as the first superchunk of a search finds it)
     q, tile = unit(Q, D), unit(S, C, D)
     offs, nvs = steps(S, C)
-    scores = unit(Q, C2)
-    cids = torch.arange(C2, dtype=torch.int32, device=dev)
     v, i = ops.empty_state(Q, K, dev)
     v0, i0 = v.clone(), i.clone()
 
@@ -270,14 +334,6 @@ def phase_kernels(dev) -> dict:
         "library_ms": median_ms(lambda: torch.topk(q @ docs2d.T, K),
                                 reset),
     }
-    k2 = {
-        "ms": median_ms(lambda: topk.topk_update_(v, i, scores, cids),
-                        reset),
-        "plain_ms": median_ms(lambda: ref.topk_update_ref(
-            v, i, scores, cids), reset),
-        "library_ms": median_ms(lambda: torch.topk(
-            torch.cat([v, scores], 1), K), reset),
-    }
     # K1 at the serving shape of phase (d): one request of 32 queries and
     # a superchunk of 8 chunks (Q / 4 = 8 blocks on the card)
     nq, ns = min(32, Q), min(8, S)
@@ -290,57 +346,134 @@ def phase_kernels(dev) -> dict:
     # bound: the larger of bytes over the memory rate and float32
     # operations over the float32 rate; each input read once, each output
     # written once (the state is read and written)
-    state_bytes = 2 * Q * K * 8
-    k1_bytes = 4 * (Q * D + S * C * D + 2 * S) + state_bytes
+    k1_bytes = 4 * (Q * D + S * C * D + 2 * S) + 2 * Q * K * 8
     k1_ops = 2 * Q * int(nvs.sum()) * D
-    k2_bytes = 4 * (Q * C2 + C2) + state_bytes
-    k2_ops = Q * C2                   # one comparison per score
-    out = {}
-    for name, info, nbytes, nops, err, replaces in (
-            ("fused_score_topk", k1, k1_bytes, k1_ops, k1_err,
-             "src/repro/kernels/topk.py:130"),
-            ("topk_update", k2, k2_bytes, k2_ops, k2_err,
-             "src/repro/kernels/topk.py:67")):
-        t_bytes = nbytes / HBM_BYTES_S * 1e3
-        t_ops = nops / F32_FLOPS * 1e3
-        out[name] = {
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/topk.cu",
-            "replaces": replaces, "launches": 0, "max_abs_err": err,
-            "ms": info["ms"], "plain_ms": info["plain_ms"],
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": info["library_ms"]}
-        print(f"[b] {name} at the main-path shapes: kernel "
-              f"{info['ms']:.4f} ms, plain {info['plain_ms']:.4f} ms, "
-              f"library {info['library_ms']:.4f} ms, bound "
-              f"{out[name]['bound_ms']:.4f} ms ({out[name]['bound_by']})")
-
-    # K2 at the recsys retrieval_cand shape (Q = 1: one block)
-    rs = unit(1, NC)
-    rc = torch.arange(NC, dtype=torch.int32, device=dev)
-    rv, ri = ops.empty_state(1, K, dev)
-
-    def rreset():
-        rv.fill_(float("-inf"))
-        ri.fill_(-1)
-
-    t_bytes = (4 * 2 * NC + 2 * K * 8) / HBM_BYTES_S * 1e3
-    t_ops = NC / F32_FLOPS * 1e3
-    k2_q1 = {
-        "shape": f"retrieval_cand Q=1 C={NC} k={K}",
-        "ms": median_ms(lambda: topk.topk_update_(rv, ri, rs, rc), rreset),
-        "plain_ms": median_ms(lambda: ref.topk_update_ref(rv, ri, rs, rc),
-                              rreset),
-        "library_ms": median_ms(lambda: torch.topk(rs, K), rreset),
+    t_bytes = k1_bytes / HBM_BYTES_S * 1e3
+    t_ops = k1_ops / F32_FLOPS * 1e3
+    out = {"fused_score_topk": {
+        "name": "fused_score_topk", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/topk.cu",
+        "replaces": "src/repro/kernels/topk.py:130", "launches": 0,
+        "max_abs_err": k1_err, "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-    out["topk_update"]["timings"] = [k2_q1]
-    print(f"[b] topk_update at {k2_q1['shape']}: kernel "
-          f"{k2_q1['ms']:.4f} ms, plain {k2_q1['plain_ms']:.4f} ms, "
-          f"library {k2_q1['library_ms']:.4f} ms, bound "
-          f"{k2_q1['bound_ms']:.4f} ms ({k2_q1['bound_by']})")
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": k1["library_ms"]}}
+    print(f"[b] fused_score_topk at the main-path shapes: kernel "
+          f"{k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, library "
+          f"{k1['library_ms']:.4f} ms, bound "
+          f"{out['fused_score_topk']['bound_ms']:.4f} ms "
+          f"({out['fused_score_topk']['bound_by']})")
+
+    # K2 at its three shapes: the (torch, kernel) retrieval path's chunk
+    # (Q = 256, C = encode_batch_size = 32), a chunk of 4096, and the
+    # recsys retrieval_cand row (Q = 1, C = 10^6); library: one
+    # torch.topk over the same candidates ([state | scores], or the
+    # scores alone at Q = 1, where the state starts empty)
+    timings = [k2_timing(dev, unit, q, c) for q, c in ((Q, C), (Q, C2),
+                                                       (1, NC))]
+    head = timings[0]
+    out["topk_update"] = {
+        "name": "topk_update", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/topk_update.cu",
+        "replaces": "src/repro/kernels/topk.py:67", "launches": 0,
+        "max_abs_err": 0.0, **{key: head[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "timings": timings}
     return out
+
+
+def k2_at_splits(dev, vals, ids, scores, cids, splits: int) -> None:
+    """K2 through its C entry point at ``splits`` column ranges (fewer
+    where ranges would be empty), in place; the wrapper picks its own
+    count, so this is how phase (b) reaches other split grids.  Counts
+    no launch."""
+    import torch
+
+    from repro_torch.kernels import _build, topk
+    (q, k), c = vals.shape, scores.shape[1]
+    n_splits, span = topk.ranges(c, splits)
+    ws_v, ws_p = topk.workspace(q, n_splits, k, dev)
+    code = _build.load_library().repro_topk_update(
+        vals.data_ptr(), ids.data_ptr(), scores.data_ptr(), cids.data_ptr(),
+        q, c, k, n_splits, span, None if ws_v is None else ws_v.data_ptr(),
+        None if ws_p is None else ws_p.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if code != 0:
+        fail(f"repro_topk_update at {n_splits} ranges: CUDA error {code}")
+
+
+def k2_stage_ms(call, reset) -> dict:
+    """Mean device ms per call of each of K2's kernels over 10 calls,
+    from torch.profiler's CUDA activity ("not measured" where the
+    profiler records no device time for a kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            reset()
+            call()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(("range_topk_kernel", "merge_partials_kernel"),
+                        "not measured")
+    for e in prof.key_averages():
+        for name in out:
+            if name in e.key and e.device_time_total > 0:
+                out[name] = e.device_time_total / e.count / 1e3
+    return out
+
+
+def k2_timing(dev, unit, q: int, c: int) -> dict:
+    """K2's time at (Q, C, K) on unit-vector scores with an empty state
+    reset before each call, beside its plain version, one torch.topk and
+    its bound (bytes: the scores and chunk ids read once, the state read
+    and written).  Where the wrapper splits the columns, also the time at
+    half, one and two blocks per SM (the C entry point at those counts);
+    the two kernels' device times are added after the last phase
+    (PROFILED)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref, topk
+    scores = unit(q, c)
+    cids = torch.arange(c, dtype=torch.int32, device=dev)
+    v, i = ops.empty_state(q, K, dev)
+
+    def reset():
+        v.fill_(float("-inf"))
+        i.fill_(-1)
+
+    if q == 1:
+        def library():
+            return torch.topk(scores, K)
+    else:
+        def library():
+            return torch.topk(torch.cat([v, scores], 1), K)
+    t_bytes = (4 * (q * c + c) + 2 * q * K * 8) / HBM_BYTES_S * 1e3
+    t_ops = q * c / F32_FLOPS * 1e3           # one comparison per score
+    sms = topk.sm_count(dev)
+    splits, span = topk.split_plan(q, c, sms)
+
+    def call():
+        topk.topk_update_(v, i, scores, cids)
+
+    t = {"shape": f"Q={q} C={c} k={K}", "splits": splits, "span": span,
+         "ms": median_ms(call, reset),
+         "plain_ms": median_ms(lambda: ref.topk_update_ref(
+             v, i, scores, cids), reset),
+         "library_ms": median_ms(library, reset),
+         "bound_ms": max(t_bytes, t_ops),
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print(f"[b] topk_update at {t['shape']} ({splits} range(s) of {span} "
+          f"columns): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+          f"ms, library {t['library_ms']:.4f} ms, bound "
+          f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    if splits > 1:
+        t["ms_by_splits"] = {n: median_ms(
+            lambda n=n: k2_at_splits(dev, v, i, scores, cids, n), reset)
+            for n in (-(-sms // (2 * q)), -(-sms // q), -(-2 * sms // q))}
+        PROFILED.append((t, call, reset))
+        print(f"[b] topk_update at {t['shape']}: ms by range count "
+              f"{t['ms_by_splits']}")
+    return t
 
 
 def bag_compare(name, got, want, exact: bool) -> float:
@@ -889,6 +1022,10 @@ def main() -> int:
 
     paths = phase_main_path(dev, card)
     paths.update(phase_recsys(dev, card))
+    for t, call, reset in PROFILED:
+        t["stage_ms"] = k2_stage_ms(call, reset)
+        print(f"[b] topk_update at {t['shape']}: device ms per kernel "
+              f"{t['stage_ms']}")
     for name, info in kernels.items():
         info["launches_by_path"] = {p: c[name] for p, c in paths.items()}
         info["launches"] = sum(info["launches_by_path"].values())

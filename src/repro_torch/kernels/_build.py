@@ -35,7 +35,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "repro_fused_score_topk": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                                 _P], _I),
-    "repro_topk_update": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "repro_topk_update": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+                          _I),
     "repro_topk_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
     "repro_embedding_bag": ([_P, _I, _P, _P, _I, _I, ctypes.c_longlong, _I,

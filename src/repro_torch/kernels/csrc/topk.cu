@@ -1,5 +1,5 @@
-// Streaming top-k kernels for Hopper (sm_90a), bound to PyTorch through a
-// plain C interface (ctypes).  Built by repro_torch/kernels/_build.py.
+// Streaming top-k kernel K1 for Hopper (sm_90a), bound to PyTorch through
+// a plain C interface (ctypes).  Built by repro_torch/kernels/_build.py.
 //
 // K1  repro_fused_score_topk  replaces the TPU kernel
 //     src/repro/kernels/topk.py::fused_score_topk_pallas (:130) and the
@@ -7,16 +7,14 @@
 //     It folds a whole (S*C, d) superchunk of corpus rows into a running
 //     (Q, k) top-k state, in place: one launch per superchunk, and the
 //     (Q, S*C) score matrix never exists in device memory.
-// K2  repro_topk_update  replaces src/repro/kernels/topk.py::
-//     topk_update_pallas (:67): merges a (Q, C) score chunk with ids (C,)
-//     into the (Q, k) state in place (the TPU kernel aliases its inputs
-//     and outputs the same way).
+// K2 (the merge of a given score chunk) has kernels of its own in
+// topk_update.cu; the template's kFused = false branches below are what
+// K2 ran before, and are no longer instantiated.
 //
-// What bounds them on an H100: K1 does 2*Q*N*d float32 operations on
+// What bounds K1 on an H100: it does 2*Q*N*d float32 operations on
 // N*d*4 bytes of corpus rows, so at the main-path shapes (Q=256, d=768)
 // it is bound by the float32 rate (67 TFLOP/s outside the tensor cores),
-// not by memory (3.35 TB/s).  K2 reads Q*C*4 bytes of scores once and
-// does a handful of comparisons per score: it is bound by bytes.
+// not by memory (3.35 TB/s).
 //
 // Design (right by construction first; speed is for a later change):
 //   * One block of 256 threads owns kQB = 4 queries and loops over every
@@ -277,15 +275,6 @@ int repro_fused_score_topk(const float* queries, const float* docs,
   return launch<true>(queries, docs, offsets, n_valids, nullptr, nullptr, n_q,
                       d, s * c, c, k, vals, ids,
                       static_cast<cudaStream_t>(stream));
-}
-
-// K2: scores (n_q, n_cols) f32, chunk_ids (n_cols,) i32; vals/ids in place.
-int repro_topk_update(float* vals, int* ids, const float* scores,
-                      const int* chunk_ids, int n_q, int n_cols, int k,
-                      void* stream) {
-  return launch<false>(nullptr, nullptr, nullptr, nullptr, scores, chunk_ids,
-                       n_q, 0, n_cols, 1, k, vals, ids,
-                       static_cast<cudaStream_t>(stream));
 }
 
 // Shared memory a launch needs, for the wrapper's limit check.

@@ -1,12 +1,14 @@
-"""Wrappers of the streaming top-k kernels (CUDA C++, ``csrc/topk.cu``).
+"""Wrappers of the streaming top-k kernels (CUDA C++ in ``csrc/``).
 
-K1 :func:`fused_score_topk_` replaces the TPU kernel
+K1 :func:`fused_score_topk_` (``csrc/topk.cu``) replaces the TPU kernel
 ``src/repro/kernels/topk.py::fused_score_topk_pallas`` and, taking a
 whole superchunk per launch, the scan that hosted it.  K2
-:func:`topk_update_` replaces ``topk_update_pallas``.  Both update the
-(Q, k) state **in place**, as the TPU kernels alias their state inputs
-and outputs.  The source note in ``csrc/topk.cu`` says what bounds each
-kernel on an H100 and what its design does about it.
+:func:`topk_update_` (``csrc/topk_update.cu``) replaces
+``topk_update_pallas``; it splits the column axis into ranges
+(:func:`split_plan`) and, with more than one, merges the ranges' top-k in
+a second kernel.  Both update the (Q, k) state **in place**, as the TPU
+kernels alias their state inputs and outputs.  The source notes say what
+bounds each kernel on an H100 and what its design does about it.
 
 A wrapper checks device, dtype, shape and contiguity and raises on
 anything else.  For CPU tensors it runs the plain version
@@ -17,14 +19,20 @@ to the kernel's count in :data:`LAUNCHES`.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import ref
 
-# Largest k the kernels take (csrc/topk.cu kMaxK).
+# Largest k the kernels take (csrc/topk.cu and csrc/topk_select.cuh kMaxK).
 MAX_K = 256
 # Shared memory one block may use on Hopper (227 KB).
 _MAX_SMEM = 232_448
+# Fewest columns in one of K2's ranges: two tiles of 1024, and 8 k for
+# every k the kernel takes, so the merge pass reads at most 1/8 as many
+# entries as the ranges do.
+MIN_SPAN = 8 * MAX_K
 
 # Kernel launches since the last reset_launch_counts(), by kernel name.
 LAUNCHES = {"fused_score_topk": 0, "topk_update": 0}
@@ -109,6 +117,45 @@ def fused_score_topk_(vals: torch.Tensor, ids: torch.Tensor,
     LAUNCHES["fused_score_topk"] += 1
 
 
+def split_plan(q: int, c: int, sms: int) -> tuple[int, int]:
+    """K2's (splits, span) for Q queries of C columns on a card of ``sms``
+    streaming multiprocessors: see :func:`ranges`.
+
+    One range where the Q queries alone give a block to every SM;
+    otherwise enough ranges for one block on each SM, each of at least
+    MIN_SPAN columns.  One block per SM measured fastest at Q = 1,
+    C = 10^6, k = 100 on an H100 (``chip_smoke.py`` times half, one and
+    two blocks per SM): more ranges shorten stage 1 but lengthen the
+    one-block merge of stage 2 by more.
+    """
+    splits = 1 if q >= sms else min(-(-sms // q), c // MIN_SPAN)
+    return ranges(c, max(1, splits))
+
+
+def ranges(c: int, splits: int) -> tuple[int, int]:
+    """(splits, span) for C columns cut into at most ``splits`` ranges:
+    columns ``[r * span, min((r + 1) * span, c))`` form range ``r`` for
+    ``r < splits``, each a block of its own, none empty (so there may be
+    fewer than asked).  The span is a multiple of 4, so every range
+    starts at the same offset in its 16-byte group."""
+    if splits < 1:
+        raise ValueError(f"splits must be at least 1, got {splits}")
+    splits = min(splits, c)
+    span = -(-c // splits)
+    span += -span % 4
+    return -(-c // span), span
+
+
+def workspace(q: int, splits: int, k: int, device):
+    """K2's scratch for ``splits`` > 1: each range's top-k values (Q,
+    splits, k) f32 and positions (Q, splits, k) int32; None, None for one
+    range."""
+    if splits == 1:
+        return None, None
+    return (torch.empty((q, splits, k), dtype=torch.float32, device=device),
+            torch.empty((q, splits, k), dtype=torch.int32, device=device))
+
+
 def topk_update_(vals: torch.Tensor, ids: torch.Tensor,
                  scores: torch.Tensor, chunk_ids: torch.Tensor) -> None:
     """K2, in place: merge ``scores`` (Q, C) f32 with ``chunk_ids`` (C,)
@@ -131,20 +178,38 @@ def topk_update_(vals: torch.Tensor, ids: torch.Tensor,
         vals.copy_(v)
         ids.copy_(i)
         return
-    lib = _library_for(dev, fused=False, d=0, k=k)
+    n_splits, span = split_plan(q, c, sm_count(dev))
+    if c + span + k >= 2 ** 31:
+        raise ValueError(f"C={c} columns: positions k + column must fit "
+                         f"in int32")
+    lib = _cuda_library(dev)
+    ws_v, ws_p = workspace(q, n_splits, k, dev)
     with torch.cuda.device(dev):
         _launch(lib.repro_topk_update, vals.data_ptr(), ids.data_ptr(),
-                scores.data_ptr(), chunk_ids.data_ptr(), q, c, k,
+                scores.data_ptr(), chunk_ids.data_ptr(), q, c, k, n_splits,
+                span, None if ws_v is None else ws_v.data_ptr(),
+                None if ws_p is None else ws_p.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES["topk_update"] += 1
 
 
-def _library_for(dev: torch.device, *, fused: bool, d: int, k: int):
-    """The loaded kernel library, after checking the launch fits."""
+@functools.lru_cache(maxsize=None)
+def sm_count(dev: torch.device) -> int:
+    """Streaming multiprocessors of the card ``dev`` (a CUDA device)."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _cuda_library(dev: torch.device):
+    """The loaded kernel library, for tensors on ``dev``."""
     if dev.type != "cuda":
         raise ValueError(f"the kernels take CUDA or CPU tensors, got {dev}")
     from repro_torch.kernels._build import load_library
-    lib = load_library()
+    return load_library()
+
+
+def _library_for(dev: torch.device, *, fused: bool, d: int, k: int):
+    """The loaded kernel library, after checking the launch fits."""
+    lib = _cuda_library(dev)
     need = lib.repro_topk_smem_bytes(int(fused), d, k)
     if need > _MAX_SMEM:
         raise ValueError(f"d={d}, k={k} needs {need} bytes of shared "
