@@ -14,11 +14,15 @@ Phases, each printing its own lines:
       plain PyTorch version on the card, at the main-path shapes and at
       edge shapes: bitwise on integer-valued inputs, within TOL on random
       floats for K1 (K2 only compares and copies: bitwise on every input,
-      at split and one-range shapes); then each kernel's time, its plain
-      version's, one library call's for the same function, and its bound
-      (K2 at three shapes, with the split count its wrapper chose, and
-      where it splits, at half, one and two blocks per SM; each of its two
-      kernels' device time from torch.profiler comes after phase (f));
+      at split and one-range shapes); K1 also bitwise equal to itself on
+      float inputs across row-range counts (one, an odd count, its
+      wrapper's plan) and across superchunk sizes (one launch over S = 64,
+      eight over S = 8); then each kernel's time, its plain version's, one
+      library call's for the same function, and its bound (K1 and K2 at
+      three shapes each, with the range count their wrapper chose; K2,
+      where it splits, at half, one and two blocks per SM; each two-stage
+      kernel's stages' device time from torch.profiler comes after phase
+      (f));
   (c) trove-base at full width (12 x 768, bf16, seeded random weights) on
       a synthetic dataset through ``RetrievalEvaluator.evaluate`` /
       ``search`` / ``mine_hard_negatives`` with the backend pairs
@@ -78,10 +82,12 @@ SPIN_CYCLES = 400_000
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # and device memory bandwidth.
 F32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
-# (timing entry, call, reset) of each K2 timing whose two kernels
-# torch.profiler times after the last phase: its CUDA tracing may leave a
-# cost on every launch that follows it.
+# (timing entry, call, reset, kernel names) of each K1 / K2 timing whose
+# two kernels torch.profiler times after the last phase: its CUDA tracing
+# may leave a cost on every launch that follows it.
 PROFILED = []
+K1_STAGES = ("score_range_kernel", "fused_merge_kernel")
+K2_STAGES = ("range_topk_kernel", "merge_partials_kernel")
 
 
 def fail(msg: str) -> None:
@@ -172,19 +178,30 @@ def phase_kernels(dev) -> dict:
         x = torch.randn(*shape, generator=g, device=dev)
         return x / x.norm(dim=-1, keepdim=True)
 
-    def k1_case(name, q, tile, offs, nvs, k, exact):
-        """Two in-place launches on one state (empty, then full)."""
-        v, i = ops.empty_state(q.shape[0], k, dev)
+    def k1_case(name, q, tile, offs, nvs, k, exact, state=None,
+                splits=None, rows=128):
+        """Two in-place launches on one state (empty unless given, then
+        full).  ``splits`` given calls the C entry point at that many row
+        ranges, in tiles of ``rows``, instead of the wrapper (see
+        k1_at_splits)."""
+        n_q, (s, c, d) = q.shape[0], tile.shape
+        v, i = ops.empty_state(n_q, k, dev) if state is None else state
+        rows, n_splits, span = (
+            topk.fused_split_plan(n_q, s * c, topk.sm_count(dev))
+            if splits is None else (rows, *topk.ranges(s * c, splits)))
         err = 0.0
         for rep in range(2):
             want = ref.fused_score_topk_ref(v, i, q, tile, offs, nvs)
-            topk.fused_score_topk_(v, i, q, tile, offs, nvs)
+            if splits is None:
+                topk.fused_score_topk_(v, i, q, tile, offs, nvs)
+            else:
+                k1_at_splits(dev, v, i, q, tile, offs, nvs, splits, rows)
             torch.cuda.synchronize()
             err = max(err, compare(f"K1 {name} #{rep}", (v, i), want,
                                    exact))
-            tile = tile.flip(0)
-        print(f"[b] K1 {name}: Q={q.shape[0]} S={tile.shape[0]} "
-              f"C={tile.shape[1]} d={tile.shape[2]} k={k} "
+            tile = tile.flip(0).contiguous()
+        print(f"[b] K1 {name}: Q={n_q} S={s} C={c} d={d} k={k} "
+              f"tile rows={rows} splits={n_splits} span={span} "
               f"{'bitwise' if exact else f'max_abs_err={err:.3g}'} ok")
         return err
 
@@ -248,6 +265,52 @@ def phase_kernels(dev) -> dict:
     # 14 finite rows: k = 16 leaves two empty (-inf, -1) slots
     k1_case("nan/-inf rows", q_pos, tile, *steps(2, 8), 16, True)
     k1_case("k=1", ints(5, 8), ints(2, 8, 8), *steps(2, 8), 1, True)
+    # d not a multiple of the staged slice (and, at d = 7, rows that are
+    # not 16-byte aligned); Q not a multiple of the 32-query tile
+    k1_case("d=100", ints(40, 100), ints(8, C, 100), *steps(8, C), K, True)
+    k1_case("d=7", ints(9, 7), ints(6, C, 7), *steps(6, C), 20, True)
+    k1_case("Q=33", ints(33, D), ints(S, C, D), *steps(S, C), K, True)
+    # the serving shapes: a request of 32 queries, S = 8 and the
+    # autotune's ceiling S = 256; at S = 8, k = 256 with ranges of 32 rows
+    for ns in (8, 256):
+        k1_case(f"serve S={ns} int", ints(32, D), ints(ns, C, D),
+                *steps(ns, C), K, True)
+        k1_case(f"serve S={ns} float", unit(32, D), unit(ns, C, D),
+                *steps(ns, C), K, False)
+    k1_case("k=256 > span", ints(32, D), ints(8, C, D), *steps(8, C), 256,
+            True)
+    # ties straddling the boundaries of 5 forced ranges: the top value on
+    # 20 rows around each
+    q_pos = ints(Q, D, lo=1, hi=3)
+    tile = ints(S, C, D)
+    flat = tile.view(S * C, D)
+    span = topk.ranges(S * C, 5)[1]
+    for r in range(1, 5):
+        flat[r * span - 10: r * span + 10] = 3.0
+    k1_case("ties across range boundaries", q_pos, tile, *steps(S, C), K,
+            True, splits=5)
+    # a whole range of NaN rows, one of -inf rows, and a ragged padded step
+    tile = ints(S, C, D)
+    flat = tile.view(S * C, D)
+    flat[512:1024] = float("nan")
+    flat[1024:1100] = float("-inf")
+    k1_case("NaN / -inf ranges", q_pos, tile,
+            *steps(S, C, [C] * 40 + [7, 0] + [C] * 22), K, True, splits=4)
+    # the same in narrow tiles (16 queries by 32 rows)
+    k1_case("NaN / -inf ranges, narrow", q_pos, tile,
+            *steps(S, C, [C] * 40 + [7, 0] + [C] * 22), K, True, splits=9,
+            rows=32)
+    # an unsorted incoming state with ties against the candidates and a
+    # NaN slot, through the wrapper and at odd forced range counts
+    for splits, rows in ((None, 128), (7, 128), (13, 32)):
+        sv = ints(Q, K, lo=-20, hi=21)
+        sv[:, 3] = float("nan")
+        si = (torch.randperm(Q * K, generator=g, device=dev).reshape(Q, K)
+              .to(torch.int32) + 10 ** 6)
+        k1_case(f"unsorted state splits={splits}", ints(Q, D), ints(S, C, D),
+                *steps(S, C), K, True, state=(sv, si), splits=splits,
+                rows=rows)
+    k1_self_consistent(dev, unit, steps)
     sc = ints(13, 300, lo=-3, hi=4)
     sc[torch.rand(13, 300, generator=g, device=dev) < 0.2] = float("nan")
     sc[torch.rand(13, 300, generator=g, device=dev) < 0.2] = float("-inf")
@@ -314,55 +377,19 @@ def phase_kernels(dev) -> dict:
         pass
     print("[b] empty slice and k above the maximum ok")
 
-    # timings at the main-path shapes (unit vectors, an empty state reset
-    # before each launch, as the first superchunk of a search finds it)
-    q, tile = unit(Q, D), unit(S, C, D)
-    offs, nvs = steps(S, C)
-    v, i = ops.empty_state(Q, K, dev)
-    v0, i0 = v.clone(), i.clone()
-
-    def reset():
-        v.copy_(v0)
-        i.copy_(i0)
-
-    docs2d = tile.reshape(S * C, D)
-    k1 = {
-        "ms": median_ms(lambda: topk.fused_score_topk_(
-            v, i, q, tile, offs, nvs), reset),
-        "plain_ms": median_ms(lambda: ref.fused_score_topk_ref(
-            v, i, q, tile, offs, nvs), reset),
-        "library_ms": median_ms(lambda: torch.topk(q @ docs2d.T, K),
-                                reset),
-    }
-    # K1 at the serving shape of phase (d): one request of 32 queries and
-    # a superchunk of 8 chunks (Q / 4 = 8 blocks on the card)
-    nq, ns = min(32, Q), min(8, S)
-    sv, si = ops.empty_state(nq, K, dev)
-    serve_ms = median_ms(lambda: topk.fused_score_topk_(
-        sv, si, q[:nq].contiguous(), tile[:ns].contiguous(), offs[:ns],
-        nvs[:ns]), lambda: (sv.fill_(float("-inf")), si.fill_(-1)))
-    print(f"[b] fused_score_topk at the serving shape (Q={nq}, S={ns}, "
-          f"C={C}): {serve_ms:.4f} ms")
-    # bound: the larger of bytes over the memory rate and float32
-    # operations over the float32 rate; each input read once, each output
-    # written once (the state is read and written)
-    k1_bytes = 4 * (Q * D + S * C * D + 2 * S) + 2 * Q * K * 8
-    k1_ops = 2 * Q * int(nvs.sum()) * D
-    t_bytes = k1_bytes / HBM_BYTES_S * 1e3
-    t_ops = k1_ops / F32_FLOPS * 1e3
+    # K1 at its three shapes: the (fused, kernel) evaluation path's
+    # superchunk (Q = 256, S = 64), and a serving request of 32 queries at
+    # S = 8 and at the autotune's ceiling S = 256
+    timings = [k1_timing(dev, unit, steps, q, ns)
+               for q, ns in ((Q, S), (32, 8), (32, 256))]
+    head = timings[0]
     out = {"fused_score_topk": {
         "name": "fused_score_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/topk.cu",
         "replaces": "src/repro/kernels/topk.py:130", "launches": 0,
-        "max_abs_err": k1_err, "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": k1["library_ms"]}}
-    print(f"[b] fused_score_topk at the main-path shapes: kernel "
-          f"{k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, library "
-          f"{k1['library_ms']:.4f} ms, bound "
-          f"{out['fused_score_topk']['bound_ms']:.4f} ms "
-          f"({out['fused_score_topk']['bound_by']})")
+        "max_abs_err": k1_err, **{key: head[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "timings": timings}}
 
     # K2 at its three shapes: the (torch, kernel) retrieval path's chunk
     # (Q = 256, C = encode_batch_size = 32), a chunk of 4096, and the
@@ -402,10 +429,114 @@ def k2_at_splits(dev, vals, ids, scores, cids, splits: int) -> None:
         fail(f"repro_topk_update at {n_splits} ranges: CUDA error {code}")
 
 
-def k2_stage_ms(call, reset) -> dict:
-    """Mean device ms per call of each of K2's kernels over 10 calls,
-    from torch.profiler's CUDA activity ("not measured" where the
-    profiler records no device time for a kernel)."""
+def k1_at_splits(dev, vals, ids, q, tile, offs, nvs, splits: int,
+                 rows: int = 128) -> None:
+    """K1 through its C entry point at ``splits`` row ranges (fewer where
+    ranges would be empty) in tiles of ``rows`` rows, in place; the
+    wrapper picks its own, so this is how phase (b) reaches other split
+    grids and tiles.  Counts no launch."""
+    import torch
+
+    from repro_torch.kernels import _build, topk
+    (n_q, k), (s, c, d) = vals.shape, tile.shape
+    n_splits, span = topk.ranges(s * c, splits)
+    ws_v, ws_p = topk.fused_workspace(n_q, n_splits, span, k, rows, dev)
+    code = _build.load_library().repro_fused_score_topk(
+        q.data_ptr(), tile.data_ptr(), offs.data_ptr(), nvs.data_ptr(), n_q,
+        d, s, c, k, rows, n_splits, span, vals.data_ptr(), ids.data_ptr(),
+        ws_v.data_ptr(), ws_p.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if code != 0:
+        fail(f"repro_fused_score_topk at {n_splits} ranges: CUDA error "
+             f"{code}")
+
+
+def k1_self_consistent(dev, unit, steps) -> None:
+    """K1 on unit vectors gives the same bits at every range count, in
+    either tile and at every superchunk size: each score is one fmaf
+    chain over d in order, and the selection is exact.  The wrapper's
+    plan, one range, an odd count, the narrow tile; then one launch over
+    S = 64 chunks against eight launches over S = 8 of them (which the
+    wrapper runs in narrow tiles), into the same state."""
+    import torch
+
+    from repro_torch.kernels import ops, topk
+    q, tile = unit(Q, D), unit(S, C, D)
+    offs, nvs = steps(S, C, [C] * 50 + [C - 9] + [C] * 13)
+    runs = []
+    for splits, rows in ((None, 128), (1, 128), (11, 128), (40, 32)):
+        v, i = ops.empty_state(Q, K, dev)
+        if splits is None:
+            topk.fused_score_topk_(v, i, q, tile, offs, nvs)
+        else:
+            k1_at_splits(dev, v, i, q, tile, offs, nvs, splits, rows)
+        runs.append((v, i))
+    sv, si = ops.empty_state(Q, K, dev)
+    for j in range(0, S, 8):
+        topk.fused_score_topk_(sv, si, q, tile[j: j + 8].contiguous(),
+                               offs[j: j + 8], nvs[j: j + 8])
+    runs.append((sv, si))
+    torch.cuda.synchronize()
+    for (v, i), what in zip(runs[1:], ("1 range", "11 ranges",
+                                       "40 ranges of narrow tiles",
+                                       "8 launches of S = 8")):
+        if not (torch.equal(v.view(torch.int32), runs[0][0].view(
+                torch.int32)) and torch.equal(i, runs[0][1])):
+            fail(f"K1 at {what} is not bitwise equal to one launch at its "
+                 f"plan")
+    sms = topk.sm_count(dev)
+    print(f"[b] K1 float Q={Q} S={S}: bitwise equal at its plan (rows, "
+          f"splits, span) = {topk.fused_split_plan(Q, S * C, sms)}, at 1 and "
+          f"11 ranges, at 40 ranges of narrow tiles, and over 8 launches of "
+          f"S = 8 (plan {topk.fused_split_plan(Q, 8 * C, sms)})")
+
+
+def k1_timing(dev, unit, steps, q: int, s: int) -> dict:
+    """K1's time at (Q, S, C, d, K) on unit vectors with an empty state
+    reset before each call, beside its plain version, one
+    torch.topk(q @ d.T, K) and its bound (the larger of bytes, each input
+    read once and the state read and written, over the memory rate, and
+    float32 operations over the float32 rate); its two kernels' device
+    times are added after the last phase (PROFILED)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref, topk
+    queries, tile = unit(q, D), unit(s, C, D)
+    offs, nvs = steps(s, C)
+    docs = tile.view(s * C, D)
+    v, i = ops.empty_state(q, K, dev)
+
+    def reset():
+        v.fill_(float("-inf"))
+        i.fill_(-1)
+
+    def call():
+        topk.fused_score_topk_(v, i, queries, tile, offs, nvs)
+
+    t_bytes = (4 * (q * D + s * C * D + 2 * s) + 2 * q * K * 8) / \
+        HBM_BYTES_S * 1e3
+    t_ops = 2 * q * int(nvs.sum()) * D / F32_FLOPS * 1e3
+    rows, splits, span = topk.fused_split_plan(q, s * C, topk.sm_count(dev))
+    t = {"shape": f"Q={q} S={s} C={C} d={D} k={K}", "tile_rows": rows,
+         "splits": splits, "span": span, "ms": median_ms(call, reset),
+         "plain_ms": median_ms(lambda: ref.fused_score_topk_ref(
+             v, i, queries, tile, offs, nvs), reset),
+         "library_ms": median_ms(lambda: torch.topk(queries @ docs.T, K),
+                                 reset),
+         "bound_ms": max(t_bytes, t_ops),
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    PROFILED.append((t, call, reset, K1_STAGES))
+    print(f"[b] fused_score_topk at {t['shape']} ({splits} range(s) of "
+          f"{span} rows, tiles of {rows}): kernel {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
+          f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return t
+
+
+def stage_ms(call, reset, names) -> dict:
+    """Mean device ms per call of each of a two-stage kernel's kernels
+    over 10 calls, from torch.profiler's CUDA activity ("not measured"
+    where the profiler records no device time for a kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -413,8 +544,7 @@ def k2_stage_ms(call, reset) -> dict:
             reset()
             call()
         torch.cuda.synchronize()
-    out = dict.fromkeys(("range_topk_kernel", "merge_partials_kernel"),
-                        "not measured")
+    out = dict.fromkeys(names, "not measured")
     for e in prof.key_averages():
         for name in out:
             if name in e.key and e.device_time_total > 0:
@@ -470,7 +600,7 @@ def k2_timing(dev, unit, q: int, c: int) -> dict:
         t["ms_by_splits"] = {n: median_ms(
             lambda n=n: k2_at_splits(dev, v, i, scores, cids, n), reset)
             for n in (-(-sms // (2 * q)), -(-sms // q), -(-2 * sms // q))}
-        PROFILED.append((t, call, reset))
+        PROFILED.append((t, call, reset, K2_STAGES))
         print(f"[b] topk_update at {t['shape']}: ms by range count "
               f"{t['ms_by_splits']}")
     return t
@@ -1022,9 +1152,9 @@ def main() -> int:
 
     paths = phase_main_path(dev, card)
     paths.update(phase_recsys(dev, card))
-    for t, call, reset in PROFILED:
-        t["stage_ms"] = k2_stage_ms(call, reset)
-        print(f"[b] topk_update at {t['shape']}: device ms per kernel "
+    for t, call, reset, names in PROFILED:
+        t["stage_ms"] = stage_ms(call, reset, names)
+        print(f"[b] {names} at {t['shape']}: device ms per kernel "
               f"{t['stage_ms']}")
     for name, info in kernels.items():
         info["launches_by_path"] = {p: c[name] for p, c in paths.items()}

@@ -33,11 +33,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> (argtypes, restype) of the C interface in csrc/*.cu
 _SIGNATURES = {
-    "repro_fused_score_topk": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
-                                _P], _I),
+    "repro_fused_score_topk": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _P, _P, _P, _P, _P], _I),
     "repro_topk_update": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
                           _I),
-    "repro_topk_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
+    "repro_topk_smem_bytes": ([_I], ctypes.c_longlong),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
     "repro_embedding_bag": ([_P, _I, _P, _P, _I, _I, ctypes.c_longlong, _I,
                              _P, _P], _I),

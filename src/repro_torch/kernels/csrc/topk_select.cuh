@@ -1,6 +1,7 @@
 // Exact streaming top-k selection for one block (256 threads), shared by
 // the kernels that reduce a stream of (value, position) candidates to k
-// (csrc/topk_update.cu; K1 can take it for a split over corpus rows).
+// (csrc/topk_update.cu), and the merge pass that folds the ranges' top-k
+// into the (Q, k) state, shared by K2 and K1 (csrc/topk.cu).
 //
 // Order: an entry is ahead of another when its value is larger, or the
 // values are equal (IEEE ==, so -0.0 ties +0.0) and its position is
@@ -330,6 +331,74 @@ __device__ void select_stream(Buffer& s, int k, float least, int n_tiles,
     __syncthreads();
   }
   sort_keep(s, k);
+}
+
+__device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
+
+// -- the (Q, k) state, and the merge pass -----------------------------------
+//
+// State slot p of query q sits at position p (the incoming state need not
+// be sorted); a candidate at position k + j, where j is its column (K2)
+// or its superchunk row (K1).  `id(j)` gives a winning candidate's id.
+
+// Read query q's state: a candidate must exceed its smallest value (NaN
+// as -inf), which this returns.  With `into_buffer` the k entries also
+// enter the buffer at positions 0..k-1 and their ids go to `si`.
+inline __device__ float load_state(Buffer& s, int* si, const float* vals,
+                                   const int* ids, int q, int k,
+                                   bool into_buffer) {
+  const size_t row = size_t(q) * k;
+  float lo = -neg_inf();
+  for (int p = threadIdx.x; p < k; p += kThreads) {
+    float v = vals[row + p];
+    if (isnan(v)) v = neg_inf();
+    lo = fminf(lo, v);
+    if (into_buffer) {
+      s.v[p] = v;
+      s.p[p] = p;
+      si[p] = ids[row + p];
+    }
+  }
+  if (threadIdx.x == 0) s.cnt = into_buffer ? k : 0;
+  return block_min(s, lo);  // syncs: the buffer and count are visible
+}
+
+// Write the buffer's first k entries (all real: the state was in it) as
+// query q's new state.
+template <class Id>
+__device__ void store_state(const Buffer& s, const int* si, float* vals,
+                            int* ids, int q, int k, Id id) {
+  const size_t row = size_t(q) * k;
+  for (int i = threadIdx.x; i < k; i += kThreads) {
+    const int p = s.p[i];
+    vals[row + i] = s.v[i];
+    ids[row + i] = p < k ? si[p] : id(p - k);
+  }
+}
+
+// The merge pass, one block per query q: the first k of the state and
+// the n partials ws_v / ws_p[q * n, (q + 1) * n), read in that order,
+// which must stream them as select_stream requires (the ranges
+// ascending, each range sorted or in position order).  Padding partials
+// are -inf and never pass the filter.
+template <class Id>
+__device__ void merge_partials(Buffer& s, int* si, float* vals, int* ids,
+                               int q, int k, int n, const float* ws_v,
+                               const int* ws_p, Id id) {
+  const float least = load_state(s, si, vals, ids, q, k, true);
+  const size_t base = size_t(q) * n;
+  auto load = [&](int tile, float* v) {
+#pragma unroll
+    for (int j = 0; j < kPerThread; ++j) {
+      const int e = tile * kTile + j * kThreads + threadIdx.x;
+      v[j] = e < n ? ws_v[base + e] : nan_f();
+    }
+  };
+  auto pos = [&](int tile, int j) {
+    return ws_p[base + tile * kTile + j * kThreads + threadIdx.x];
+  };
+  select_stream(s, k, least, (n + kTile - 1) / kTile, load, pos);
+  store_state(s, si, vals, ids, q, k, id);
 }
 
 }  // namespace topk_select

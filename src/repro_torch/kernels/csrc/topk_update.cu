@@ -41,41 +41,6 @@ namespace {
 
 using namespace topk_select;
 
-__device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
-
-// Read query q's state: a candidate must exceed its smallest value (NaN
-// as -inf), which this returns.  With `into_buffer` the k entries also
-// enter the buffer at positions 0..k-1 and their ids go to `si`.
-__device__ float load_state(Buffer& s, int* si, const float* vals,
-                            const int* ids, int q, int k, bool into_buffer) {
-  const size_t row = size_t(q) * k;
-  float lo = -neg_inf();
-  for (int p = threadIdx.x; p < k; p += kThreads) {
-    float v = vals[row + p];
-    if (isnan(v)) v = neg_inf();
-    lo = fminf(lo, v);
-    if (into_buffer) {
-      s.v[p] = v;
-      s.p[p] = p;
-      si[p] = ids[row + p];
-    }
-  }
-  if (threadIdx.x == 0) s.cnt = into_buffer ? k : 0;
-  return block_min(s, lo);  // syncs: the buffer and count are visible
-}
-
-// Write the buffer's first k entries (all real: the state was in it) as
-// query q's new state.
-__device__ void store_state(const Buffer& s, const int* si, float* vals,
-                            int* ids, const int* chunk_ids, int q, int k) {
-  const size_t row = size_t(q) * k;
-  for (int i = threadIdx.x; i < k; i += kThreads) {
-    const int p = s.p[i];
-    vals[row + i] = s.v[i];
-    ids[row + i] = p < k ? si[p] : chunk_ids[p - k];
-  }
-}
-
 // Stage 1: block (q, r) takes columns [r * span, min((r + 1) * span,
 // n_cols)) of query q.
 __global__ void __launch_bounds__(kThreads)
@@ -117,7 +82,8 @@ range_topk_kernel(float* __restrict__ vals, int* __restrict__ ids,
   select_stream(s, k, least, n_tiles, load, pos);
 
   if (direct) {
-    store_state(s, si, vals, ids, chunk_ids, q, k);
+    store_state(s, si, vals, ids, q, k,
+                [=](int col) { return chunk_ids[col]; });
     return;
   }
   const size_t w = (size_t(q) * gridDim.y + r) * k;
@@ -129,8 +95,8 @@ range_topk_kernel(float* __restrict__ vals, int* __restrict__ ids,
 }
 
 // Stage 2: block q merges its state with the splits * k partials, read in
-// workspace order (ranges ascending, each sorted), as select_stream
-// requires.  Padding partials are -inf and never pass the filter.
+// workspace order (ranges ascending, each sorted); chunk_ids are read for
+// the k winners only.
 __global__ void __launch_bounds__(kThreads)
 merge_partials_kernel(float* __restrict__ vals, int* __restrict__ ids,
                       const int* __restrict__ chunk_ids, int k, int splits,
@@ -138,22 +104,8 @@ merge_partials_kernel(float* __restrict__ vals, int* __restrict__ ids,
                       const int* __restrict__ ws_p) {
   __shared__ Buffer s;
   __shared__ int si[kMaxK];
-  const int q = blockIdx.x;
-  const float least = load_state(s, si, vals, ids, q, k, true);
-  const int n = splits * k;
-  const size_t base = size_t(q) * n;
-  auto load = [&](int tile, float* v) {
-#pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      const int e = tile * kTile + j * kThreads + threadIdx.x;
-      v[j] = e < n ? ws_v[base + e] : nan_f();
-    }
-  };
-  auto pos = [&](int tile, int j) {
-    return ws_p[base + tile * kTile + j * kThreads + threadIdx.x];
-  };
-  select_stream(s, k, least, (n + kTile - 1) / kTile, load, pos);
-  store_state(s, si, vals, ids, chunk_ids, q, k);
+  merge_partials(s, si, vals, ids, blockIdx.x, k, splits * k, ws_v, ws_p,
+                 [=](int col) { return chunk_ids[col]; });
 }
 
 }  // namespace

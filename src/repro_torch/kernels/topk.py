@@ -2,13 +2,16 @@
 
 K1 :func:`fused_score_topk_` (``csrc/topk.cu``) replaces the TPU kernel
 ``src/repro/kernels/topk.py::fused_score_topk_pallas`` and, taking a
-whole superchunk per launch, the scan that hosted it.  K2
+whole superchunk per launch, the scan that hosted it; it splits the
+superchunk's rows into ranges (:func:`fused_split_plan`), keeps each
+range's top-k and merges them into the state in a second kernel.  K2
 :func:`topk_update_` (``csrc/topk_update.cu``) replaces
 ``topk_update_pallas``; it splits the column axis into ranges
 (:func:`split_plan`) and, with more than one, merges the ranges' top-k in
-a second kernel.  Both update the (Q, k) state **in place**, as the TPU
-kernels alias their state inputs and outputs.  The source notes say what
-bounds each kernel on an H100 and what its design does about it.
+a second kernel, the same merge pass as K1's (``csrc/topk_select.cuh``).
+Both update the (Q, k) state **in place**, as the TPU kernels alias their
+state inputs and outputs.  The source notes say what bounds each kernel
+on an H100 and what its design does about it.
 
 A wrapper checks device, dtype, shape and contiguity and raises on
 anything else.  For CPU tensors it runs the plain version
@@ -25,7 +28,7 @@ import torch
 
 from repro_torch.kernels import ref
 
-# Largest k the kernels take (csrc/topk.cu and csrc/topk_select.cuh kMaxK).
+# Largest k the kernels take (csrc/topk_select.cuh kMaxK).
 MAX_K = 256
 # Shared memory one block may use on Hopper (227 KB).
 _MAX_SMEM = 232_448
@@ -33,6 +36,11 @@ _MAX_SMEM = 232_448
 # every k the kernel takes, so the merge pass reads at most 1/8 as many
 # entries as the ranges do.
 MIN_SPAN = 8 * MAX_K
+# K1's block tiles (csrc/topk.cu Wide, Narrow): rows per tile -> (queries
+# per block, rows of one warp's slab of the tile, the fewest rows of one
+# of its ranges: a warp with no row of its range in a tile skips the
+# products).
+FUSED_TILES = {128: (32, 32), 32: (16, 8)}
 
 # Kernel launches since the last reset_launch_counts(), by kernel name.
 LAUNCHES = {"fused_score_topk": 0, "topk_update": 0}
@@ -108,13 +116,54 @@ def fused_score_topk_(vals: torch.Tensor, ids: torch.Tensor,
         vals.copy_(v)
         ids.copy_(i)
         return
-    lib = _library_for(dev, fused=True, d=d, k=k)
+    rows, n_splits, span = fused_split_plan(q, s * c, sm_count(dev))
+    if s * c + k >= 2 ** 31:
+        raise ValueError(f"S*C={s * c} rows: positions k + row must fit in "
+                         f"int32")
+    lib = _library_for(dev, k)
+    ws_v, ws_p = fused_workspace(q, n_splits, span, k, rows, dev)
     with torch.cuda.device(dev):
         _launch(lib.repro_fused_score_topk, queries.data_ptr(),
                 tile.data_ptr(), offsets.data_ptr(), n_valids.data_ptr(), q,
-                d, s, c, k, vals.data_ptr(), ids.data_ptr(),
+                d, s, c, k, rows, n_splits, span, vals.data_ptr(),
+                ids.data_ptr(), ws_v.data_ptr(), ws_p.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES["fused_score_topk"] += 1
+
+
+def fused_split_plan(q: int, n: int, sms: int) -> tuple[int, int, int]:
+    """K1's (rows, splits, span) for Q queries over the N = S*C rows of a
+    superchunk on a card of ``sms`` streaming multiprocessors: the block
+    tile's rows (a key of FUSED_TILES) and its row ranges (see
+    :func:`ranges`; they may cross the superchunk's steps).
+
+    The grid is ceil(Q / queries per block) query tiles by ``splits`` row
+    ranges: as many ranges as give each SM one block (a wide block takes
+    most of an SM's shared memory, so one more would start a second
+    wave), each of at least a warp's slab of rows; one range where the
+    query tiles alone fill the card.  The wide tile (32 queries a block,
+    each loaded row serving all 32) where its grid gives at least half
+    the SMs a block; else the narrow one (16 queries), whose blocks are
+    an eighth the size, so a small superchunk spreads over the card.
+    Every range hands on up to min(span, k + rows) entries per query to
+    the merge pass, so longer ranges would merge fewer but leave SMs idle.
+    """
+    for rows, (queries, slab) in FUSED_TILES.items():
+        tiles = -(-q // queries)
+        splits = max(1, min(sms // tiles, n // slab))
+        if 2 * tiles * splits >= sms:
+            break
+    return (rows, *ranges(n, splits))
+
+
+def fused_workspace(q: int, splits: int, span: int, k: int, rows: int,
+                    device):
+    """K1's scratch for tiles of ``rows`` rows: the values of each range's
+    survivors, a superset of its top k, (Q, splits, min(span, k + rows))
+    f32, and their positions int32."""
+    shape = (q, splits, min(span, k + rows))
+    return (torch.empty(shape, dtype=torch.float32, device=device),
+            torch.empty(shape, dtype=torch.int32, device=device))
 
 
 def split_plan(q: int, c: int, sms: int) -> tuple[int, int]:
@@ -133,11 +182,12 @@ def split_plan(q: int, c: int, sms: int) -> tuple[int, int]:
 
 
 def ranges(c: int, splits: int) -> tuple[int, int]:
-    """(splits, span) for C columns cut into at most ``splits`` ranges:
-    columns ``[r * span, min((r + 1) * span, c))`` form range ``r`` for
-    ``r < splits``, each a block of its own, none empty (so there may be
-    fewer than asked).  The span is a multiple of 4, so every range
-    starts at the same offset in its 16-byte group."""
+    """(splits, span) for C columns (K2) or superchunk rows (K1) cut into
+    at most ``splits`` ranges: ``[r * span, min((r + 1) * span, c))`` form
+    range ``r`` for ``r < splits``, each a block of its own, none empty
+    (so there may be fewer than asked).  The span is a multiple of 4, so
+    every range of K2's columns starts at the same offset in its 16-byte
+    group."""
     if splits < 1:
         raise ValueError(f"splits must be at least 1, got {splits}")
     splits = min(splits, c)
@@ -207,11 +257,11 @@ def _cuda_library(dev: torch.device):
     return load_library()
 
 
-def _library_for(dev: torch.device, *, fused: bool, d: int, k: int):
-    """The loaded kernel library, after checking the launch fits."""
+def _library_for(dev: torch.device, k: int):
+    """The loaded kernel library, after checking K1's launch fits."""
     lib = _cuda_library(dev)
-    need = lib.repro_topk_smem_bytes(int(fused), d, k)
+    need = lib.repro_topk_smem_bytes(k)
     if need > _MAX_SMEM:
-        raise ValueError(f"d={d}, k={k} needs {need} bytes of shared "
-                         f"memory per block; the card offers {_MAX_SMEM}")
+        raise ValueError(f"k={k} needs {need} bytes of shared memory per "
+                         f"block; the card offers {_MAX_SMEM}")
     return lib
