@@ -13,16 +13,19 @@ Phases, each printing its own lines:
   (b) each kernel (K1, K2 streaming top-k; K4 EmbeddingBag) against its
       plain PyTorch version on the card, at the main-path shapes and at
       edge shapes: bitwise on integer-valued inputs, within TOL on random
-      floats for K1 (K2 only compares and copies: bitwise on every input,
-      at split and one-range shapes); K1 also bitwise equal to itself on
-      float inputs across row-range counts (one, an odd count, its
-      wrapper's plan) and across superchunk sizes (one launch over S = 64,
-      eight over S = 8); then each kernel's time, its plain version's, one
-      library call's for the same function, and its bound (K1 and K2 at
-      three shapes each, with the range count their wrapper chose; K2,
-      where it splits, at half, one and two blocks per SM; each two-stage
-      kernel's stages' device time from torch.profiler comes after phase
-      (f));
+      floats for K1 (K2 only compares and copies, and K4 adds the slots in
+      the plain version's order: both bitwise on every input, float and
+      bf16 included); K1 also bitwise equal to itself on float inputs
+      across row-range counts (one, an odd count, its wrapper's plan) and
+      across superchunk sizes (one launch over S = 64, eight over S = 8),
+      and K4 across forced plans (tiles of 1, 7 and the most bags shared
+      memory holds, crossed with slot passes of 1, 7 and L); then each
+      kernel's time, its plain version's, one library call's for the same
+      function, and its bound (K1 and K2 at three shapes each, K4 at
+      serve_p99, serve_bulk and retrieval_cand for D = 10 and 1, with the
+      plan each wrapper chose; K2, where it splits, at half, one and two
+      blocks per SM; each two-stage kernel's stages' device time from
+      torch.profiler comes after phase (f));
   (c) trove-base at full width (12 x 768, bf16, seeded random weights) on
       a synthetic dataset through ``RetrievalEvaluator.evaluate`` /
       ``search`` / ``mine_hard_negatives`` with the backend pairs
@@ -606,10 +609,9 @@ def k2_timing(dev, unit, q: int, c: int) -> dict:
     return t
 
 
-def bag_compare(name, got, want, exact: bool) -> float:
+def bag_compare(name, got, want) -> None:
     """Check a K4 output against its plain version: NaN in the same
-    places, the rest bitwise (``exact``) or within TOL; returns the max
-    abs error."""
+    places, the value bits equal everywhere else."""
     import torch
     if got.dtype != want.dtype or got.shape != want.shape:
         fail(f"K4 {name}: {got.dtype} {tuple(got.shape)} != "
@@ -617,30 +619,32 @@ def bag_compare(name, got, want, exact: bool) -> float:
     nan_g, nan_w = torch.isnan(got), torch.isnan(want)
     if not torch.equal(nan_g, nan_w):
         fail(f"K4 {name}: NaN in other places than the plain version's")
-    g = torch.where(nan_g, 0.0, got.float())
-    w = torch.where(nan_w, 0.0, want.float())
-    if exact and not torch.equal(g, w):
-        bad = (g != w).any(1).nonzero().flatten()
+    if not torch.equal(bits(got)[~nan_g], bits(want)[~nan_w]):
+        bad = ((bits(got) != bits(want)) & ~nan_w).any(1).nonzero()
         fail(f"K4 {name}: not bitwise equal to the plain version (rows "
-             f"{bad[:8].tolist()})")
-    err = (g - w).abs().max().item() if g.numel() else 0.0
-    if not err <= TOL:
-        fail(f"K4 {name}: max abs error {err} above {TOL}")
-    return err
+             f"{bad.flatten()[:8].tolist()})")
+
+
+def bits(t):
+    """A float32 or bfloat16 tensor's bits, for bitwise comparison."""
+    import torch
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
 
 
 def phase_bag(dev) -> dict:
     """(b) for K4: the kernel against its plain version at the recsys
-    path's shapes and at the edges, then its times at the serve shapes."""
-    import numpy as np
+    path's shapes and at the edges, bitwise on every input, and against
+    itself under forced plans; then its times at the path's three
+    shapes."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import embedding_bag as bag
+    from repro_torch.kernels import ops, ref, topk
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     deepfm, wide = get_arch("deepfm"), get_arch("wide-deep")
+    sms = topk.sm_count(dev)
 
     def ids(b, vocab, pad=0.0):
         """Field-offset ids as the recsys path makes them, a share
@@ -658,39 +662,9 @@ def phase_bag(dev) -> dict:
     def ints(*shape, lo=-3, hi=4):
         return torch.randint(lo, hi, shape, generator=g, device=dev).float()
 
-    def case(name, table, idx, w, exact):
-        want = ref.embedding_bag_ref(table, idx, w)
-        got = ops.embedding_bag(table, idx, w)
-        torch.cuda.synchronize()
-        err = bag_compare(name, got, want, exact)
-        print(f"[b] K4 {name}: B={idx.shape[0]} L={idx.shape[1]} "
-              f"D={table.shape[1]} {str(table.dtype)[6:]} "
-              f"{'weighted' if w is not None else 'unweighted'} "
-              f"{'bitwise' if exact else f'max_abs_err={err:.3g}'} ok")
-        return err
+    def normal(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
 
-    v = deepfm.cfg.total_vocab
-    err = 0.0
-    # the path's shapes: serve_p99, serve_bulk and retrieval_cand batches
-    # over DeepFM's 39 fields (FM sum D = 10, linear term D = 1), and
-    # Wide&Deep's 40 fields (wide term D = 1)
-    for d in (10, 1):
-        t_int, t_norm = ints(v, d), torch.randn(v, d, generator=g,
-                                                device=dev)
-        for b in BAG_BATCHES:
-            idx = ids(b, deepfm.cfg.vocab_sizes, pad=0.05)
-            case(f"path int D={d}", t_int, idx,
-                 ints(*idx.shape, lo=-2, hi=3), True)
-            case(f"path int D={d}", t_int, idx, None, True)
-            err = max(err, case(f"path float D={d}", t_norm, idx, None,
-                                False))
-        del t_int, t_norm
-    t_wide = ints(wide.cfg.total_vocab, 1)
-    for b in (BAG_BATCHES[0], BAG_BATCHES[-1]):
-        case("path int (Wide&Deep)", t_wide, ids(b, wide.cfg.vocab_sizes),
-             None, True)
-    del t_wide
-    # edges, on a 1000-row table
     def uni(b, n_slots, pad=0.0):
         out = torch.randint(0, 1000, (b, n_slots), generator=g, device=dev,
                             dtype=torch.int32)
@@ -698,46 +672,201 @@ def phase_bag(dev) -> dict:
             out[torch.rand(b, n_slots, generator=g, device=dev) < pad] = -1
         return out
 
+    def case(name, table, idx, w):
+        """The wrapper against the plain version, bitwise: the kernel adds
+        the slots in the plain version's order."""
+        want = ref.embedding_bag_ref(table, idx, w)
+        got = ops.embedding_bag(table, idx, w)
+        torch.cuda.synchronize()
+        bag_compare(name, got, want)
+        plan = bag.bag_plan(idx.shape[0], idx.shape[1], table.shape[1],
+                            table.element_size(), sms)
+        print(f"[b] K4 {name}: B={idx.shape[0]} L={idx.shape[1]} "
+              f"D={table.shape[1]} {str(table.dtype)[6:]} "
+              f"{'weighted' if w is not None else 'unweighted'}, plan "
+              f"(bags, pass) {plan}: bitwise ok")
+
+    v = deepfm.cfg.total_vocab
+    # the path's shapes: serve_p99, serve_bulk and retrieval_cand batches
+    # over DeepFM's 39 fields (FM sum D = 10, linear term D = 1), and
+    # Wide&Deep's 40 fields (wide term D = 1)
+    for d in (10, 1):
+        t_int, t_norm = ints(v, d), normal(v, d)
+        for b in BAG_BATCHES:
+            idx = ids(b, deepfm.cfg.vocab_sizes, pad=0.05)
+            case(f"path int D={d}", t_int, idx,
+                 ints(*idx.shape, lo=-2, hi=3))
+            case(f"path int D={d}", t_int, idx, None)
+            case(f"path float D={d}", t_norm, idx, None)
+            case(f"path float weighted D={d}", t_norm, idx,
+                 normal(*idx.shape))
+        del t_int, t_norm
+    t_wide = ints(wide.cfg.total_vocab, 1)
+    for b in (BAG_BATCHES[0], BAG_BATCHES[-1]):
+        case("path int (Wide&Deep)", t_wide, ids(b, wide.cfg.vocab_sizes),
+             None)
+    del t_wide
+    # edges, on 1000-row tables
     small = ints(1000, 10)
-    case("B=1", small, uni(1, 39), None, True)
+    case("B=1", small, uni(1, 39), None)
     case("B*D=370, not a multiple of the block", small, uni(37, 39, 0.3),
-         ints(37, 39), True)
+         ints(37, 39))
     case("all slots padded", small,
-         torch.full((300, 39), -1, dtype=torch.int32, device=dev), None,
-         True)
-    case("L=1", small, uni(1000, 1), ints(1000, 1), True)
-    case("L=0", small, uni(5, 0), None, True)
-    case("bf16", small.bfloat16(), uni(4099, 39, 0.1), ints(4099, 39), True)
-    case("bf16 float", torch.randn(1000, 10, generator=g,
-                                   device=dev).bfloat16(),
-         uni(4099, 39, 0.1), None, False)
+         torch.full((300, 39), -1, dtype=torch.int32, device=dev), None)
+    case("L=1", small, uni(1000, 1), ints(1000, 1))
+    case("L=0", small, uni(5, 0), None)
+    case("bf16", small.bfloat16(), uni(4099, 39, 0.1), ints(4099, 39))
+    case("bf16 float", normal(1000, 10).bfloat16(), uni(4099, 39, 0.1),
+         None)
     past = uni(64, 39)
     past[3, 5], past[17, 0] = 1000, 123_456_789
-    case("id >= V (NaN rows)", small, past, None, True)
+    case("id >= V (NaN rows)", small, past, None)
     inf0 = small.clone()
     inf0[0] = float("inf")
     rows1 = uni(64, 39).clamp(min=1)              # row 0 only as padding
     rows1[:, ::7] = -1
-    case("inf in row 0 under padding", inf0, rows1, None, True)
+    case("inf in row 0 under padding", inf0, rows1, None)
     pad_idx = uni(64, 39, 0.1)
     w_inf = ints(64, 39)
     w_inf[pad_idx < 0] = float("inf")
-    case("inf weight under padding", small, pad_idx, w_inf, True)
+    case("inf weight under padding", small, pad_idx, w_inf)
+    # several slot passes; other piece widths (D = 7: 4 bytes, D = 32: 16,
+    # bf16 D = 10: 20-byte rows in 4-byte pieces, bf16 D = 7: 2 bytes); a
+    # B that is not a multiple of the plan's tile; ids and weights that
+    # start 4 bytes past a 16-byte boundary; a table that starts 8 bytes
+    # past one (8-byte pieces at D = 32)
+    case("L=200, several passes", small, uni(700, 200, 0.1), None)
+    case("L=200 float", normal(1000, 10), uni(700, 200, 0.1),
+         normal(700, 200))
+    for d in (7, 32):
+        case(f"D={d}", normal(1000, d), uni(3001, 39, 0.1), normal(3001, 39))
+    case("bf16 float D=10, 20-byte rows", normal(1000, 10).bfloat16(),
+         uni(3001, 39, 0.1), normal(3001, 39))
+    case("bf16 float D=7, 2-byte pieces", normal(1000, 7).bfloat16(),
+         uni(3001, 39, 0.1), None)
+    bags = bag.bag_plan(1000, 39, 10, 4, sms)[0]
+    if 1000 % bags == 0:
+        fail(f"K4: B=1000 is a multiple of the plan's tile of {bags} bags")
+    case(f"B=1000, tiles of {bags}", normal(1000, 10), uni(1000, 39, 0.1),
+         None)
+    case("ids and weights 4 bytes past a 16-byte boundary", normal(1000, 10),
+         uni(1, 129 * 39 + 1).flatten()[1:].view(129, 39),
+         normal(1, 129 * 39 + 1).flatten()[1:].view(129, 39))
+    case("D=32 table 8 bytes past a 16-byte boundary",
+         normal(1, 1000 * 32 + 2).flatten()[2:].view(1000, 32),
+         uni(513, 39, 0.1), None)
+    k4_self_consistent(dev, deepfm, normal, uni)
 
-    # times at the serve shapes: DeepFM's tables at init_params' scale,
-    # the ids of smoke_inputs; L2 flushed before every launch, as a
-    # request finds the table rows cold
+    # times at the path's three shapes
+    timings = k4_timings(dev, deepfm, normal)
+    head = timings[2]                       # serve_bulk, D = 10 (FM sum)
+    return {"name": "embedding_bag", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+            "replaces": "src/repro/kernels/embedding_bag.py:47",
+            "launches": 0, "max_abs_err": 0.0, "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "timings": timings}
+
+
+def k4_at_plan(dev, out, table, idx, weights, bags: int,
+               n_pass: int) -> None:
+    """K4 through its C entry point in tiles of ``bags`` bags and slot
+    passes of ``n_pass``, into ``out``; the wrapper picks its own plan, so
+    this is how phase (b) reaches other plans.  Counts no launch."""
+    import torch
+
+    from repro_torch.kernels import _build
+    b, n_slots = idx.shape
+    code = _build.load_library().repro_embedding_bag(
+        table.data_ptr(), int(table.dtype == torch.bfloat16),
+        idx.data_ptr(), None if weights is None else weights.data_ptr(), b,
+        n_slots, table.shape[0], table.shape[1], bags, n_pass,
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if code != 0:
+        fail(f"repro_embedding_bag at plan ({bags}, {n_pass}): CUDA error "
+             f"{code}")
+
+
+def deepfm_ids(deepfm, shape: str, dev):
+    """DeepFM's (B, 39) ids at a path shape: smoke_inputs' batch, or at
+    retrieval_cand the candidate column beside the broadcast user, as
+    recsys.retrieval_scores builds them."""
+    import numpy as np
+    import torch
+    batch = deepfm.smoke_inputs(shape, np.random.default_rng(SEED), dev)
+    if "sparse_idx" in batch:
+        return batch["sparse_idx"]
+    cands, user = batch["cand_idx"], batch["user_idx"]
+    return torch.cat([cands[:, None],
+                      user.expand(cands.shape[0], user.shape[1])], 1)
+
+
+def k4_self_consistent(dev, deepfm, normal, uni) -> None:
+    """K4 gives the same bits under every plan: each column adds its
+    slots in order whatever the tile or the pass.  At the serve_p99 and
+    serve_bulk shapes (DeepFM's ids, float tables of D = 10 and 1; one
+    weighted) and at one bf16 shape: tiles of one bag, an odd count and
+    the largest that shared memory holds, crossed with passes of 1, 7 and
+    L slots, each against the wrapper's own plan."""
+    import torch
+
+    from repro_torch.kernels import embedding_bag as bag
+    from repro_torch.kernels import ops, topk
+    sms = topk.sm_count(dev)
+    v = deepfm.cfg.total_vocab
+    shapes = [(shape, d, None) for shape in ("serve_p99", "serve_bulk")
+              for d in (10, 1)] + [("serve_p99", 10, "weighted"),
+                                   ("bf16", 10, "weighted")]
+    for shape, d, weighted in shapes:
+        if shape == "bf16":
+            table, idx = normal(1000, d).bfloat16(), uni(4099, 39, 0.1)
+        else:
+            table, idx = normal(v, d), deepfm_ids(deepfm, shape, dev)
+        b, n_slots = idx.shape
+        w = normal(b, n_slots) if weighted else None
+        want = ops.embedding_bag(table, idx, w)
+        plan = bag.bag_plan(b, n_slots, d, table.element_size(), sms)
+        largest = bag._MAX_SMEM // bag.tile_smem(1, n_slots, w is not None)
+        out = torch.empty_like(want)
+        for bags in (1, 7, largest):
+            for n_pass in (1, 7, n_slots):
+                out.fill_(float("nan"))
+                k4_at_plan(dev, out, table, idx, w, bags, n_pass)
+                torch.cuda.synchronize()
+                if not torch.equal(bits(out), bits(want)):
+                    fail(f"K4 {shape} D={d} at plan ({bags}, {n_pass}) is "
+                         f"not bitwise equal to its plan {plan}")
+        print(f"[b] K4 {shape} B={b} L={n_slots} D={d} "
+              f"{str(table.dtype)[6:]} {weighted or 'unweighted'}: bitwise "
+              f"equal at its plan (bags, pass) {plan} and at tiles of 1, 7 "
+              f"and {largest} bags x passes of 1, 7 and {n_slots} slots")
+        del table
+
+
+def k4_timings(dev, deepfm, normal) -> list:
+    """K4's time at the path's shapes (serve_p99, serve_bulk,
+    retrieval_cand; DeepFM's tables at init_params' scale, D = 10 and 1)
+    with the plan the wrapper chose, beside its plain version, one
+    F.embedding_bag and its bound (bytes: the ids, the distinct rows they
+    touch and the output, over the memory rate; operations: 2 B L D over
+    the float32 rate).  L2 is flushed before every launch, as a request
+    finds the table rows cold."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import embedding_bag as bag
+    from repro_torch.kernels import ops, ref, topk
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
 
     def cold():
         flush.zero_()
 
-    tables = {10: torch.randn(v, 10, generator=g, device=dev).mul_(0.01),
-              1: torch.randn(v, 1, generator=g, device=dev).mul_(0.01)}
+    v = deepfm.cfg.total_vocab
+    tables = {10: normal(v, 10).mul_(0.01), 1: normal(v, 1).mul_(0.01)}
     timings = []
-    for shape in ("serve_p99", "serve_bulk"):
-        idx = deepfm.smoke_inputs(shape, np.random.default_rng(SEED),
-                                  dev)["sparse_idx"]
+    for shape in ("serve_p99", "serve_bulk", "retrieval_cand"):
+        idx = deepfm_ids(deepfm, shape, dev)
         b, n_slots = idx.shape
         lib_idx = idx.long()                 # in range: no clamp needed
         psw = torch.ones(b, n_slots, device=dev)        # w * mask
@@ -746,8 +875,9 @@ def phase_bag(dev) -> dict:
             nbytes = 4 * (idx.numel() + rows * d + b * d)
             t_bytes = nbytes / HBM_BYTES_S * 1e3
             t_ops = 2 * b * n_slots * d / F32_FLOPS * 1e3
+            plan = bag.bag_plan(b, n_slots, d, 4, topk.sm_count(dev))
             t = {"shape": f"{shape} B={b} L={n_slots} D={d}",
-                 "distinct_rows": rows,
+                 "distinct_rows": rows, "plan": list(plan),
                  "ms": median_ms(lambda: ops.embedding_bag(table, idx),
                                  cold),
                  "plain_ms": median_ms(
@@ -759,20 +889,14 @@ def phase_bag(dev) -> dict:
                  "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
             timings.append(t)
             print(f"[b] embedding_bag at {t['shape']} ({rows} distinct "
-                  f"rows): kernel {t['ms']:.4f} ms, plain "
-                  f"{t['plain_ms']:.4f} ms, library (F.embedding_bag) "
-                  f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-                  f"({t['bound_by']})")
+                  f"rows, plan (bags, pass) {plan}): kernel {t['ms']:.4f} "
+                  f"ms, plain {t['plain_ms']:.4f} ms, library "
+                  f"(F.embedding_bag) {t['library_ms']:.4f} ms, bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+        del lib_idx, psw
     del tables, flush
     torch.cuda.empty_cache()
-    head = timings[2]                       # serve_bulk, D = 10 (FM sum)
-    return {"name": "embedding_bag", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
-            "replaces": "src/repro/kernels/embedding_bag.py:47",
-            "launches": 0, "max_abs_err": err, "ms": head["ms"],
-            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "timings": timings}
+    return timings
 
 
 # -- (c) + (d) the main path --------------------------------------------------

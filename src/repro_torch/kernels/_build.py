@@ -40,7 +40,7 @@ _SIGNATURES = {
     "repro_topk_smem_bytes": ([_I], ctypes.c_longlong),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
     "repro_embedding_bag": ([_P, _I, _P, _P, _I, _I, ctypes.c_longlong, _I,
-                             _P, _P], _I),
+                             _I, _I, _P, _P], _I),
 }
 
 
