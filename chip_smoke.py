@@ -35,9 +35,10 @@ Phases, each printing its own lines:
       exact float64 top-k;
   (e) launches per path: every kernel's count is set to 0 just before
       each evaluate / search / mine_hard_negatives call of (c), the
-      serving requests of (d) and each recsys cell of (f), and read just
-      after; each kernel of that path must have launched exactly as often
-      as predicted (``ShardedSearchDriver.stats`` on (c) / (d): one K1
+      serving requests of (d), each recsys cell of (f) and each cached
+      path of (g), and read just after; each kernel of that path must
+      have launched exactly as often as predicted
+      (``ShardedSearchDriver.stats`` on (c) / (d) / (g): one K1
       launch per superchunk call, one K2 launch per scored chunk; the
       model on (f): K4 twice per DeepFM forward, once per Wide&Deep
       forward, K2 once per retrieval), and a kernel off the path not at
@@ -47,7 +48,20 @@ Phases, each printing its own lines:
       Wide&Deep serve_p99 / retrieval_cand, AutoInt and BST serve_p99;
       probabilities in (0, 1), 8 DeepFM rows against a float64 host
       recomputation, each retrieval top-k against an exact float64 top-k
-      of the same scores; latencies, examples/s and peak memory.
+      of the same scores; latencies, examples/s and peak memory;
+  (g) the embedding cache (trove-base and the dataset of (c), a cache in
+      a temporary directory): a cold ``evaluate(cache=)`` that fills it,
+      warm ``evaluate`` / ``search`` for the three backend pairs and a
+      warm ``mine_hard_negatives``, which must encode no corpus chunk
+      ((torch, kernel) == (torch, torch) bitwise, fused within TOL,
+      (torch, torch) against an exact float64 top-k over the snapshot's
+      float16 rows); a live corpus (512 deletes, 256 re-embeds, 256 adds,
+      a compaction) searched through ``prepare_cache_corpus`` +
+      ``search_texts``, each search bitwise equal to a search over a
+      frozen copy of its pinned snapshot and within TOL of an exact
+      float64 top-k over its rows; a second cache of 262,144
+      random unit rows searched by 256 queries at S = 64, with the host
+      read, the upload of one superchunk and their share of the search.
 The second-to-last line is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and the script
 exits non-zero without that line.  It imports nothing of JAX and nothing
@@ -921,15 +935,59 @@ def on_path(paths: dict, path: str, kernel: str | None, fn, want):
     return out
 
 
-def phase_main_path(dev, card: str) -> dict:
-    """(c) and (d); returns each path's launch counts."""
+def predicted(ev, score: str, heap: str) -> dict:
+    """Each kernel's launches on a retrieval path, predicted from the
+    evaluator's last search: one K1 launch per superchunk call on
+    (fused, ·), one K2 launch per scored chunk on (torch, kernel)."""
+    st = ev.last_search_stats
+    if st["executor"] != "superchunk":
+        fail(f"({score}, {heap}) ran {st['executor']}")
+    return {"fused_score_topk": (st["dispatch_rounds"]
+                                 if score == "fused" else 0),
+            "topk_update": (st["chunks"] if (score, heap) == (
+                "torch", "kernel") else 0),
+            "embedding_bag": 0}
+
+
+def path_kernel(score: str, heap: str) -> str | None:
+    """The kernel a retrieval path must launch (None on (torch, torch))."""
+    return ("fused_score_topk" if score == "fused" else
+            "topk_update" if heap == "kernel" else None)
+
+
+def check_exact(name, ids, vals, want_ids, want_vals) -> float:
+    """Values within TOL of the wanted top-k, ids equal where
+    separated."""
     import numpy as np
+    import torch
+    err = float(np.abs(vals - want_vals).max())
+    sep = separated(torch.from_numpy(want_vals)).numpy()
+    if err > TOL or not np.array_equal(ids[sep], want_ids[sep]):
+        fail(f"{name}: max abs error {err} (tol {TOL}) or ids differ "
+             f"where separated")
+    return err
+
+
+def check_backends(name, runs: dict) -> float:
+    """(torch, kernel) == (torch, torch) bitwise (they share their
+    scores); fused, which sums in another order than cuBLAS, within TOL
+    of torch, ids equal where separated.  Returns the fused error."""
+    import numpy as np
+    a, b = runs[("torch", "kernel")], runs[("torch", "torch")]
+    if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+        fail(f"{name}: (torch, kernel) != (torch, torch) bitwise")
+    f = runs[("fused", "kernel")]
+    return check_exact(f"{name} fused vs torch", f[0], f[1], b[0], b[1])
+
+
+def build_trove(dev) -> dict:
+    """trove-base at full width with seeded random weights, its collator,
+    and the synthetic dataset of phases (c), (d) and (g)."""
     import torch
 
     from repro_torch.configs import trove_base
     from repro_torch.core.collator import RetrievalCollator
-    from repro_torch.core.config import DataArguments, EvaluationArguments
-    from repro_torch.core.evaluator import RetrievalEvaluator
+    from repro_torch.core.config import DataArguments
     from repro_torch.data.synthetic import make_retrieval_dataset
     from repro_torch.data.tokenizer import HashTokenizer
     from repro_torch.models.encoder import DefaultEncoder
@@ -949,29 +1007,53 @@ def phase_main_path(dev, card: str) -> dict:
     print(f"[c] {cfg.name}: {cfg.n_layers} x {cfg.d_model}, "
           f"{n_params / 1e6:.1f} M params, {cfg.dtype}; {len(queries)} "
           f"queries, {len(corpus)} docs")
+    return {"retriever": retriever, "params": params, "collator": collator,
+            "queries": queries, "corpus": corpus, "qrels": qrels}
 
+
+def trove_evaluator(dev, trove: dict, score: str = "fused",
+                    heap: str = "kernel", superchunk_size: int | None = None):
+    """A RetrievalEvaluator of the main path's settings (k = 100, chunks
+    of 32 rows, 256 queries a batch, S = 64 unless given; 0 autotunes)."""
+    from repro_torch.core.config import EvaluationArguments
+    from repro_torch.core.evaluator import RetrievalEvaluator
+
+    args = EvaluationArguments(
+        topk=K, encode_batch_size=C, query_batch_size=Q,
+        superchunk_size=S if superchunk_size is None else superchunk_size,
+        score_impl=score, heap_impl=heap,
+        metrics=("ndcg@10", "mrr@10", "recall@100"))
+    return RetrievalEvaluator(args, trove["retriever"], trove["collator"],
+                              trove["params"], device=dev)
+
+
+def query_embeddings(dev, trove: dict, texts):
+    """The queries as a search of all of ``texts`` encodes them (one
+    batch of Q; a smaller batch may pad to another length and round
+    otherwise in bf16)."""
+    ev = trove_evaluator(dev, trove)
+    return ev.encode_pipeline.encode(
+        trove["params"], list(texts),
+        trove["collator"].max_len_for(True),
+        fmt=trove["retriever"].format_query, device=True, batch_size=Q)
+
+
+def phase_main_path(dev, card: str, trove: dict) -> dict:
+    """(c) and (d); returns each path's launch counts."""
+    import numpy as np
+    import torch
+
+    queries, corpus, qrels = (trove["queries"], trove["corpus"],
+                              trove["qrels"])
     paths: dict = {}
     runs = {}
     for score, heap in (("fused", "kernel"), ("torch", "kernel"),
                         ("torch", "torch")):
-        args = EvaluationArguments(
-            topk=K, encode_batch_size=C, query_batch_size=Q,
-            superchunk_size=S, score_impl=score, heap_impl=heap,
-            metrics=("ndcg@10", "mrr@10", "recall@100"))
-        ev = RetrievalEvaluator(args, retriever, collator, params,
-                                device=dev)
-        kernel = ("fused_score_topk" if score == "fused" else
-                  "topk_update" if heap == "kernel" else None)
+        ev = trove_evaluator(dev, trove, score, heap)
+        kernel = path_kernel(score, heap)
 
         def want(_, score=score, heap=heap, ev=ev):
-            st = ev.last_search_stats
-            if st["executor"] != "superchunk":
-                fail(f"({score}, {heap}) ran {st['executor']}")
-            return {"fused_score_topk": (st["dispatch_rounds"]
-                                         if score == "fused" else 0),
-                    "topk_update": (st["chunks"] if (score, heap) == (
-                        "torch", "kernel") else 0),
-                    "embedding_bag": 0}
+            return predicted(ev, score, heap)
 
         t0 = time.perf_counter()
         metrics = on_path(paths, f"evaluate ({score}, {heap})", kernel,
@@ -1004,28 +1086,15 @@ def phase_main_path(dev, card: str) -> dict:
             print(f"[c] mine_hard_negatives (fused, kernel): {len(negs)} "
                   f"triplets")
 
-    # (torch, kernel) and (torch, torch) share their scores: bitwise
-    a, b = runs[("torch", "kernel")], runs[("torch", "torch")]
-    if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
-        fail("(torch, kernel) != (torch, torch) bitwise")
-    # fused sums in another order than cuBLAS: within TOL
-    f, t = runs[("fused", "kernel")], runs[("torch", "torch")]
-    err = float(np.abs(f[1] - t[1]).max())
-    tv = torch.from_numpy(t[1])
-    sep = separated(tv).numpy()
-    if err > TOL or not np.array_equal(f[0][sep], t[0][sep]):
-        fail(f"fused vs torch: max abs score error {err} (tol {TOL}) or "
-             f"ids differ beyond the tolerance")
+    err = check_backends("(c)", runs)
     print(f"[c] (torch, kernel) == (torch, torch) bitwise; fused vs torch "
-          f"max abs score error {err:.3g} (tol {TOL}), ids equal on "
-          f"{sep.mean():.3f} of slots separated by more than tol")
+          f"max abs score error {err:.3g} (tol {TOL}), ids equal where "
+          f"separated by more than tol")
 
     # (d) serving: prepare once, one warm-up request (it runs the
     # superchunk autotune, whose launches on synthetic data are not the
     # path's), then requests of 32 queries
-    args = EvaluationArguments(topk=K, encode_batch_size=C,
-                               query_batch_size=Q)
-    ev = RetrievalEvaluator(args, retriever, collator, params, device=dev)
+    ev = trove_evaluator(dev, trove, superchunk_size=0)
     t0 = time.perf_counter()
     prepared = ev.prepare_corpus(corpus, device_resident=True)
     torch.cuda.synchronize()
@@ -1062,10 +1131,7 @@ def phase_main_path(dev, card: str) -> dict:
         lambda _: {"fused_score_topk": sum(rounds), "topk_update": 0,
                    "embedding_bag": 0})
     # request 0 against an exact float64 top-k over the same embeddings
-    q_emb = ev.encode_pipeline.encode(
-        params, req, collator.max_len_for(True),
-        fmt=retriever.format_query, device=True,
-        batch_size=args.query_batch_size)
+    q_emb = query_embeddings(dev, trove, req)
     exact = q_emb.double() @ corpus_embs.double().T
     wv, wpos = torch.sort(exact, dim=1, descending=True, stable=True)
     wv = wv[:, :K].float()
@@ -1083,6 +1149,317 @@ def phase_main_path(dev, card: str) -> dict:
           f"{rounds[0]} calls per request)")
     print(f"[d] of which the search round (stream + kernels + finalize), "
           f"ms: {json.dumps([round(x, 3) for x in search_ms])}")
+    return paths
+
+
+# -- (g) the embedding cache on the card -------------------------------------
+
+# The live-corpus edit (docs deleted, re-embedded, added) and the second
+# cache: random unit rows written without the encoder, searched by every
+# query at S = 64 (128 superchunks of S x C = 2048 rows).
+LIVE_DELETE, LIVE_REEMBED, LIVE_ADD, LIVE_Q = 512, 256, 256, 32
+N_BIG, BIG_BLOCK, N_EXACT = 262_144, 32_768, 8
+
+
+def count_corpus_encodes(ev) -> list:
+    """Record the size of every corpus (non-query) encode of ``ev``."""
+    seen = []
+    encode = ev._encode_texts
+
+    def counting(texts, is_query, *args, **kw):
+        if not is_query:
+            seen.append(len(texts))
+        return encode(texts, is_query, *args, **kw)
+
+    ev._encode_texts = counting
+    return seen
+
+
+def unit_rows(rng, n: int):
+    import numpy as np
+    x = rng.standard_normal((n, D), dtype=np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def exact_topk(q, rows_f16, hashes):
+    """Exact float64 top-K of ``q @ rows.T`` on the host, over float16
+    rows as the cache stores them -> (ids, values as float32)."""
+    import numpy as np
+    q64 = np.asarray(q, np.float64)
+    scores = np.concatenate([
+        q64 @ rows_f16[lo: lo + BIG_BLOCK].astype(np.float64).T
+        for lo in range(0, len(rows_f16), BIG_BLOCK)], axis=1)
+    pos = np.argsort(-scores, axis=1, kind="stable")[:, :K]
+    return hashes[pos], np.take_along_axis(scores, pos, 1).astype(
+        np.float32)
+
+
+def phase_cache(dev, card: str, trove: dict, k1_ms: float) -> dict:
+    """(g) the cached paths: a cold then warm evaluate / search / mine
+    over an EmbeddingCache, a live corpus (deletes, re-embeds, adds,
+    compaction) searched through prepare_cache_corpus against a frozen
+    copy of each pinned snapshot, and the host read + upload at 262,144
+    rows.  Returns each path's launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.embedding_cache import EmbeddingCache
+    from repro_torch.core.evaluator import PreparedCorpus
+    from repro_torch.core.result_heap import to_tensor
+    from repro_torch.data.table import stable_id_hash_array
+
+    queries, corpus, qrels = (trove["queries"], trove["corpus"],
+                              trove["qrels"])
+    texts = list(queries.values())
+    pairs = (("fused", "kernel"), ("torch", "kernel"), ("torch", "torch"))
+    paths: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = EmbeddingCache(os.path.join(tmp, "trove"), D)
+
+        # (g1) cold: encode on the host, write the cache, score float32
+        ev = trove_evaluator(dev, trove)
+        seen = count_corpus_encodes(ev)
+        t0 = time.perf_counter()
+        on_path(paths, "cached evaluate cold (fused, kernel)",
+                "fused_score_topk",
+                lambda: ev.evaluate(queries, corpus, qrels, cache=cache),
+                lambda _: predicted(ev, "fused", "kernel"))
+        t_cold = time.perf_counter() - t0
+        if sum(seen) != len(corpus) or cache.n_live != len(corpus):
+            fail(f"cold pass encoded {sum(seen)} docs, cached "
+                 f"{cache.n_live} of {len(corpus)}")
+        print(f"[g] cold evaluate (fused, kernel) on {card}: {t_cold:.3f} "
+              f"s, {sum(seen)} docs encoded on the host and cached "
+              f"({cache.n_live} x {D} float16, "
+              f"{cache.n_live * D * 2 / 1e6:.1f} MB), key "
+              f"{cache.generation_key}")
+
+        # (g1) warm: every backend pair reads the float16 rows
+        runs, encoded = {}, 0
+        for score, heap in pairs:
+            ev = trove_evaluator(dev, trove, score, heap)
+            seen = count_corpus_encodes(ev)
+            kernel = path_kernel(score, heap)
+
+            def want(_, score=score, heap=heap, ev=ev):
+                return predicted(ev, score, heap)
+
+            t0 = time.perf_counter()
+            metrics = on_path(
+                paths, f"cached evaluate warm ({score}, {heap})", kernel,
+                lambda: ev.evaluate(queries, corpus, qrels, cache=cache),
+                want)
+            t_warm = time.perf_counter() - t0
+            _, ids, vals = on_path(
+                paths, f"cached search warm ({score}, {heap})", kernel,
+                lambda: ev.search(queries, corpus, cache=cache), want)
+            st = ev.last_search_stats
+            if st["generation"] != cache.generation_key:
+                fail(f"warm search pinned {st['generation']}, not "
+                     f"{cache.generation_key}")
+            if (score, heap) == ("fused", "kernel"):
+                negs = on_path(
+                    paths, "cached mine_hard_negatives warm (fused, kernel)",
+                    kernel, lambda: ev.mine_hard_negatives(
+                        queries, corpus, qrels, depth=20, cache=cache),
+                    want)
+                if not negs or not all(np.isfinite(x) for *_, x in negs):
+                    fail("warm mine_hard_negatives: nothing / non-finite")
+            encoded += sum(seen)
+            runs[(score, heap)] = (ids, vals)
+            print(f"[g] warm evaluate ({score}, {heap}) on {card}: "
+                  f"{t_warm:.3f} s, {st['dispatch_rounds']} calls of S="
+                  f"{st['superchunk_size']}, metrics "
+                  f"{json.dumps({n: round(m, 4) for n, m in metrics.items()})}")
+        if encoded:
+            fail(f"warm passes encoded {encoded} corpus docs")
+        print("[g] warm passes (3 evaluates, 3 searches, 1 mine) encoded 0 "
+              "corpus chunks: every corpus row came from the cache")
+        err = check_backends("warm", runs)
+        with cache.snapshot() as snap:
+            rows, hashes = snap.get_range(0, snap.n_live), snap.ids.copy()
+        q_emb = query_embeddings(dev, trove, texts).cpu().numpy()
+        want_ids, want_vals = exact_topk(q_emb, rows, hashes)
+        ex = check_exact("warm (torch, torch) vs exact float64 top-k",
+                         *runs[("torch", "torch")],
+                         want_ids, want_vals)
+        print(f"[g] warm (torch, kernel) == (torch, torch) bitwise; fused "
+              f"vs torch max abs error {err:.3g}; (torch, torch) vs exact "
+              f"float64 top-k over the snapshot's float16 rows {ex:.3g} "
+              f"(tol {TOL})")
+
+        # (g2) a live corpus: deletes, re-embeds and adds, searched
+        # through prepare_cache_corpus before and after a compaction
+        rng = np.random.default_rng(SEED + 1)
+        doc_ids = list(corpus)
+        gen, epoch = cache.generation_key
+        dead = [doc_ids[i] for i in rng.choice(len(doc_ids), LIVE_DELETE,
+                                               replace=False)]
+        cache.delete_records(dead)
+        dead_set = set(dead)
+        alive = [d for d in doc_ids if d not in dead_set]
+        cache.cache_records([alive[i] for i in rng.choice(
+            len(alive), LIVE_REEMBED, replace=False)],
+            unit_rows(rng, LIVE_REEMBED))
+        cache.cache_records([f"live-{i}" for i in range(LIVE_ADD)],
+                            unit_rows(rng, LIVE_ADD))
+        if cache.generation_key != (gen + 3, epoch):
+            fail(f"key {cache.generation_key} after three mutations of "
+                 f"{(gen, epoch)}")
+        dead_hashes = stable_id_hash_array(dead)
+        ev = trove_evaluator(dev, trove)
+
+        def want(_):
+            return predicted(ev, "fused", "kernel")
+
+        q_live = query_embeddings(dev, trove, texts[:LIVE_Q]).cpu().numpy()
+
+        def live_search(tag: str, key):
+            prepared = ev.prepare_cache_corpus(cache)
+            try:
+                if prepared.generation != key or len(prepared) != (
+                        len(corpus) - LIVE_DELETE + LIVE_ADD):
+                    fail(f"live corpus {tag}: key {prepared.generation}, "
+                         f"{len(prepared)} docs")
+                t0 = time.perf_counter()
+                ids, vals = on_path(
+                    paths, f"live search_texts {tag} (fused, kernel)",
+                    "fused_score_topk",
+                    lambda: ev.search_texts(texts[:LIVE_Q], prepared), want)
+                ms = (time.perf_counter() - t0) * 1e3
+                snap = prepared.snapshot
+                frozen_rows = torch.from_numpy(snap.get_range(
+                    0, snap.n_live).astype(np.float32)).to(dev)
+                frozen = PreparedCorpus(snap.ids, snap.n_live,
+                                        lambda lo, hi: frozen_rows[lo:hi])
+                oids, ovals = ev.search_texts(texts[:LIVE_Q], frozen)
+                want_ids, want_vals = exact_topk(
+                    q_live, snap.get_range(0, snap.n_live), snap.ids)
+            finally:
+                prepared.close()
+            if not (np.array_equal(ids, oids) and np.array_equal(vals,
+                                                                 ovals)):
+                fail(f"live search {tag} != its frozen snapshot's search")
+            ex = check_exact(f"live search {tag} vs exact float64 top-k",
+                             ids, vals, want_ids, want_vals)
+            if np.isin(ids, dead_hashes).any() or (ids < 0).any():
+                fail(f"live search {tag}: a deleted id / empty slot "
+                     f"surfaced")
+            print(f"[g] live search_texts {tag} on {card}: key {key}, "
+                  f"{len(frozen)} live docs, {LIVE_Q} queries, {ms:.3f} "
+                  f"ms; bitwise equal to a search over a frozen copy of "
+                  f"the snapshot; vs exact float64 top-k over the "
+                  f"snapshot's rows {ex:.3g} (tol {TOL}); none of the "
+                  f"{LIVE_DELETE} deleted ids surfaced")
+
+        live_search("before compaction", (gen + 3, epoch))
+        stats = cache.compact()
+        if cache.generation_key != (gen + 3, epoch + 1):
+            fail(f"key {cache.generation_key} after compaction")
+        print(f"[g] compact(): {json.dumps(stats)}")
+        live_search("after compaction", (gen + 3, epoch + 1))
+
+        # (g3) the host read + upload at scale
+        big = EmbeddingCache(os.path.join(tmp, "big"), D)
+        rng = np.random.default_rng(SEED + 2)
+        t0 = time.perf_counter()
+        for lo in range(0, N_BIG, BIG_BLOCK):
+            big.cache_records(np.arange(lo, lo + BIG_BLOCK),
+                              unit_rows(rng, BIG_BLOCK))
+        print(f"[g] second cache: {N_BIG} random unit rows x {D} float16 "
+              f"({N_BIG * D * 2 / 2**20:.0f} MiB) written in "
+              f"{time.perf_counter() - t0:.3f} s")
+        runs, search_ms, stats = {}, {}, {}
+        for score, heap in pairs:
+            ev = trove_evaluator(dev, trove, score, heap)
+            prepared = ev.prepare_cache_corpus(big)
+            try:
+                t0 = time.perf_counter()
+                runs[(score, heap)] = on_path(
+                    paths, f"cache search_texts {N_BIG} rows ({score}, "
+                    f"{heap})", path_kernel(score, heap),
+                    lambda: ev.search_texts(texts, prepared),
+                    lambda _, ev=ev, score=score, heap=heap: predicted(
+                        ev, score, heap))
+                search_ms[(score, heap)] = (time.perf_counter() - t0) * 1e3
+            finally:
+                prepared.close()
+            st = stats[(score, heap)] = ev.last_search_stats
+            print(f"[g] search_texts over {N_BIG} cached rows ({score}, "
+                  f"{heap}) on {card}: {search_ms[(score, heap)]:.3f} ms "
+                  f"for {len(texts)} queries, {st['dispatch_rounds']} "
+                  f"superchunks of {st['superchunk_size'] * C} rows")
+        err = check_backends("cache at scale", runs)
+        with big.snapshot() as snap:
+            q_emb = query_embeddings(dev, trove, texts)[:N_EXACT]
+            want_ids, want_vals = exact_topk(
+                q_emb.cpu().numpy(), snap.get_range(0, snap.n_live),
+                snap.ids)
+            ids, vals = runs[("torch", "torch")]
+            ex = check_exact("at scale vs exact float64 top-k",
+                             ids[:N_EXACT],
+                             vals[:N_EXACT], want_ids, want_vals)
+            print(f"[g] at scale: (torch, kernel) == (torch, torch) "
+                  f"bitwise; fused vs torch {err:.3g}; {N_EXACT} queries "
+                  f"vs exact float64 top-k {ex:.3g} (tol {TOL})")
+
+            # one superchunk: the host read and cast, then the upload
+            st = stats[("fused", "kernel")]
+            rows = st["superchunk_size"] * C
+            starts = [(i * 7919 % (N_BIG // rows)) * rows for i in range(30)]
+            # the loader's read and cast, and apart: the float16 copy
+            # alone, and the same cast by torch on the host
+            host_ms = {"read": [], "copy": [], "torch": []}
+            for lo in starts:
+                t0 = time.perf_counter()
+                block = snap.get_range(lo, lo + rows).astype(np.float32)
+                t1 = time.perf_counter()
+                half = np.array(snap.get_range(lo, lo + rows))
+                t2 = time.perf_counter()
+                torch.from_numpy(half).float()
+                t3 = time.perf_counter()
+                for key, dt in (("read", t1 - t0), ("copy", t2 - t1),
+                                ("torch", t3 - t2)):
+                    host_ms[key].append(dt * 1e3)
+            read_ms, copy_ms, torch_ms = (statistics.median(host_ms[key])
+                                          for key in host_ms)
+            up_ms, pinned_ms = [], []
+            pinned = torch.from_numpy(block).pin_memory()
+            for out, fn in ((up_ms, lambda: to_tensor(block, dev,
+                                                      torch.float32)),
+                            (pinned_ms, lambda: pinned.to(
+                                dev, non_blocking=True))):
+                for rep in range(33):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    fn()
+                    end.record()
+                    torch.cuda.synchronize()
+                    if rep >= 3:
+                        out.append(start.elapsed_time(end))
+            up_ms = statistics.median(up_ms)
+            pinned_ms = statistics.median(pinned_ms)
+        mb = block.nbytes / 1e6
+        fused_ms = search_ms[("fused", "kernel")]
+        n_super = st["dispatch_rounds"]
+        share = n_super * (read_ms + up_ms) / fused_ms
+        print(f"[g] host read + cast of one superchunk ({rows} x {D} "
+              f"float16 -> float32, median of 30) on {card}: "
+              f"{read_ms:.4f} ms; of which a float16 copy alone "
+              f"{copy_ms:.4f} ms; the same cast by torch on the host "
+              f"{torch_ms:.4f} ms (not on the path)")
+        print(f"[g] upload of one superchunk ({rows} x {D} float32, "
+              f"{mb:.2f} MB, pageable, the driver's to_tensor; device "
+              f"time, median of 30 CUDA-event timings) on {card}: "
+              f"{up_ms:.4f} ms, {mb / up_ms:.2f} GB/s")
+        print(f"[g] the same block from pinned memory (not on the path) on "
+              f"{card}: {pinned_ms:.4f} ms, {mb / pinned_ms:.2f} GB/s")
+        print(f"[g] K1 at the same superchunk (Q={Q}, S={S}, phase (b)) on "
+              f"{card}: {k1_ms:.4f} ms")
+        print(f"[g] upload + host read share of the (fused, kernel) search "
+              f"over {N_BIG} rows on {card}: {n_super} x ({read_ms:.4f} + "
+              f"{up_ms:.4f}) ms of {fused_ms:.3f} ms = {share:.3f}")
     return paths
 
 
@@ -1274,7 +1651,10 @@ def main() -> int:
 
     kernels["embedding_bag"] = phase_bag(dev)
 
-    paths = phase_main_path(dev, card)
+    trove = build_trove(dev)
+    paths = phase_main_path(dev, card, trove)
+    paths.update(phase_cache(dev, card, trove,
+                             kernels["fused_score_topk"]["timings"][0]["ms"]))
     paths.update(phase_recsys(dev, card))
     for t, call, reset, names in PROFILED:
         t["stage_ms"] = stage_ms(call, reset, names)

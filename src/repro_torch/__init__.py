@@ -18,6 +18,7 @@ _EXPORTS = {
     "EvaluationArguments": "repro_torch.core.config",
     "ModelArguments": "repro_torch.core.config",
     "RetrievalEvaluator": "repro_torch.core.evaluator",
+    "EmbeddingCache": "repro_torch.core.embedding_cache",
     "compute_metrics": "repro_torch.core.metrics",
     "FastResultHeapq": "repro_torch.core.result_heap",
     "FairSharder": "repro_torch.core.fair_sharding",

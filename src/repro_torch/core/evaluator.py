@@ -1,18 +1,26 @@
 """RetrievalEvaluator: evaluation + hard-negative mining (paper §3.5).
 
-The port's counterpart of ``repro.core.evaluator`` for one worker, a
-flat index and no embedding cache.  Every search entry point is a thin
-instantiation of :class:`~repro_torch.core.sharded_search.
-ShardedSearchDriver`:
+The port's counterpart of ``repro.core.evaluator`` for one worker and
+a flat index.  Every search entry point is a thin instantiation of
+:class:`~repro_torch.core.sharded_search.ShardedSearchDriver`:
 
   * :meth:`RetrievalEvaluator.search` / :meth:`evaluate` /
     :meth:`mine_hard_negatives` — the paper's pipeline: the corpus is
     encoded online through the bucketed encode pipeline and streamed,
     device-resident, into the driver's superchunk executor;
+  * the same with ``cache=`` an :class:`~repro_torch.core.
+    embedding_cache.EmbeddingCache` — the paper's "w/ cached embeddings"
+    path: a first (cold) pass encodes on the host and writes the cache,
+    later (warm) passes pin a snapshot that covers the corpus and stream
+    its float16 rows off the mmap, cast to float32 and uploaded once per
+    superchunk, with no corpus encoding;
   * :meth:`prepare_corpus` (``device_resident=True``) +
     :meth:`search_texts` — the serving regime: the corpus is encoded
     once and kept on the card, each request encodes its queries and
-    scores them.
+    scores them;
+  * :meth:`prepare_cache_corpus` + :meth:`search_texts` — a live
+    corpus: the cache's own live set at one pinned generation, while
+    writers add, re-embed, delete and compact.
 
 Scoring is ``EvaluationArguments.score_impl`` (``numpy | torch |
 fused``) and the heap ``heap_impl`` (``python | torch | kernel``); all
@@ -28,11 +36,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.config import EvaluationArguments
+from repro_torch.core.embedding_cache import EmbeddingCache
 from repro_torch.core.encode_pipeline import (EncodePipeline,
                                               PipelineChunkSource)
 from repro_torch.core.fair_sharding import FairSharder
 from repro_torch.core.faults import SearchOutcome
 from repro_torch.core.metrics import compute_metrics
+from repro_torch.core.result_heap import to_tensor
 from repro_torch.core.sharded_search import ShardedSearchDriver
 from repro_torch.data.table import stable_id_hash, stable_id_hash_array
 from repro_torch.data.views import DatasetView, as_view
@@ -83,19 +93,36 @@ def format_metrics_table(results: dict[str, dict]) -> str:
 class PreparedCorpus:
     """A corpus resolved once for repeated searches: its id hashes, the
     sized object the sharder partitions, and the chunk loader the driver
-    streams (encode pipeline or device-resident slices)."""
+    streams (cache snapshot reads, encode pipeline or device-resident
+    slices).
 
-    __slots__ = ("hashes", "n_docs", "load_chunk", "sized")
+    A cache-backed preparation pins a :class:`~repro_torch.core.
+    embedding_cache.CacheSnapshot`: ``generation`` carries its
+    ``(generation, epoch)`` key, and searches against this corpus read
+    exactly that view (concurrent mutations and compactions never show
+    through).  :meth:`close` releases the pin, so compaction may retire
+    the old epoch's files; other corpora have ``generation is None`` and
+    :meth:`close` does nothing.
+    """
+
+    __slots__ = ("hashes", "n_docs", "load_chunk", "sized", "generation",
+                 "snapshot")
 
     def __init__(self, hashes: np.ndarray, n_docs: int, load_chunk,
-                 sized=None):
+                 sized=None, generation=None, snapshot=None):
         self.hashes = hashes
         self.n_docs = n_docs
         self.load_chunk = load_chunk
         self.sized = n_docs if sized is None else sized
+        self.generation = generation
+        self.snapshot = snapshot
 
     def __len__(self) -> int:
         return self.n_docs
+
+    def close(self) -> None:
+        if self.snapshot is not None:
+            self.snapshot.close()
 
     def positions_to_ids(self, pos: np.ndarray) -> np.ndarray:
         """Map the driver's int32 global positions to 63-bit id hashes
@@ -171,6 +198,38 @@ class RetrievalEvaluator:
                else torch.empty((0, 0), device=self.device))
         return enc if device else enc.cpu().numpy()
 
+    def encode_corpus(self, ids: Sequence, texts: Sequence[str],
+                      cache: EmbeddingCache | None = None,
+                      device: bool = False):
+        """Encode a corpus slice, reading and writing ``cache``.
+
+        Cached ids are read from the cache; the missing ones are encoded
+        on the host and appended to it.  The result is a float32 numpy
+        array (the cache stores numpy rows), except with no cache and
+        ``device=True``: the encoder's output then stays on the device
+        (the online regime, no host round trip per chunk)."""
+        if cache is None and device:
+            return self._encode_texts(texts, False, device=True)
+        if cache is not None and len(cache):
+            have = cache.has(ids)
+        else:
+            have = np.zeros(len(ids), bool)
+        embs = np.empty((len(ids), 0), np.float32)
+        missing = np.flatnonzero(~have)
+        if len(missing):
+            enc = self._encode_texts([texts[i] for i in missing], False)
+            embs = np.empty((len(ids), enc.shape[1]), np.float32)
+            embs[missing] = enc
+            if cache is not None:
+                cache.cache_records([ids[i] for i in missing], enc)
+        hit = np.flatnonzero(have)
+        if len(hit):
+            got = cache.get([ids[i] for i in hit])
+            if embs.shape[1] == 0:
+                embs = np.empty((len(ids), got.shape[1]), np.float32)
+            embs[hit] = got
+        return embs
+
     def _corpus_view(self, corpus) -> DatasetView:
         """Coerce a corpus/query container to a view; dicts are wrapped
         once per (object, key list)."""
@@ -201,15 +260,24 @@ class RetrievalEvaluator:
     def _on_device(self) -> bool:
         return self.args.score_impl != "numpy"
 
-    def prepare_corpus(self, corpus, *,
-                       device_resident: bool = False) -> PreparedCorpus:
+    def prepare_corpus(self, corpus, cache: EmbeddingCache | None = None,
+                       *, device_resident: bool = False) -> PreparedCorpus:
         """Resolve a corpus once for repeated searches against it.
 
-        Online (default): chunks are encoded as the driver streams them,
-        through the bucketed encode pipeline.  ``device_resident=True``
-        encodes the whole corpus now and keeps the embeddings where
-        scoring happens (the card for the device backends, the host for
-        ``numpy``): chunk loads become zero-copy slices.
+        * ``device_resident=True`` encodes the whole corpus now (through
+          ``cache`` when given, warming it) and keeps the embeddings
+          where scoring happens (the card for the device backends, the
+          host for ``numpy``): chunk loads become zero-copy slices.
+        * A ``cache`` that covers the corpus: a snapshot is pinned and
+          its row plan resolved once — ``("range", None)`` when the live
+          rows are the corpus in order, else ``("rows", positions)`` —
+          and chunk loads become snapshot reads cast to float32, which
+          the driver uploads once per superchunk.
+        * Online (no cache): chunks are encoded as the driver streams
+          them, through the bucketed encode pipeline.
+        * A cache that does not cover the corpus: each chunk is looked
+          up, and its missing rows encoded and cached (one generation
+          per chunk that had any), as it streams.
         """
         on_device = self._on_device()
         corpus_v = self._corpus_view(corpus)
@@ -217,24 +285,76 @@ class RetrievalEvaluator:
         hashes = np.asarray(corpus_v.id_hashes)
         n_docs = len(corpus_v)
         if device_resident:
-            embs = self._encode_texts(texts, False, device=on_device)
+            embs = self.encode_corpus(hashes, texts, cache,
+                                      device=on_device)
+            if on_device:
+                embs = to_tensor(embs, self.device, torch.float32)
             return PreparedCorpus(hashes, n_docs, lambda lo, hi: embs[lo:hi])
-        if self.encode_pipeline is not None:
+        plan = snap = None
+        if cache is not None and len(cache):
+            snap = cache.snapshot()
+            plan = snap.row_plan(hashes)
+            if plan is None:
+                snap.close()
+                snap = None
+        if plan is not None:
+            kind, rows = plan
+            if kind == "range":
+                def load_chunk(lo: int, hi: int):
+                    return snap.get_range(lo, hi).astype(np.float32)
+            else:
+                def load_chunk(lo: int, hi: int):
+                    return snap.get_rows(rows[lo:hi]).astype(np.float32)
+        elif cache is None and self.encode_pipeline is not None:
             load_chunk = PipelineChunkSource(
                 self.encode_pipeline, self.params, texts,
                 self.collator.max_len_for(False),
                 fmt=self.retriever.format_passage, device=on_device)
-        else:
+        elif cache is None:
             def load_chunk(lo: int, hi: int):
                 return self._encode_texts(texts[lo:hi], False,
                                           device=on_device)
-        return PreparedCorpus(hashes, n_docs, load_chunk, sized=corpus_v)
+        else:
+            c = self.args.encode_batch_size
+
+            def load_chunk(lo: int, hi: int):
+                # one lookup (and one cache commit of its missing rows)
+                # per chunk, as the reference's per-chunk loads make, so
+                # a cold pass advances the generation alike at any
+                # superchunk size.  Cache keys are stable hashes, so the
+                # hashed id slice addresses it for raw-id dicts and
+                # views alike.
+                return np.concatenate([
+                    self.encode_corpus(hashes[a:min(a + c, hi)],
+                                       texts[a:min(a + c, hi)], cache)
+                    for a in range(lo, hi, c)])
+        return PreparedCorpus(hashes, n_docs, load_chunk, sized=corpus_v,
+                              generation=snap.key if snap else None,
+                              snapshot=snap)
+
+    def prepare_cache_corpus(self, cache: EmbeddingCache,
+                             generation=None) -> PreparedCorpus:
+        """Prepare the cache's own live set for search: the corpus is
+        whatever is live in the pinned snapshot (adds, re-embeds and
+        deletes included), in live-space order, for the flat index.
+        ``generation`` takes an int or a ``(generation, epoch)`` key to
+        pin an earlier view.  Preparation is index work over the live
+        set, no encoding, so a server can swap generations between
+        requests cheaply.  (The reference also builds an IVF index over
+        the snapshot; the port has no IVF index yet.)"""
+        snap = cache.snapshot(generation)
+
+        def load_chunk(lo: int, hi: int):
+            return snap.get_range(lo, hi).astype(np.float32)
+
+        return PreparedCorpus(snap.ids, snap.n_live, load_chunk,
+                              generation=snap.key, snapshot=snap)
 
     def _search_embedded(self, q_emb, prepared: PreparedCorpus,
                          topk: int):
         driver = self.make_driver()
         out = driver.search(q_emb, prepared.sized, prepared.load_chunk,
-                            topk)
+                            topk, generation=prepared.generation)
         self.last_search_stats = driver.stats
         return out
 
@@ -266,22 +386,28 @@ class RetrievalEvaluator:
         return SearchOutcome((prepared.positions_to_ids(pos), vals),
                              coverage=out.coverage, degraded=out.degraded)
 
-    def search(self, queries, corpus,
-               topk: int | None = None) -> SearchOutcome:
+    def search(self, queries, corpus, topk: int | None = None,
+               cache: EmbeddingCache | None = None) -> SearchOutcome:
         """Dense retrieval: -> (qid_hashes, doc_id_hashes (Q, k), scores).
 
         Device-side top-k tracks int32 global corpus positions; they are
-        mapped back to id hashes on the host.
+        mapped back to id hashes on the host.  With ``cache``, the corpus
+        is read from it where it covers the corpus, else encoded into it
+        (:meth:`prepare_corpus`).
         """
-        return self.search_prepared(queries, self.prepare_corpus(corpus),
-                                    topk)
+        prepared = self.prepare_corpus(corpus, cache)
+        try:
+            return self.search_prepared(queries, prepared, topk)
+        finally:
+            prepared.close()
 
     # -- public API ----------------------------------------------------------
     def evaluate(self, queries, corpus,
-                 qrels: dict[str, dict[str, float]]) -> dict:
+                 qrels: dict[str, dict[str, float]],
+                 cache: EmbeddingCache | None = None) -> dict:
         """Metrics for one (queries, corpus, qrels) scenario; ``qrels``
         may be keyed by raw ids or by stable hashes."""
-        q_hashes, run_ids, _ = self.search(queries, corpus)
+        q_hashes, run_ids, _ = self.search(queries, corpus, cache=cache)
         qrels_h = {
             stable_id_hash(q): {stable_id_hash(d): float(g)
                                 for d, g in docs.items()}
@@ -293,11 +419,13 @@ class RetrievalEvaluator:
                             qrels: dict[str, dict[str, float]],
                             depth: int | None = None,
                             exclude_positives: bool = True,
-                            output_path: str | None = None):
+                            output_path: str | None = None,
+                            cache: EmbeddingCache | None = None):
         """Top-ranked non-positives per query -> negative qrel triplets."""
         depth = depth or self.args.topk
         q_ids = self._corpus_view(queries).raw_ids()
-        _, run_ids, scores = self.search(queries, corpus, topk=depth)
+        _, run_ids, scores = self.search(queries, corpus, topk=depth,
+                                         cache=cache)
         corpus_v = self._corpus_view(corpus)
         hashes = np.asarray(corpus_v.id_hashes)
         hash_to_raw = dict(zip(hashes.tolist(), corpus_v.raw_ids()))

@@ -26,9 +26,14 @@ from repro_torch.kernels import ops, ref
 
 def to_tensor(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """``x`` (tensor or array-like) as a contiguous ``dtype`` tensor on
-    ``device``; arrays are copied, so read-only buffers are fine."""
+    ``device``.  A host array is copied only when it is read-only (a
+    memmap slice) or not C-contiguous, so a chunk the loader has just
+    cast to float32 goes to the card without another host copy.  A
+    writable C-contiguous array that needs neither a transfer nor a
+    cast (``device`` the CPU, ``dtype`` its own) is not copied at all:
+    the tensor aliases it, and writes through either show in both."""
     if not isinstance(x, torch.Tensor):
-        x = torch.from_numpy(np.array(x))
+        x = torch.from_numpy(np.require(x, requirements=("C", "W")))
     return x.to(device=device, dtype=dtype).contiguous()
 
 

@@ -285,9 +285,10 @@ class ShardedSearchDriver:
         ``pieces`` are contiguous ``(offset, rows)`` runs: whole
         superchunks from a plain loader, ``chunk_size`` chunks from a
         chunk source (concatenated here).  A superchunk already on the
-        device in float32 is scored as a view; only a ragged tail is
-        padded.  Per-step offsets and valid counts are built on the
-        device.  Returns the number of calls."""
+        device in float32 is scored as a view; one on the host (a cache
+        read) goes up in one copy; only a ragged tail is padded.
+        Per-step offsets and valid counts are built on the device.
+        Returns the number of calls."""
         n_q, dim = q_emb.shape
         c = self.chunk_size
         dev = self.device
@@ -357,13 +358,19 @@ class ShardedSearchDriver:
         return heap, calls, "per_chunk", s
 
     def search(self, q_emb, n_docs, load_chunk: ChunkLoader,
-               topk: int) -> SearchOutcome:
+               topk: int, generation=None) -> SearchOutcome:
         """Encode→score→top-k over the corpus.
 
         ``n_docs`` is a count or a sized corpus object.  Returns
         ``(scores (Q, k), positions (Q, k))`` as numpy arrays (a
         :class:`SearchOutcome` with full coverage); positions are global
         corpus offsets and ``-1`` marks empty slots.
+
+        ``generation`` is a prepared corpus's snapshot key.  One worker
+        scores whatever snapshot its loader reads, so the key is only
+        recorded in :attr:`stats`; the multi-worker driver (not ported
+        yet) hands it to the sharder so that every worker of a round
+        scores the same snapshot.
         """
         lo, hi = self.partition(n_docs)[0]
         self._chunk_devices: set[str] = set()
@@ -379,6 +386,7 @@ class ShardedSearchDriver:
                       "chunks": -(-max(hi - lo, 0) // self.chunk_size),
                       "seconds": seconds, "executor": executor,
                       "superchunk_size": s, "dispatch_rounds": calls,
+                      "generation": generation,
                       "query_device": str(getattr(q_emb, "device", "cpu")),
                       "chunk_devices": sorted(self._chunk_devices)}
         return SearchOutcome((vals, pos), coverage=full_coverage(len(vals)))

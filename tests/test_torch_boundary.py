@@ -43,6 +43,7 @@ def test_port_imports_no_jax_and_no_reference():
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert {"repro_torch.kernels.topk", "repro_torch.core.evaluator",
+            "repro_torch.core.embedding_cache", "repro_torch.core.faults",
             "repro_torch.models.convert",
             "repro_torch.configs.trove_base"} <= set(out["imported"])
     leaked = [m for m in out["loaded"]
