@@ -35,14 +35,14 @@ Phases, each printing its own lines:
       exact float64 top-k;
   (e) launches per path: every kernel's count is set to 0 just before
       each evaluate / search / mine_hard_negatives call of (c), the
-      serving requests of (d), each recsys cell of (f) and each cached
-      path of (g), and read just after; each kernel of that path must
-      have launched exactly as often as predicted
-      (``ShardedSearchDriver.stats`` on (c) / (d) / (g): one K1
-      launch per superchunk call, one K2 launch per scored chunk; the
-      model on (f): K4 twice per DeepFM forward, once per Wide&Deep
-      forward, K2 once per retrieval), and a kernel off the path not at
-      all;
+      serving requests of (d), each recsys cell of (f), each cached
+      path of (g) and each W > 1 path of (h), and read just after;
+      each kernel of that path must have launched exactly as often as
+      predicted (``ShardedSearchDriver.stats`` on (c) / (d) / (g) / (h),
+      summed over ranks: one K1 launch per superchunk call, one K2
+      launch per scored chunk; the model on (f): K4 twice per DeepFM
+      forward, once per Wide&Deep forward, K2 once per retrieval), and
+      a kernel off the path not at all;
   (f) recsys scoring at the full published widths (seeded random weights
       drawn on the card): DeepFM serve_p99 / serve_bulk / retrieval_cand,
       Wide&Deep serve_p99 / retrieval_cand, AutoInt and BST serve_p99;
@@ -61,7 +61,24 @@ Phases, each printing its own lines:
       frozen copy of its pinned snapshot and within TOL of an exact
       float64 top-k over its rows; a second cache of 262,144
       random unit rows searched by 256 queries at S = 64, with the host
-      read, the upload of one superchunk and their share of the search.
+      read, the upload of one superchunk and their share of the search;
+  (h) W > 1 workers on the one card (the model, dataset, k, C and S of
+      (c)): (h1) an online ``evaluate`` / ``search`` at W = 2 through
+      ``SimulatedCluster``, each rank encoding its own shard, ranks
+      identical and within TOL of (c)'s W = 1; (h2) one device-resident
+      prepared corpus at W = 1, 2, 4 for the three backend pairs, a
+      256-query ``search_prepared`` and four 32-query ``search_texts``,
+      every rank bitwise equal to W = 1, with each rank's round and
+      gather + merge ms and each request's wall time; (h3) the prepared
+      rows in an ``EmbeddingCache`` at W = 2, bitwise equal to W = 1 over
+      the same snapshot, and with 64 rows added between rank 0's and rank
+      1's prepare: rank 1's ``GenerationMismatch`` (round not consumed),
+      its re-prepare at the agreed key, the same result; (h4) two rank
+      processes (this script with ``--h4-rank``) over ``torch.distributed``
+      with ``ProcessAllGather``, bitwise equal to W = 1 over one pinned
+      snapshot, cutting the corpus identically on the second search.
+      Launches on every (h) path: the sum over ranks of each rank's
+      prediction.
 The second-to-last line is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and the script
 exits non-zero without that line.  It imports nothing of JAX and nothing
@@ -76,6 +93,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -937,15 +955,21 @@ def on_path(paths: dict, path: str, kernel: str | None, fn, want):
 
 def predicted(ev, score: str, heap: str) -> dict:
     """Each kernel's launches on a retrieval path, predicted from the
-    evaluator's last search: one K1 launch per superchunk call on
-    (fused, ·), one K2 launch per scored chunk on (torch, kernel)."""
-    st = ev.last_search_stats
-    if st["executor"] != "superchunk":
-        fail(f"({score}, {heap}) ran {st['executor']}")
-    return {"fused_score_topk": (st["dispatch_rounds"]
+    evaluator's last search."""
+    return predict([ev.last_search_stats], score, heap)
+
+
+def predict(stats: list, score: str, heap: str) -> dict:
+    """Each kernel's launches predicted from driver stats, summed over
+    searches and ranks: one K1 launch per superchunk call on (fused, ·),
+    one K2 launch per scored chunk on (torch, kernel)."""
+    for st in stats:
+        if st["executor"] != "superchunk":
+            fail(f"({score}, {heap}) ran {st['executor']}")
+    return {"fused_score_topk": (sum(st["dispatch_rounds"] for st in stats)
                                  if score == "fused" else 0),
-            "topk_update": (st["chunks"] if (score, heap) == (
-                "torch", "kernel") else 0),
+            "topk_update": (sum(st["chunks"] for st in stats)
+                            if (score, heap) == ("torch", "kernel") else 0),
             "embedding_bag": 0}
 
 
@@ -1012,9 +1036,12 @@ def build_trove(dev) -> dict:
 
 
 def trove_evaluator(dev, trove: dict, score: str = "fused",
-                    heap: str = "kernel", superchunk_size: int | None = None):
+                    heap: str = "kernel", superchunk_size: int | None = None,
+                    **workers):
     """A RetrievalEvaluator of the main path's settings (k = 100, chunks
-    of 32 rows, 256 queries a batch, S = 64 unless given; 0 autotunes)."""
+    of 32 rows, 256 queries a batch, S = 64 unless given; 0 autotunes);
+    ``workers`` are its process_index / process_count / gather /
+    sharder."""
     from repro_torch.core.config import EvaluationArguments
     from repro_torch.core.evaluator import RetrievalEvaluator
 
@@ -1024,7 +1051,7 @@ def trove_evaluator(dev, trove: dict, score: str = "fused",
         score_impl=score, heap_impl=heap,
         metrics=("ndcg@10", "mrr@10", "recall@100"))
     return RetrievalEvaluator(args, trove["retriever"], trove["collator"],
-                              trove["params"], device=dev)
+                              trove["params"], device=dev, **workers)
 
 
 def query_embeddings(dev, trove: dict, texts):
@@ -1038,8 +1065,9 @@ def query_embeddings(dev, trove: dict, texts):
         fmt=trove["retriever"].format_query, device=True, batch_size=Q)
 
 
-def phase_main_path(dev, card: str, trove: dict) -> dict:
-    """(c) and (d); returns each path's launch counts."""
+def phase_main_path(dev, card: str, trove: dict) -> tuple[dict, dict]:
+    """(c) and (d); returns each path's launch counts and (c)'s search
+    results by backend pair."""
     import numpy as np
     import torch
 
@@ -1149,7 +1177,7 @@ def phase_main_path(dev, card: str, trove: dict) -> dict:
           f"{rounds[0]} calls per request)")
     print(f"[d] of which the search round (stream + kernels + finalize), "
           f"ms: {json.dumps([round(x, 3) for x in search_ms])}")
-    return paths
+    return paths, runs
 
 
 # -- (g) the embedding cache on the card -------------------------------------
@@ -1463,6 +1491,416 @@ def phase_cache(dev, card: str, trove: dict, k1_ms: float) -> dict:
     return paths
 
 
+# -- (h) W > 1 workers on the card -------------------------------------------
+
+# Worlds of (h2), rows added between two ranks' prepares in (h3), and how
+# long (h4)'s parent waits for each rank process.
+H_WORLDS, H_ADDED, H_JOIN_S = (1, 2, 4), 64, 120
+# the backend pairs each (h4) rank process searches, in this order
+H4_PAIRS = (("fused", "kernel"), ("torch", "kernel"))
+
+
+def same_bits(name: str, got, want) -> None:
+    """Every array of ``got`` bitwise equal to ``want``'s."""
+    import numpy as np
+    for g, w in zip(got, want):
+        if g.dtype != w.dtype or not np.array_equal(g, w):
+            fail(f"{name}: not bitwise equal")
+
+
+def on_ranks(dev, ev: list, score: str, heap: str,
+             chunks: str | None = None) -> None:
+    """Every rank's queries on the card, and its corpus chunks where they
+    should be: on the card (``chunks`` None), or on the host for a cache
+    (``"cpu"``: the mmap rows go up once per superchunk)."""
+    for r, e in enumerate(ev):
+        check_devices(f"rank {r} ({score}, {heap})", dev,
+                      e.last_search_stats, chunks)
+
+
+def check_devices(name: str, dev, st: dict, chunks: str | None) -> None:
+    if st["query_device"] != str(dev) or st["chunk_devices"] != [
+            chunks or str(dev)]:
+        fail(f"{name}: queries on {st['query_device']}, chunks on "
+             f"{st['chunk_devices']}")
+
+
+def cluster_evaluators(dev, trove, world: int, score: str, heap: str,
+                       cluster=None) -> list:
+    """W evaluators of one SimulatedCluster (one evaluator at W = 1)."""
+    if world == 1:
+        return [trove_evaluator(dev, trove, score, heap)]
+    return [trove_evaluator(dev, trove, score, heap, process_index=r,
+                            process_count=world, gather=cluster.gather,
+                            sharder=cluster.sharder)
+            for r in range(world)]
+
+
+def run_ranks(world: int, cluster, fn) -> list:
+    return [fn(0)] if world == 1 else cluster.run(fn)
+
+
+def phase_workers(dev, card: str, trove: dict, w1_run) -> dict:
+    """(h) W > 1 workers on the one card: (h1) an online evaluate / search
+    at W = 2, (h2) a device-resident prepared corpus at W = 1, 2, 4 for
+    the three backend pairs, (h3) a cache at W = 2 with a generation
+    mismatch, (h4) two processes over torch.distributed.  Returns each
+    path's launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.embedding_cache import EmbeddingCache
+    from repro_torch.core.fair_sharding import GenerationMismatch
+    from repro_torch.launch.distributed import SimulatedCluster
+
+    queries, corpus, qrels = (trove["queries"], trove["corpus"],
+                              trove["qrels"])
+    texts = list(queries.values())
+    pairs = (("fused", "kernel"), ("torch", "kernel"), ("torch", "torch"))
+    paths: dict = {}
+
+    # (h1) the online regime at W = 2: each rank encodes its own shard
+    cluster = SimulatedCluster(2)
+    evs = cluster_evaluators(dev, trove, 2, "fused", "kernel", cluster)
+
+    def want(_):
+        return predict([e.last_search_stats for e in evs], "fused",
+                       "kernel")
+
+    t0 = time.perf_counter()
+    metrics = on_path(paths, "(h1) evaluate W=2 (fused, kernel)",
+                      "fused_score_topk", lambda: cluster.run(
+                          lambda r: evs[r].evaluate(queries, corpus, qrels)),
+                      want)
+    t_eval = time.perf_counter() - t0
+    outs = on_path(paths, "(h1) search W=2 (fused, kernel)",
+                   "fused_score_topk", lambda: cluster.run(
+                       lambda r: evs[r].search(queries, corpus)), want)
+    on_ranks(dev, evs, "fused", "kernel")
+    if metrics[0] != metrics[1]:
+        fail(f"(h1) ranks' metrics differ: {metrics}")
+    same_bits("(h1) rank 1 vs rank 0", outs[1], outs[0])
+    items = [e.last_search_stats["items"] for e in evs]
+    if sum(items) != len(corpus):
+        fail(f"(h1) shards {items} do not cover {len(corpus)} docs")
+    err = check_exact("(h1) W=2 vs (c) W=1 (fused, kernel)", outs[0][1],
+                      outs[0][2], *w1_run)
+    print(f"[h] (h1) online evaluate W=2 (fused, kernel) on {card}: "
+          f"{t_eval:.3f} s, shards {items}, metrics "
+          f"{json.dumps({n: round(m, 4) for n, m in metrics[0].items()})}"
+          f"; ranks identical; vs (c) W=1 max abs error {err:.3g} (tol "
+          f"{TOL}), ids equal where separated")
+
+    # (h2) one device-resident prepared corpus shared by every rank
+    t0 = time.perf_counter()
+    prepared = trove_evaluator(dev, trove).prepare_corpus(
+        corpus, device_resident=True)
+    torch.cuda.synchronize()
+    print(f"[h] (h2) prepare_corpus(device_resident=True): "
+          f"{time.perf_counter() - t0:.3f} s")
+    w1, by_world = {}, {}
+    for world in H_WORLDS:
+        runs, rounds = {}, {}
+        for score, heap in pairs:
+            cluster = SimulatedCluster(world) if world > 1 else None
+            evs = cluster_evaluators(dev, trove, world, score, heap,
+                                     cluster)
+            stats = [[] for _ in evs]
+            walls = [[] for _ in evs]
+
+            def serve(r, evs=evs, stats=stats, walls=walls):
+                ev = evs[r]
+                outs = [ev.search_prepared(queries, prepared)]
+                stats[r].append(ev.last_search_stats)
+                for i in range(4):
+                    t0 = time.perf_counter()
+                    outs.append(ev.search_texts(
+                        texts[32 * i: 32 * (i + 1)], prepared))
+                    walls[r].append((time.perf_counter() - t0) * 1e3)
+                    stats[r].append(ev.last_search_stats)
+                return outs
+
+            got = on_path(
+                paths, f"(h2) W={world} search_prepared + 4 x search_texts "
+                f"({score}, {heap})", path_kernel(score, heap),
+                lambda: run_ranks(world, cluster, serve),
+                lambda _, stats=stats, score=score, heap=heap: predict(
+                    [st for rank in stats for st in rank], score, heap))
+            on_ranks(dev, evs, score, heap)
+            if world == 1:
+                w1[(score, heap)] = got[0]
+            for r, outs in enumerate(got):
+                for i, (g, w) in enumerate(zip(outs, w1[(score, heap)])):
+                    same_bits(f"(h2) W={world} rank {r} search {i} "
+                              f"({score}, {heap}) vs W=1", g, w)
+            runs[(score, heap)] = (got[0][0][1], got[0][0][2])
+            rounds[(score, heap)] = (
+                [[round(st["seconds"] * 1e3, 3) for st in rank]
+                 for rank in stats],
+                [[round(st.get("gather_seconds", 0.0) * 1e3, 3)
+                  for st in rank] for rank in stats],
+                [round(max(w), 3) for w in zip(*walls)])
+        err = check_backends(f"(h2) W={world}", runs)
+        by_world[world] = rounds
+        print(f"[h] (h2) W={world}: every rank bitwise equal to W=1 for "
+              f"each pair; (torch, kernel) == (torch, torch) bitwise; "
+              f"fused vs torch {err:.3g} (tol {TOL})")
+    for world, rounds in by_world.items():
+        for (score, heap), (round_ms, gather_ms, wall) in rounds.items():
+            print(f"[h] (h2) W={world} ({score}, {heap}) on {card}: round "
+                  f"ms per rank [256-query search, 4 x 32-query requests] "
+                  f"{json.dumps(round_ms)}; gather + merge ms per rank "
+                  f"{json.dumps(gather_ms)}; request wall ms "
+                  f"{json.dumps(wall)}; medians: round "
+                  f"{statistics.median(sum(round_ms, [])):.3f}, gather + "
+                  f"merge {statistics.median(sum(gather_ms, [])):.3f}, "
+                  f"request {statistics.median(wall):.3f}")
+    print("[h] (h2) W ranks share one card's SMs: these times show no "
+          "scaling and none is claimed")
+
+    # (h3) the prepared rows in a cache at W = 2, then a mismatch
+    rows = prepared.load_chunk(0, len(prepared)).cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = EmbeddingCache(os.path.join(tmp, "h3"), D)
+        cache.cache_records(list(corpus), rows)
+        key = cache.generation_key
+        ev1 = trove_evaluator(dev, trove)
+        snap_corpus = ev1.prepare_cache_corpus(cache)
+        try:
+            want_w1 = ev1.search_prepared(queries, snap_corpus)
+        finally:
+            snap_corpus.close()
+
+        def cached_search(evs, r, mutate=False):
+            ev = evs[r]
+            if mutate:
+                rng = np.random.default_rng(SEED + 3)
+                cache.cache_records([f"h3-add-{i}" for i in range(H_ADDED)],
+                                    unit_rows(rng, H_ADDED))
+            pc = ev.prepare_cache_corpus(cache)
+            try:
+                return ev.search_prepared(queries, pc), None
+            except GenerationMismatch as e:
+                pc.close()
+                pc = ev.prepare_cache_corpus(cache, e.agreed)
+                return ev.search_prepared(queries, pc), e
+            finally:
+                pc.close()
+
+        for tag in ("same snapshot", "mismatch"):
+            cluster = SimulatedCluster(2)
+            evs = cluster_evaluators(dev, trove, 2, "fused", "kernel",
+                                     cluster)
+            acquired = threading.Event()
+            acquire = cluster.sharder.acquire
+
+            def acquire_then_signal(worker, *args, **kw):
+                try:
+                    return acquire(worker, *args, **kw)
+                finally:
+                    if worker == 0:
+                        acquired.set()
+
+            cluster.sharder.acquire = acquire_then_signal
+
+            def worker(r, evs=evs, acquired=acquired, tag=tag):
+                if r == 1 and not acquired.wait(H_JOIN_S):
+                    fail("(h3) rank 0 never acquired its round")
+                return cached_search(evs, r, mutate=(
+                    r == 1 and tag == "mismatch"))
+
+            got = on_path(
+                paths, f"(h3) cache W=2 {tag} (fused, kernel)",
+                "fused_score_topk", lambda: cluster.run(worker),
+                lambda _, evs=evs: predict(
+                    [e.last_search_stats for e in evs], "fused", "kernel"))
+            on_ranks(dev, evs, "fused", "kernel", chunks="cpu")
+            for r, (out, _) in enumerate(got):
+                same_bits(f"(h3) {tag} rank {r} vs W=1", out, want_w1)
+                if evs[r].last_search_stats["generation"] != key:
+                    fail(f"(h3) {tag} rank {r} scored "
+                         f"{evs[r].last_search_stats['generation']}, not "
+                         f"{key}")
+            mismatch = [e for _, e in got if e is not None]
+            if tag == "mismatch" and not (
+                    len(mismatch) == 1 and got[1][1] is not None
+                    and mismatch[0].agreed == key
+                    and mismatch[0].mine == cache.generation_key
+                    and mismatch[0].round_no == 0):
+                fail(f"(h3) expected one GenerationMismatch on rank 1 at "
+                     f"round 0 agreeing on {key}: {mismatch}")
+            if tag == "same snapshot" and mismatch:
+                fail(f"(h3) unexpected mismatch {mismatch}")
+            print(f"[h] (h3) cache W=2 {tag}: both ranks bitwise equal to "
+                  f"W=1 over snapshot {key}"
+                  + (f"; rank 1 pinned {mismatch[0].mine} after "
+                     f"{H_ADDED} added rows, got GenerationMismatch at "
+                     f"round 0 (not consumed), re-prepared at the agreed "
+                     f"key" if mismatch else ""))
+
+        # (h4) two processes on the card, over torch.distributed
+        paths.update(phase_processes(dev, card, trove, cache, tmp))
+    return paths
+
+
+def wait_all(procs, timeout: float) -> None:
+    """Return once every process has exited, one has failed, or
+    ``timeout`` seconds have passed."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        codes = [proc.poll() for proc in procs]
+        if None not in codes or any(c not in (None, 0) for c in codes):
+            return
+        time.sleep(0.05)
+
+
+def phase_processes(dev, card: str, trove: dict, cache, tmp: str) -> dict:
+    """(h4): two rank processes, each a ShardedSearchDriver with a
+    ProcessAllGather over a gloo group, search one pinned cache
+    snapshot for (fused, kernel) then (torch, kernel); each must equal
+    the W = 1 search here bitwise."""
+    import numpy as np
+
+    from repro_torch.core.sharded_search import ShardedSearchDriver
+
+    texts = list(trove["queries"].values())
+    q_emb = query_embeddings(dev, trove, texts)
+    np.save(os.path.join(tmp, "q.npy"), q_emb.cpu().numpy())
+    key = cache.generation_key
+    with open(os.path.join(tmp, "h4.json"), "w") as f:
+        json.dump({"cache": cache.path, "key": list(key), "device": str(dev),
+                   "dim": D, "k": K, "chunk": C, "superchunk": S}, f)
+    want = {}
+    with cache.snapshot(key) as snap:
+        for score, heap in H4_PAIRS:
+            want[(score, heap)] = ShardedSearchDriver(
+                score_impl=score, heap_impl=heap, chunk_size=C,
+                superchunk_size=S, device=dev).search(
+                    q_emb, snap.n_live,
+                    lambda lo, hi: snap.get_range(lo, hi).astype(np.float32),
+                    K, generation=snap.key)
+        n_live = snap.n_live
+    logs = [os.path.join(tmp, f"h4-{r}.log") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for r in range(2):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--h4-rank",
+                     str(r), tmp], stdout=log, stderr=subprocess.STDOUT))
+        wait_all(procs, H_JOIN_S)
+        waited = time.perf_counter() - t0
+        bad = []
+        for r, proc in enumerate(procs):
+            if proc.returncode != 0:
+                with open(logs[r]) as f:
+                    tail = f.read()[-3000:]
+                bad.append(f"(h4) rank {r} " + (
+                    f"still running after {waited:.1f} s (limit "
+                    f"{H_JOIN_S} s), killed" if proc.returncode is None
+                    else f"exited {proc.returncode}") + f":\n{tail}")
+        if bad:
+            fail("\n".join(bad))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=H_JOIN_S)
+    wall = time.perf_counter() - t0
+    paths: dict = {}
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"h4-{r}.json")) as f:
+            info = json.load(f)
+        out = np.load(os.path.join(tmp, f"h4-{r}.npz"))
+        for i, (score, heap) in enumerate(H4_PAIRS):
+            st, got = info["stats"][i], info["launches"][i]
+            check_devices(f"(h4) rank {r} ({score}, {heap})", dev, st,
+                          "cpu")
+            if st["round"] != i:
+                fail(f"(h4) rank {r} ({score}, {heap}): round {st['round']}")
+            expected = predict([st], score, heap)
+            if got != expected:
+                fail(f"(h4) rank {r} ({score}, {heap}): launches {got}, "
+                     f"expected {expected}")
+            path = f"(h4) process rank {r} ({score}, {heap})"
+            paths[path] = got
+            print(f"[e] {path}: launches {json.dumps(got)} (as predicted)")
+            same_bits(f"(h4) rank {r} ({score}, {heap}) vs W=1",
+                      (out[f"{score}-{heap}-vals"],
+                       out[f"{score}-{heap}-pos"]), want[(score, heap)])
+        ranks.append(info["stats"])
+    for i in range(len(H4_PAIRS)):
+        cuts = [(st[i]["lo"], st[i]["hi"]) for st in ranks]
+        if cuts[0][0] != 0 or cuts[0][1] != cuts[1][0] or (
+                cuts[1][1] != n_live):
+            fail(f"(h4) search {i}: the ranks cut {n_live} rows as {cuts}")
+    print(f"[h] (h4) 2 processes over torch.distributed (gloo) on {card}, "
+          f"snapshot {key}: both ranks bitwise equal to W=1 for "
+          f"{[list(p) for p in H4_PAIRS]}; second search cut "
+          f"{[(st[1]['lo'], st[1]['hi']) for st in ranks]} on both "
+          f"replicas (the round committed through exchange_observations); "
+          f"{wall:.3f} s wall with the processes' start")
+    for r, st in enumerate(ranks):
+        print(f"[h] (h4) rank {r} on {card}: round ms "
+              f"{[round(s['seconds'] * 1e3, 3) for s in st]}, gather + "
+              f"merge ms {[round(s['gather_seconds'] * 1e3, 3) for s in st]}")
+    return paths
+
+
+
+def h4_rank(rank: int, tmp: str) -> int:
+    """One (h4) rank process: join the group, search the pinned snapshot
+    once per pair with the counts zeroed just before and read just
+    after, and write the results, stats and counts to ``tmp``."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import numpy as np
+    import torch
+
+    from repro_torch.core.embedding_cache import EmbeddingCache
+    from repro_torch.core.fair_sharding import FairSharder
+    from repro_torch.core.sharded_search import (ProcessAllGather,
+                                                 ShardedSearchDriver)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.distributed import init_distributed
+
+    with open(os.path.join(tmp, "h4.json")) as f:
+        spec = json.load(f)
+    if init_distributed(init_method=f"file://{tmp}/rdzv", world_size=2,
+                        rank=rank) != (rank, 2):
+        fail("(h4) init_distributed")
+    try:
+        dev = spec["device"]
+        q = torch.from_numpy(np.load(os.path.join(tmp, "q.npy"))).to(dev)
+        cache = EmbeddingCache(spec["cache"], spec["dim"])
+        sharder, gather = FairSharder(2), ProcessAllGather()
+        arrays, stats, launches = {}, [], []
+        with cache.snapshot(tuple(spec["key"])) as snap:
+            for score, heap in H4_PAIRS:
+                driver = ShardedSearchDriver(
+                    n_workers=2, worker_index=rank, sharder=sharder,
+                    gather=gather, score_impl=score, heap_impl=heap,
+                    chunk_size=spec["chunk"],
+                    superchunk_size=spec["superchunk"], device=dev)
+                ops.reset_launch_counts()
+                vals, pos = driver.search(
+                    q, snap.n_live,
+                    lambda lo, hi: snap.get_range(lo, hi).astype(np.float32),
+                    spec["k"], generation=snap.key)
+                launches.append(ops.launch_counts())
+                stats.append(driver.stats)
+                arrays[f"{score}-{heap}-vals"] = vals
+                arrays[f"{score}-{heap}-pos"] = pos
+        np.savez(os.path.join(tmp, f"h4-{rank}.npz"), **arrays)
+        with open(os.path.join(tmp, f"h4-{rank}.json"), "w") as f:
+            json.dump({"stats": stats, "launches": launches}, f,
+                      default=str)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
 # -- (f) recsys scoring at full width -----------------------------------------
 
 # (arch, shapes run): AutoInt's and BST's bulk / retrieval attention
@@ -1652,9 +2090,10 @@ def main() -> int:
     kernels["embedding_bag"] = phase_bag(dev)
 
     trove = build_trove(dev)
-    paths = phase_main_path(dev, card, trove)
+    paths, runs = phase_main_path(dev, card, trove)
     paths.update(phase_cache(dev, card, trove,
                              kernels["fused_score_topk"]["timings"][0]["ms"]))
+    paths.update(phase_workers(dev, card, trove, runs[("fused", "kernel")]))
     paths.update(phase_recsys(dev, card))
     for t, call, reset, names in PROFILED:
         t["stage_ms"] = stage_ms(call, reset, names)
@@ -1679,4 +2118,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--h4-rank"]:
+        sys.exit(h4_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

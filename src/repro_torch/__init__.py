@@ -23,6 +23,7 @@ _EXPORTS = {
     "FastResultHeapq": "repro_torch.core.result_heap",
     "FairSharder": "repro_torch.core.fair_sharding",
     "ShardedSearchDriver": "repro_torch.core.sharded_search",
+    "SimulatedCluster": "repro_torch.launch.distributed",
     "HashTokenizer": "repro_torch.data.tokenizer",
     "DefaultEncoder": "repro_torch.models.encoder",
     "PretrainedEncoder": "repro_torch.models.encoder",

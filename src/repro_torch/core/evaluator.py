@@ -1,7 +1,7 @@
 """RetrievalEvaluator: evaluation + hard-negative mining (paper §3.5).
 
-The port's counterpart of ``repro.core.evaluator`` for one worker and
-a flat index.  Every search entry point is a thin instantiation of
+The port's counterpart of ``repro.core.evaluator`` for a flat index.
+Every search entry point is a thin instantiation of
 :class:`~repro_torch.core.sharded_search.ShardedSearchDriver`:
 
   * :meth:`RetrievalEvaluator.search` / :meth:`evaluate` /
@@ -21,6 +21,13 @@ a flat index.  Every search entry point is a thin instantiation of
   * :meth:`prepare_cache_corpus` + :meth:`search_texts` — a live
     corpus: the cache's own live set at one pinned generation, while
     writers add, re-embed, delete and compact.
+
+Every entry point runs unchanged on 1..W workers: with
+``process_count > 1`` (by default the ``torch.distributed`` world, see
+``repro_torch.launch.distributed.init_distributed``) each worker scores
+its shard of the corpus and the gather transport merges the W states, so
+every worker returns the same ranking; ``SimulatedCluster`` runs W
+evaluators in one process.
 
 Scoring is ``EvaluationArguments.score_impl`` (``numpy | torch |
 fused``) and the heap ``heap_impl`` (``python | torch | kernel``); all
@@ -43,7 +50,8 @@ from repro_torch.core.fair_sharding import FairSharder
 from repro_torch.core.faults import SearchOutcome
 from repro_torch.core.metrics import compute_metrics
 from repro_torch.core.result_heap import to_tensor
-from repro_torch.core.sharded_search import ShardedSearchDriver
+from repro_torch.core.sharded_search import (ProcessAllGather,
+                                             ShardedSearchDriver)
 from repro_torch.data.table import stable_id_hash, stable_id_hash_array
 from repro_torch.data.views import DatasetView, as_view
 from repro_torch.device import resolve_device
@@ -141,18 +149,46 @@ class RetrievalEvaluator:
     device : where encoding and the device backends run; ``"cuda"`` by
         default, and construction raises when no card is present unless
         ``device="cpu"`` is passed.
-    sharder : optional :class:`FairSharder` shared across searches.
+    process_index / process_count : this worker's rank and the number of
+        workers; by default the ``torch.distributed`` rank and world
+        size when a process group is initialised, else 0 and 1.
+    gather : the transport merging the workers' states, any object with
+        ``merge(heap, worker_index)`` (a
+        :class:`~repro_torch.core.sharded_search.ShardGather`, e.g.
+        ``SimulatedCluster.gather``); by default a
+        :class:`~repro_torch.core.sharded_search.ProcessAllGather` when
+        ``process_count > 1``, else none.
+    sharder : a :class:`FairSharder` shared across searches (and across
+        the evaluators of a ``SimulatedCluster``); a fresh
+        ``FairSharder(process_count)`` by default.
     """
 
     def __init__(self, args: EvaluationArguments, retriever, collator,
                  params, *, device: str | torch.device = "cuda",
-                 sharder: FairSharder | None = None):
+                 process_index: int | None = None,
+                 process_count: int | None = None,
+                 gather=None, sharder: FairSharder | None = None):
         self.device = resolve_device(device)
         self.args = args
         self.retriever = retriever
         self.collator = collator
         self.params = params
-        self.sharder = FairSharder(1) if sharder is None else sharder
+        dist = torch.distributed
+        joined = dist.is_available() and dist.is_initialized()
+        if process_index is None:
+            process_index = dist.get_rank() if joined else 0
+        if process_count is None:
+            process_count = dist.get_world_size() if joined else 1
+        self.process_index = process_index
+        self.process_count = process_count
+        self.sharder = (FairSharder(process_count) if sharder is None
+                        else sharder)
+        if gather is not None:
+            self.gather = gather
+        elif process_count > 1:
+            self.gather = ProcessAllGather()
+        else:
+            self.gather = None
         self.encode_pipeline = (EncodePipeline(
             self._encode_batch, collator.tokenizer,
             append_eos=collator.append_eos,
@@ -249,7 +285,9 @@ class RetrievalEvaluator:
     # -- search --------------------------------------------------------------
     def make_driver(self) -> ShardedSearchDriver:
         return ShardedSearchDriver(
-            sharder=self.sharder, score_impl=self.args.score_impl,
+            n_workers=self.process_count, worker_index=self.process_index,
+            sharder=self.sharder, gather=self.gather,
+            score_impl=self.args.score_impl,
             heap_impl=self.args.heap_impl,
             chunk_size=self.args.encode_batch_size,
             prefetch=self.args.async_prefetch,
@@ -431,7 +469,9 @@ class RetrievalEvaluator:
         hash_to_raw = dict(zip(hashes.tolist(), corpus_v.raw_ids()))
         out = select_hard_negatives(q_ids, run_ids, scores, qrels,
                                     hash_to_raw, exclude_positives)
-        if output_path:
+        # every worker computes the identical merged triplets, so only
+        # worker 0 writes: W workers racing one path would tear the file
+        if output_path and self.process_index == 0:
             with open(output_path, "w") as f:
                 for q, d, s in out:
                     f.write(f"{q}\t{d}\t{s}\n")

@@ -1,11 +1,12 @@
 """Fair sharding: throughput-weighted shard sizes (paper §3.5).
 
-The port's own copy of the part of ``repro.core.fair_sharding`` that the
-single-worker search driver calls: :meth:`FairSharder.bounds` and
-:meth:`FairSharder.update` (the reference's driver calls ``acquire``
-only when it runs more than one worker).  Round-versioned ``acquire``,
-dead workers, round aborts, generation-agreed rounds and cluster-edge
-snapping come with the multi-worker, fault and IVF slices.
+The port's own copy of ``repro.core.fair_sharding`` for a flat index and
+a cluster whose workers all stay alive: shares, bounds, round-versioned
+and generation-agreed :meth:`FairSharder.acquire`, round aborts and
+round-tagged reports.  Dead workers (``mark_dead``, ``absolve`` and the
+zero shares they get) come with the fault-tolerance slice (ROADMAP queue
+1 item 4); cluster-edge snapping (``bounds(boundaries=)``) with IVF
+(item 6).
 
 Mixing devices with different throughput (or pods with stragglers) stalls
 the fast ones under equal sharding.  ``FairSharder`` keeps an EMA of
@@ -14,18 +15,56 @@ workers finish together.
 
 The EMA commits **per round**: ``update`` buffers observations and only
 folds them into the EMA once every worker has reported the round, so
-shard bounds stay frozen while a round is in flight.  With one worker
-every report commits at once.
+shard bounds stay frozen while a round is in flight — essential when one
+sharder instance is shared by W workers (``SimulatedCluster``) that
+partition at different wall-clock times.  With one worker every report
+commits at once.
+
+On a real cluster each process holds its own replica and only observes
+its own rank, so the search driver exchanges observations through the
+gather transport (``ProcessAllGather.exchange_observations``): every
+replica then commits the identical complete round and all processes
+keep computing identical bounds.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 
 import numpy as np
 
 
+class GenerationMismatch(RuntimeError):
+    """Raised by :meth:`FairSharder.acquire` when this worker's pinned
+    corpus generation disagrees with the round's agreed generation (the
+    first acquirer's key wins).  The round is *not* consumed: the caller
+    re-prepares its corpus at :attr:`agreed` (e.g.
+    ``cache.snapshot(agreed)``) and re-acquires the same round."""
+
+    def __init__(self, round_no: int, agreed, mine):
+        super().__init__(
+            f"round {round_no}: this worker is pinned to generation "
+            f"{mine} but the round agreed on {agreed}; re-prepare at "
+            f"the agreed generation and re-acquire")
+        self.round_no = round_no
+        self.agreed = agreed
+        self.mine = mine
+
+
+class ShardAborted(RuntimeError):
+    """A sibling worker died mid-round (or a round wait timed out); this
+    worker's wait was released.  Secondary casualty — cluster runners
+    filter it in favour of the original error (like
+    ``threading.BrokenBarrierError``).  The message says how many rounds
+    committed and which workers the blocking round still waits on."""
+
+
 class FairSharder:
+    # acquire gives up after this long waiting for the previous round to
+    # commit — a missing sibling report means a worker died
+    ACQUIRE_TIMEOUT_S = 300.0
+
     def __init__(self, n_workers: int, alpha: float = 0.5,
                  min_share: float = 0.01):
         self.n = n_workers
@@ -36,14 +75,20 @@ class FairSharder:
         # signal: an empty shard)
         self._pending: dict[int, dict[int, float | None]] = {}
         self._lock = threading.Lock()
+        self._cv = threading.Condition(self._lock)
         self._committed = 0                  # rounds folded into the EMA
+        self._issued = [0] * n_workers       # rounds begun, per worker
+        # round -> agreed corpus generation key (first acquirer wins)
+        self._round_gen: dict[int, object] = {}
+        self._abort_exc: BaseException | None = None
 
     def shares(self, total_items: int) -> list[int]:
         """Split ``total_items`` proportionally to throughput.
 
         Shares are non-negative and sum to ``total_items`` exactly: the
         floor() pass leaves a remainder in ``[0, n]`` which goes to the
-        fastest workers, one item each.
+        fastest workers, one item each.  ``total_items < n`` is legal:
+        the workers left without an item get empty (contiguous) bounds.
         """
         assert total_items >= 0, total_items
         with self._lock:
@@ -66,26 +111,107 @@ class FairSharder:
         starts = np.concatenate([[0], ends[:-1]])
         return list(zip(starts.tolist(), ends.tolist()))
 
-    def update(self, worker: int, items: int, seconds: float) -> None:
+    def _round_diagnostics(self) -> str:
+        """Lock held.  Which round is blocking and who hasn't reported."""
+        bucket = self._pending.get(self._committed, {})
+        missing = [wk for wk in range(self.n) if wk not in bucket]
+        return "; ".join([
+            f"rounds 0..{self._committed - 1} committed"
+            if self._committed else "no round committed yet",
+            f"round {self._committed} still pending reports from "
+            f"workers {missing}"])
+
+    def acquire(self, worker: int, total_items: int,
+                generation=None) -> tuple[int, list[tuple[int, int]]]:
+        """Round-versioned partition: ``(round_no, bounds)``.
+
+        A worker's r-th call blocks until rounds ``0..r-1`` have all
+        committed, so every worker reads the *same* EMA state for the
+        same logical round.  It never blocks when rounds are already
+        ordered (the gather's barrier, or ``n == 1``).  The wait gives
+        up after :attr:`ACQUIRE_TIMEOUT_S` and is released by
+        :meth:`abort`, both with :class:`ShardAborted`.
+
+        ``generation`` (optional, any comparable key — the cache's
+        ``(generation, epoch)``) makes the round *generation-agreed*:
+        the first keyed acquirer's key becomes the round's generation,
+        and a later acquirer pinned to a different one gets
+        :class:`GenerationMismatch` without consuming the round — it
+        re-prepares at the agreed key and re-acquires, so all W workers
+        of a round score the same corpus snapshot.
+        """
+        with self._cv:
+            r = self._issued[worker]
+            self._issued[worker] += 1
+            deadline = time.monotonic() + self.ACQUIRE_TIMEOUT_S
+            while self._committed < r and self._abort_exc is None:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise ShardAborted(
+                        f"worker {worker} waited "
+                        f"{self.ACQUIRE_TIMEOUT_S}s for round {r - 1} "
+                        f"to commit: {self._round_diagnostics()}")
+                self._cv.wait(remaining)
+            if self._abort_exc is not None:
+                raise ShardAborted(
+                    f"sharder aborted while worker {worker} waited for "
+                    f"round {r}: {self._round_diagnostics()}"
+                ) from self._abort_exc
+            if generation is not None:
+                agreed = self._round_gen.setdefault(r, generation)
+                if agreed != generation:
+                    # roll the issue back: the round was not consumed
+                    self._issued[worker] -= 1
+                    raise GenerationMismatch(r, agreed, generation)
+        # safe outside the lock: round r cannot commit (and move the
+        # EMA) until THIS worker reports it, after scoring these bounds
+        return r, self.bounds(total_items)
+
+    def abort(self, exc: BaseException | None = None) -> None:
+        """Release workers blocked in :meth:`acquire` when a sibling
+        dies mid-round (mirrors the gather transports' abort)."""
+        with self._cv:
+            self._abort_exc = exc if exc is not None else RuntimeError(
+                "aborted")
+            self._cv.notify_all()
+
+    def update(self, worker: int, items: int, seconds: float,
+               round_no: int | None = None) -> None:
         """Report one worker's round observation.
 
-        The report lands on the earliest uncommitted round this worker
-        has not reported; once every worker has reported that round, its
-        observations fold into the EMA and the round commits.  A worker
-        with an empty shard reports ``items == 0`` and counts toward the
-        round without moving its EMA.
+        The observation is buffered per round; once every worker has
+        reported the oldest uncommitted round, its observations fold
+        into the EMA and the round commits.  A worker with an empty
+        shard reports ``items == 0`` and counts toward the round without
+        moving its EMA.
+
+        ``round_no`` tags the observation with the round it belongs to
+        (from :meth:`acquire`).  Without it, the report lands on the
+        earliest uncommitted round this worker has not reported.
+        Reports for rounds already committed are dropped.
         """
-        with self._lock:
-            round_no = self._committed
-            while worker in self._pending.get(round_no, {}):
-                round_no += 1
+        with self._cv:
+            if round_no is None:
+                round_no = self._committed
+                while worker in self._pending.get(round_no, {}):
+                    round_no += 1
+            if round_no < self._committed:
+                return
             bucket = self._pending.setdefault(round_no, {})
-            bucket[worker] = (items / seconds if items > 0 and seconds > 0
-                              else None)
-            while len(self._pending.get(self._committed, {})) == self.n:
-                for wk, obs in self._pending.pop(self._committed).items():
-                    if obs is not None:
-                        self.throughput[wk] = (
-                            self.alpha * obs
-                            + (1 - self.alpha) * self.throughput[wk])
-                self._committed += 1
+            if items > 0 and seconds > 0:
+                bucket[worker] = items / seconds
+            else:
+                bucket.setdefault(worker, None)
+            self._try_commit_locked()
+
+    def _try_commit_locked(self) -> None:
+        """Commit every leading round whose workers all reported."""
+        while len(self._pending.get(self._committed, {})) == self.n:
+            for wk, obs in self._pending.pop(self._committed).items():
+                if obs is not None:
+                    self.throughput[wk] = (
+                        self.alpha * obs
+                        + (1 - self.alpha) * self.throughput[wk])
+            self._round_gen.pop(self._committed, None)
+            self._committed += 1
+            self._cv.notify_all()

@@ -1,21 +1,31 @@
-"""ShardedSearchDriver: the search engine, single worker (paper §3.5).
+"""ShardedSearchDriver: the multi-worker search engine (paper §3.5).
 
-The port's counterpart of ``repro.core.sharded_search`` at W = 1:
+The port's counterpart of ``repro.core.sharded_search``: one worker's
+view of a W-worker sharded dense search, the same code path for W = 1
+and W > 1:
 
   * **partition** — :class:`~repro_torch.core.fair_sharding.FairSharder`
-    bounds of ``[0, n_docs)`` (one worker: the whole corpus), with the
-    round's throughput reported back;
-  * **stream**    — the slice is pulled through a caller-supplied
+    splits ``[0, n_docs)`` across workers (throughput EMA; at W > 1 a
+    round-versioned, generation-agreed :meth:`~repro_torch.core.
+    fair_sharding.FairSharder.acquire`), with the round's throughput
+    reported back;
+  * **stream**    — each worker pulls its slice through a caller-supplied
     ``load_chunk(lo, hi)`` with double-buffered prefetch (in
     ``chunk_size`` chunks, or a superchunk at a time), or from a chunk
     source exposing ``open_slice``;
   * **score**     — a backend (``SCORE_BACKENDS``) folds each chunk into
     a :class:`FastResultHeapq`; the device backends instead fold whole
-    superchunks through ``kernels.ops.superchunk_update``.
+    superchunks through ``kernels.ops.superchunk_update``;
+  * **reduce**    — at W > 1 the per-worker (Q, k) states merge through
+    a :class:`ShardGather` transport in rank order: an ``O(Q·k·W)``
+    reduction, never ``O(Q·N)``.
 
-Multi-worker transports (process all-gather over ``torch.distributed``,
-merge-fn gathers, resilient gathers) and ``search_async`` come with the
-multi-worker slice.
+Transports: :class:`ProcessAllGather` (processes over
+``torch.distributed``) and ``repro_torch.launch.distributed.
+InMemoryAllGather`` (W drivers in one process) merge rank states in rank
+order, so every worker computes an identical merged ranking.  The
+resilient gather and ``search_async`` come with the fault-tolerance and
+serving slices (ROADMAP queue 1 items 4 and 3).
 """
 
 from __future__ import annotations
@@ -23,13 +33,14 @@ from __future__ import annotations
 import math
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable
+from typing import Callable, Protocol
 
 import numpy as np
 import torch
 
 from repro_torch.core.fair_sharding import FairSharder
-from repro_torch.core.faults import SearchOutcome, full_coverage
+from repro_torch.core.faults import (FaultInjector, SearchOutcome,
+                                     full_coverage)
 from repro_torch.core.result_heap import (FastResultHeapq, to_numpy,
                                           to_tensor)
 from repro_torch.device import resolve_device
@@ -91,6 +102,86 @@ def get_score_backend(name: str) -> Callable:
         raise ValueError(
             f"unknown score_impl {name!r}; expected one of "
             f"{sorted(SCORE_BACKENDS)}") from None
+
+
+# -- shard-state transports ---------------------------------------------------
+
+
+class ShardGather(Protocol):
+    """Reduces per-worker (Q, k) heap states to one merged state.
+
+    ``merge`` must return the *same* merged ranking on every worker
+    (allgather semantics), and must merge rank states in rank order so
+    tie-breaking is deterministic across transports.
+    """
+
+    def merge(self, heap: FastResultHeapq,
+              worker_index: int) -> FastResultHeapq: ...
+
+
+class ProcessAllGather:
+    """Multi-process transport over ``torch.distributed``.
+
+    Every process contributes its finalized local (Q, k) state (host
+    arrays: float32 scores, int64 positions); each then merges all W
+    states in rank order — the O(Q·k·W) cross-process reduction — into a
+    heap of the local heap's impl on the local heap's device, so this
+    transport is interchangeable with ``launch.distributed.
+    InMemoryAllGather``.
+
+    The states are gathered as CPU tensors over the default group, which
+    must be gloo (as :func:`~repro_torch.launch.distributed.
+    init_distributed` makes it) or a mixed backend that carries CPU
+    tensors over gloo (``"cpu:gloo,cuda:nccl"``): they are tiny, NCCL
+    refuses two ranks on one card, and a finalized state is on the host
+    already.  Any other backend raises at the first gather.  No
+    reference to the group is kept: one that outlives
+    ``destroy_process_group`` makes gloo abort the process at exit.
+    """
+
+    @staticmethod
+    def _all_gather(t: torch.Tensor) -> list[torch.Tensor]:
+        import torch.distributed as dist
+        backend = str(dist.get_backend())
+        if "gloo" not in backend:
+            raise RuntimeError(
+                f"ProcessAllGather gathers host tensors over gloo, but the "
+                f"default process group's backend is {backend!r}; join it "
+                f"through init_distributed() (gloo) or with a backend that "
+                f"includes gloo, e.g. 'cpu:gloo,cuda:nccl'")
+        out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+        dist.all_gather(out, t)
+        return out
+
+    def merge(self, heap: FastResultHeapq,
+              worker_index: int) -> FastResultHeapq:
+        vals, ids = heap.finalize()
+        all_v = self._all_gather(torch.from_numpy(
+            np.ascontiguousarray(vals, np.float32)))
+        all_i = self._all_gather(torch.from_numpy(
+            np.ascontiguousarray(ids, np.int64)))
+        merged = FastResultHeapq(vals.shape[0], heap.k, impl=heap.impl,
+                                 device=heap.device)
+        for v, i in zip(all_v, all_i):
+            merged.merge_arrays(v, i)
+        return merged
+
+    def exchange_observations(self, worker_index: int, items: int,
+                              seconds: float) -> list[tuple[int, int,
+                                                            float]]:
+        """Allgather every worker's round observation so each process's
+        local ``FairSharder`` replica commits the identical round (a
+        process reporting only its own rank would leave the round
+        incomplete forever and freeze the EMA).  Ranks and item counts
+        travel as int64 and seconds as float64, so a count above 2^24
+        (the reference packs it into float32) arrives exact; only the
+        EMA reads them, never a result."""
+        counts = self._all_gather(torch.tensor([worker_index, items],
+                                               dtype=torch.int64))
+        secs = self._all_gather(torch.tensor([seconds],
+                                             dtype=torch.float64))
+        return [(int(c[0]), int(c[1]), float(t[0]))
+                for c, t in zip(counts, secs)]
 
 
 # -- superchunk autotune ------------------------------------------------------
@@ -176,30 +267,44 @@ ChunkLoader = Callable[[int, int], "np.ndarray | torch.Tensor"]
 
 
 class ShardedSearchDriver:
-    """The single-worker search driver.
+    """One worker's view of a W-worker sharded dense search.
 
     Parameters
     ----------
-    sharder : :class:`FairSharder` (one worker); a fresh one by default.
+    n_workers / worker_index : cluster shape and this worker's rank.
+    sharder : :class:`FairSharder` of ``n_workers``; pass the *same*
+        instance to all drivers of a cluster in one process
+        (``SimulatedCluster``), or a replica per process (the gather then
+        exchanges observations).  A fresh one by default.
     score_impl / heap_impl : backend names (``SCORE_BACKENDS``,
         ``FastResultHeapq.HEAP_IMPLS``).
     chunk_size : corpus items per streamed chunk.
     prefetch : double-buffer chunk loads (chunk ``i+1``'s load overlaps
         chunk ``i``'s scoring).  Never changes results.
+    gather : :class:`ShardGather` transport merging the W workers'
+        states; ``None`` means local only (W = 1).
     superchunk_size : chunks folded into one ``superchunk_update`` call
         (device backends only).  ``0`` = autotune; ``1`` = one call per
         chunk; ``N > 1`` = fixed.  Host backends (``score_impl='numpy'``
         / ``heap_impl='python'``) always stream per chunk.  Never changes
         results.
     superchunk_max_mb : cap on one superchunk's (S, C, d) float32 rows.
+    fault_injector : optional :class:`~repro_torch.core.faults.
+        FaultInjector` consulted at the chunk and gather fault points.
     device : where the heap state and the device backends run.
     """
 
-    def __init__(self, *, sharder: FairSharder | None = None,
+    def __init__(self, *, n_workers: int = 1, worker_index: int = 0,
+                 sharder: FairSharder | None = None,
                  score_impl: str = "fused", heap_impl: str = "kernel",
                  chunk_size: int = 32, prefetch: bool = True,
+                 gather: ShardGather | None = None,
                  superchunk_size: int = 0, superchunk_max_mb: int = 64,
+                 fault_injector: FaultInjector | None = None,
                  device: str | torch.device = "cuda"):
+        if not 0 <= worker_index < n_workers:
+            raise ValueError(
+                f"worker_index {worker_index} outside [0, {n_workers})")
         get_score_backend(score_impl)
         if heap_impl not in FastResultHeapq.HEAP_IMPLS:
             raise ValueError(f"unknown heap_impl {heap_impl!r}")
@@ -209,21 +314,30 @@ class ShardedSearchDriver:
         if chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
         self.device = resolve_device(device)
-        self.sharder = sharder if sharder is not None else FairSharder(1)
-        if self.sharder.n != 1:
-            raise ValueError("this driver runs one worker; the sharder "
-                             f"has {self.sharder.n}")
+        self.n_workers = n_workers
+        self.worker_index = worker_index
+        self.sharder = sharder if sharder is not None else FairSharder(
+            n_workers)
+        if self.sharder.n != n_workers:
+            raise ValueError(f"the sharder has {self.sharder.n} workers, "
+                             f"the driver {n_workers}")
         self.score_impl = score_impl
         self.heap_impl = heap_impl
         self.chunk_size = chunk_size
         self.prefetch = prefetch
+        self.gather = gather
         self.superchunk_size = superchunk_size
         self.superchunk_max_mb = superchunk_max_mb
+        self.fault_injector = fault_injector
         # per-round observability (serve logging, chip_smoke.py)
         self.stats: dict = {}
+        # round counter of the single-worker path (W > 1 uses the
+        # sharder-global round from FairSharder.acquire)
+        self._local_round = 0
 
     def partition(self, n_docs) -> list[tuple[int, int]]:
-        """``[lo, hi)`` bounds for this round (a count or a sized corpus)."""
+        """All workers' ``[lo, hi)`` bounds for this round (a count or a
+        sized corpus)."""
         if not isinstance(n_docs, (int, np.integer)):
             n_docs = len(n_docs)
         return self.sharder.bounds(int(n_docs))
@@ -259,6 +373,31 @@ class ShardedSearchDriver:
                 if i + 1 < len(bounds):
                     fut = ex.submit(load_chunk, *bounds[i + 1])
                 yield off, embs
+
+    def _chunk_iter(self, lo: int, hi: int, load_chunk: ChunkLoader,
+                    round_no: int, span: int | None = None):
+        """The streamed pieces, with the chunk fault point applied before
+        each piece is scored: once per ``chunk_size`` chunk of the piece,
+        with the chunk's index in the slice — the index the reference's
+        per-chunk stream gives it, whatever the superchunk size."""
+        chunks = self._pipelined_chunks(lo, hi, load_chunk, span)
+        if self.fault_injector is None:
+            return chunks
+
+        def faulty():
+            c = self.chunk_size
+            try:
+                for off, embs in chunks:
+                    first = (off - lo) // c
+                    for ci in range(first, first - (-embs.shape[0] // c)):
+                        self.fault_injector.on_chunk(self.worker_index,
+                                                     round_no, ci)
+                    yield off, embs
+            finally:
+                # an injected crash abandons the slice mid-stream: close
+                # the stream now so its prefetch thread shuts down
+                chunks.close()
+        return faulty()
 
     # -- superchunk executor ----------------------------------------------
     def _merge_impl(self) -> str:
@@ -331,7 +470,7 @@ class ShardedSearchDriver:
             yield off, embs
 
     def _score_range(self, q_emb, lo: int, hi: int, load_chunk: ChunkLoader,
-                     topk: int):
+                     topk: int, round_no: int):
         """Score ``[lo, hi)`` into a fresh heap -> (heap, calls, executor,
         superchunk_size)."""
         n_queries = q_emb.shape[0]
@@ -344,12 +483,13 @@ class ShardedSearchDriver:
         s = (self._resolve_superchunk_size(n_queries, q_emb.shape[1], topk)
              if scan_ok else 1)
         if scan_ok and s > 1:
-            pieces = self._tracked(self._pipelined_chunks(
-                lo, hi, load_chunk, span=s * self.chunk_size))
+            pieces = self._tracked(self._chunk_iter(
+                lo, hi, load_chunk, round_no, span=s * self.chunk_size))
             return (heap, self._search_superchunk(
                 _as_device(q_emb, self.device), heap, pieces, topk, s),
                 "superchunk", s)
-        chunks = self._tracked(self._pipelined_chunks(lo, hi, load_chunk))
+        chunks = self._tracked(self._chunk_iter(lo, hi, load_chunk,
+                                                round_no))
         backend = get_score_backend(self.score_impl)
         calls = 0
         for off, embs in chunks:
@@ -357,36 +497,81 @@ class ShardedSearchDriver:
             calls += 1
         return heap, calls, "per_chunk", s
 
+    def _report(self, round_no: int, items: int, seconds: float) -> None:
+        """Round-tagged throughput reports (W > 1).  A shared sharder
+        hears every worker directly; with a sharder replica per process
+        the transport exchanges the observations, or no replica would
+        ever see a complete round."""
+        reports = [(self.worker_index, items, seconds)]
+        exchange = getattr(self.gather, "exchange_observations", None)
+        if exchange is not None:
+            reports = exchange(self.worker_index, items, seconds)
+        for rank, n, secs in reports:
+            self.sharder.update(rank, n, secs, round_no=round_no)
+
     def search(self, q_emb, n_docs, load_chunk: ChunkLoader,
                topk: int, generation=None) -> SearchOutcome:
-        """Encode→score→top-k over the corpus.
+        """Score this worker's shard of the corpus, then reduce.
 
         ``n_docs`` is a count or a sized corpus object.  Returns
         ``(scores (Q, k), positions (Q, k))`` as numpy arrays (a
-        :class:`SearchOutcome` with full coverage); positions are global
-        corpus offsets and ``-1`` marks empty slots.
+        :class:`SearchOutcome` with full coverage) — the merged result,
+        identical on every worker, when a gather transport is set.
+        Positions are global corpus offsets and ``-1`` marks empty
+        slots.
 
-        ``generation`` is a prepared corpus's snapshot key.  One worker
-        scores whatever snapshot its loader reads, so the key is only
-        recorded in :attr:`stats`; the multi-worker driver (not ported
-        yet) hands it to the sharder so that every worker of a round
-        scores the same snapshot.
+        ``generation`` is a prepared corpus's snapshot key.  At W > 1 it
+        pins the round to one corpus generation through the sharder's
+        agreement (:meth:`FairSharder.acquire`): a
+        :class:`~repro_torch.core.fair_sharding.GenerationMismatch`
+        raises before any scoring or reporting, so the caller can
+        re-prepare at the agreed key and call again for the same round.
+        One worker scores whatever snapshot its loader reads, so there
+        the key is only recorded in :attr:`stats`.
         """
-        lo, hi = self.partition(n_docs)[0]
+        if not isinstance(n_docs, (int, np.integer)):
+            n_docs = len(n_docs)
+        if self.n_workers > 1:
+            round_no, bounds = self.sharder.acquire(
+                self.worker_index, int(n_docs), generation=generation)
+        else:
+            round_no = self._local_round
+            self._local_round += 1
+            bounds = self.sharder.bounds(int(n_docs))
+        lo, hi = bounds[self.worker_index]
         self._chunk_devices: set[str] = set()
         t0 = time.monotonic()
         heap, calls, executor, s = self._score_range(q_emb, lo, hi,
-                                                     load_chunk, topk)
-        vals, pos = heap.finalize()
-        seconds = time.monotonic() - t0
-        # untagged: the report lands on the sharder's next open round,
-        # which a sharder shared across per-search drivers keeps counting
-        self.sharder.update(0, hi - lo, seconds)
+                                                     load_chunk, topk,
+                                                     round_no)
+        if self.n_workers == 1:
+            vals, pos = heap.finalize()
+            seconds = time.monotonic() - t0
+            # untagged: the report lands on the sharder's next open round,
+            # which a sharder shared across per-search drivers keeps
+            # counting
+            self.sharder.update(0, hi - lo, seconds)
+        else:
+            _sync(self.device)
+            seconds = time.monotonic() - t0
+            self._report(round_no, hi - lo, seconds)
         self.stats = {"lo": lo, "hi": hi, "items": hi - lo,
                       "chunks": -(-max(hi - lo, 0) // self.chunk_size),
                       "seconds": seconds, "executor": executor,
                       "superchunk_size": s, "dispatch_rounds": calls,
-                      "generation": generation,
+                      "generation": generation, "round": round_no,
                       "query_device": str(getattr(q_emb, "device", "cpu")),
                       "chunk_devices": sorted(self._chunk_devices)}
+        if self.n_workers > 1:
+            t0 = time.monotonic()
+            if self.gather is not None:
+                if self.fault_injector is not None:
+                    # a drop against a barrier transport propagates
+                    self.fault_injector.on_gather(self.worker_index,
+                                                  round_no)
+                heap = self.gather.merge(heap, self.worker_index)
+            vals, pos = heap.finalize()
+            # the reduce: waiting for the siblings, the all-gather, the
+            # rank-order merge and the host finalize
+            self.stats["gather_seconds"] = time.monotonic() - t0
         return SearchOutcome((vals, pos), coverage=full_coverage(len(vals)))

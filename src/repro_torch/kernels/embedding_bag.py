@@ -20,7 +20,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.topk import _MAX_SMEM, _check, _launch, sm_count
+from repro_torch.kernels.topk import (LAUNCH_LOCK, _MAX_SMEM, _check,
+                                      _launch, count_launch, sm_count)
 
 TABLE_DTYPES = (torch.float32, torch.bfloat16)
 # A block's threads at most, and the longest slot pass the kernel's
@@ -41,7 +42,8 @@ LAUNCHES = {"embedding_bag": 0}
 
 
 def reset_launch_counts() -> None:
-    LAUNCHES["embedding_bag"] = 0
+    with LAUNCH_LOCK:
+        LAUNCHES["embedding_bag"] = 0
 
 
 def vector_bytes(dim: int, elt_bytes: int) -> int:
@@ -129,4 +131,4 @@ def embedding_bag_(out: torch.Tensor, table: torch.Tensor, idx: torch.Tensor,
                 None if weights is None else weights.data_ptr(), b, n_slots,
                 v, d, bags, n_pass, out.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
-    LAUNCHES["embedding_bag"] += 1
+    count_launch(LAUNCHES, "embedding_bag")

@@ -26,7 +26,8 @@ SUPERCHUNK_MERGES = ("kernel", "torch")
 
 def launch_counts() -> dict[str, int]:
     """Every kernel's launches since the last :func:`reset_launch_counts`."""
-    return {**topk.LAUNCHES, **_bag.LAUNCHES}
+    with topk.LAUNCH_LOCK:
+        return {**topk.LAUNCHES, **_bag.LAUNCHES}
 
 
 def reset_launch_counts() -> None:

@@ -23,6 +23,7 @@ to the kernel's count in :data:`LAUNCHES`.
 from __future__ import annotations
 
 import functools
+import threading
 
 import torch
 
@@ -44,11 +45,21 @@ FUSED_TILES = {128: (32, 32), 32: (16, 8)}
 
 # Kernel launches since the last reset_launch_counts(), by kernel name.
 LAUNCHES = {"fused_score_topk": 0, "topk_update": 0}
+# Guards every launch count: W worker threads launch at once, and a bare
+# `+= 1` is a read-modify-write that may lose a count between threads.
+LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(counts: dict, name: str) -> None:
+    """Add one to ``counts[name]`` under :data:`LAUNCH_LOCK`."""
+    with LAUNCH_LOCK:
+        counts[name] += 1
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with LAUNCH_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -128,7 +139,7 @@ def fused_score_topk_(vals: torch.Tensor, ids: torch.Tensor,
                 d, s, c, k, rows, n_splits, span, vals.data_ptr(),
                 ids.data_ptr(), ws_v.data_ptr(), ws_p.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
-    LAUNCHES["fused_score_topk"] += 1
+    count_launch(LAUNCHES, "fused_score_topk")
 
 
 def fused_split_plan(q: int, n: int, sms: int) -> tuple[int, int, int]:
@@ -240,7 +251,7 @@ def topk_update_(vals: torch.Tensor, ids: torch.Tensor,
                 span, None if ws_v is None else ws_v.data_ptr(),
                 None if ws_p is None else ws_p.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
-    LAUNCHES["topk_update"] += 1
+    count_launch(LAUNCHES, "topk_update")
 
 
 @functools.lru_cache(maxsize=None)

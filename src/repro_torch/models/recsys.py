@@ -5,7 +5,8 @@ The counterpart of ``repro.models.recsys``, for one card:
     per-field offsets (:func:`field_offsets`);
   * :func:`embedding_lookup` is a plain gather.  The reference's "psum"
     lookup and ``batch_full_shard`` need a mesh; the port has none yet
-    (ROADMAP.md queue 4), and :func:`forward` raises if one is passed;
+    (ROADMAP.md queue 1 item 4a), and :func:`forward` raises if one is
+    passed;
   * the bag sums of the forward pass go through the EmbeddingBag kernel
     (K4, ``kernels.ops.embedding_bag``): DeepFM's linear term and FM sum,
     Wide&Deep's wide term.  AutoInt and BST launch no kernel.

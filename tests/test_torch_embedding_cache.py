@@ -552,4 +552,4 @@ def test_fault_injector_on_cache_matches_reference():
     with pytest.raises(ValueError, match="torn-write point"):
         Fault(kind="torn_write", point="elsewhere")
     with pytest.raises(ValueError, match="fault kind"):
-        Fault(kind="drop")
+        Fault(kind="meteor")
