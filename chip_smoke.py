@@ -30,19 +30,35 @@ Phases, each printing its own lines:
       a synthetic dataset through ``RetrievalEvaluator.evaluate`` /
       ``search`` / ``mine_hard_negatives`` with the backend pairs
       (fused, kernel), (torch, kernel) and (torch, torch);
-  (d) serving: ``prepare_corpus(device_resident=True)``, then
-      ``search_texts`` requests, each timed, the first held against an
-      exact float64 top-k;
+  (d) serving through ``repro_torch.core.serving.ServeFrontend`` at full
+      width on (c)'s corpus, device-resident, S = 64: (d1)
+      ``from_evaluator``: the rung warm pass, 8 requests of 32 queries one
+      at a time (each timed, request 0 also against an exact float64
+      top-k, and the bare ``search_texts`` of each timed before and after
+      them as the baseline)
+      and 64 single-query requests from 8 threads (p50 / p99 / QPS), each
+      request held against its solo ``search_texts`` (scores within TOL,
+      ids equal where separated), and the frontend's stats; (d2) the same
+      through ``from_cluster`` at W = 2 (``SimulatedCluster``), against
+      the W = 1 solos; (d3) ``repro_torch.launch.serve.main`` at
+      ``--workers 1``, ``--workers 2`` and ``--mutate`` (64 single-query
+      requests from 8 threads over (c)'s dataset), printing p50 / p99 /
+      QPS, each request at ``--workers 1`` and ``2`` held against a solo
+      W = 1 ``search_texts`` over the launcher's own prepared corpus, and
+      on ``--mutate``'s live set its shapes, finite descending scores and
+      ids among the corpus's and the run's writes;
   (e) launches per path: every kernel's count is set to 0 just before
-      each evaluate / search / mine_hard_negatives call of (c), the
-      serving requests of (d), each recsys cell of (f), each cached
-      path of (g) and each W > 1 path of (h), and read just after;
-      each kernel of that path must have launched exactly as often as
-      predicted (``ShardedSearchDriver.stats`` on (c) / (d) / (g) / (h),
-      summed over ranks: one K1 launch per superchunk call, one K2
-      launch per scored chunk; the model on (f): K4 twice per DeepFM
-      forward, once per Wide&Deep forward, K2 once per retrieval), and
-      a kernel off the path not at all;
+      each evaluate / search / mine_hard_negatives call of (c), each
+      serving path of (d), each recsys cell of (f), each cached path of
+      (g) and each W > 1 path of (h), and read just after; each kernel of
+      that path must have launched exactly as often as predicted
+      (``ShardedSearchDriver.stats`` on (c) / (g) / (h), summed over
+      ranks, and on (d) over every round of the path, recorded by
+      wrapping the driver's ``search`` / ``search_async`` in this script:
+      one K1 launch per superchunk call, one K2 launch per scored chunk;
+      the model on (f): K4 twice per DeepFM forward, once per Wide&Deep
+      forward, K2 once per retrieval), and a kernel off the path not at
+      all;
   (f) recsys scoring at the full published widths (seeded random weights
       drawn on the card): DeepFM serve_p99 / serve_bulk / retrieval_cand,
       Wide&Deep serve_p99 / retrieval_cand, AutoInt and BST serve_p99;
@@ -1066,10 +1082,9 @@ def query_embeddings(dev, trove: dict, texts):
 
 
 def phase_main_path(dev, card: str, trove: dict) -> tuple[dict, dict]:
-    """(c) and (d); returns each path's launch counts and (c)'s search
-    results by backend pair."""
+    """(c); returns each path's launch counts and the search results by
+    backend pair."""
     import numpy as np
-    import torch
 
     queries, corpus, qrels = (trove["queries"], trove["corpus"],
                               trove["qrels"])
@@ -1119,65 +1134,382 @@ def phase_main_path(dev, card: str, trove: dict) -> tuple[dict, dict]:
           f"max abs score error {err:.3g} (tol {TOL}), ids equal where "
           f"separated by more than tol")
 
-    # (d) serving: prepare once, one warm-up request (it runs the
-    # superchunk autotune, whose launches on synthetic data are not the
-    # path's), then requests of 32 queries
-    ev = trove_evaluator(dev, trove, superchunk_size=0)
-    t0 = time.perf_counter()
-    prepared = ev.prepare_corpus(corpus, device_resident=True)
-    torch.cuda.synchronize()
-    print(f"[d] prepare_corpus(device_resident=True): "
-          f"{time.perf_counter() - t0:.3f} s for {len(prepared)} docs")
-    corpus_embs = prepared.load_chunk(0, len(prepared))
-    if corpus_embs.device != dev:
-        fail(f"prepared corpus on {corpus_embs.device}, not {dev}")
-    texts = list(queries.values())
-    t0 = time.perf_counter()
-    ev.search_texts(texts[:32], prepared)
-    print(f"[d] warm-up request (superchunk autotune included): "
-          f"{(time.perf_counter() - t0) * 1e3:.3f} ms, S="
-          f"{ev.last_search_stats['superchunk_size']}")
-    latencies, search_ms, rounds = [], [], []
+    return paths, runs
 
-    def serve():
-        for r in range(8):
-            req = texts[32 * r: 32 * (r + 1)]
+
+# -- (d) serving on the card -------------------------------------------------
+
+# (d1) / (d2): requests of 32 queries, one at a time, then single-query
+# requests from client threads; (d3): serve.main's request loop.
+D_SERIAL, D_SINGLE, D_THREADS, D_RESULT_S = 8, 64, 8, 300
+D3_MODES = (("--workers", "1"), ("--workers", "2"), ("--mutate",))
+
+
+class RoundLog:
+    """Every driver round of a serving path, recorded by wrapping
+    ``ShardedSearchDriver.search`` / ``search_async`` here, in the script
+    (the package records nothing): each returns once its round's scoring
+    phase has set ``stats``.  A path's launches are predicted as the sum
+    over its rounds (and ranks) of each round's ``dispatch_rounds``."""
+
+    def __init__(self):
+        self.stats: list = []
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        from repro_torch.core.sharded_search import ShardedSearchDriver
+        self._orig = (ShardedSearchDriver.search,
+                      ShardedSearchDriver.search_async)
+        search, search_async = self._orig
+
+        def logged(method):
+            def call(driver, *args, **kw):
+                out = method(driver, *args, **kw)
+                with self._lock:
+                    self.stats.append(driver.stats)
+                return out
+            return call
+
+        ShardedSearchDriver.search = logged(search)
+        ShardedSearchDriver.search_async = logged(search_async)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.sharded_search import ShardedSearchDriver
+        ShardedSearchDriver.search, ShardedSearchDriver.search_async = (
+            self._orig)
+
+
+class ServedLog:
+    """What ``serve.main`` served, recorded here by wrapping, in the
+    script: ``ServeFrontend.submit`` (each request's texts and Future, in
+    submission order), ``ServeFrontend.close`` (deferred until
+    :meth:`close`, so the results can be held against the backend's own
+    prepared corpus outside the counted path) and
+    ``EmbeddingCache.cache_records`` (every id the run wrote)."""
+
+    def __init__(self):
+        self.requests: list = []
+        self.frontends: list = []
+        self.written: set = set()
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        from repro_torch.core.embedding_cache import EmbeddingCache
+        from repro_torch.core.serving import ServeFrontend
+        from repro_torch.data.table import stable_id_hash_array
+
+        self._orig = (ServeFrontend.submit, ServeFrontend.close,
+                      EmbeddingCache.cache_records)
+        submit, _, cache_records = self._orig
+
+        def recorded_submit(fe, request, deadline_ms=None):
+            fut = submit(fe, request, deadline_ms)
+            texts = [request] if isinstance(request, str) else list(request)
+            with self._lock:
+                self.requests.append((texts, fut))
+            return fut
+
+        def deferred_close(fe):
+            with self._lock:
+                self.frontends.append(fe)
+
+        def recorded_records(cache, ids, vectors):
+            with self._lock:
+                self.written.update(stable_id_hash_array(ids).tolist())
+            return cache_records(cache, ids, vectors)
+
+        ServeFrontend.submit = recorded_submit
+        ServeFrontend.close = deferred_close
+        EmbeddingCache.cache_records = recorded_records
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.embedding_cache import EmbeddingCache
+        from repro_torch.core.serving import ServeFrontend
+        (ServeFrontend.submit, ServeFrontend.close,
+         EmbeddingCache.cache_records) = self._orig
+
+    def close(self) -> None:
+        for fe in self.frontends:
+            self._orig[1](fe)
+
+
+def check_served(tag: str, served: ServedLog, corpus_ids) -> str:
+    """(d3)'s results: at ``--workers 1`` and ``2`` each request within
+    TOL of a solo W = 1 ``search_texts`` over the backend's own prepared
+    corpus (rank 0's at W = 2), ids equal where separated; on the live
+    set (``--mutate``) shapes (1, K), finite descending scores and every
+    id one of the corpus's or written during the run."""
+    import numpy as np
+
+    from repro_torch.core.evaluator import RetrievalEvaluator
+    from repro_torch.data.table import stable_id_hash_array
+
+    if len(served.frontends) != 1 or len(served.requests) != D_SINGLE:
+        fail(f"{tag}: {len(served.frontends)} frontends, "
+             f"{len(served.requests)} requests recorded")
+    backend = served.frontends[0].backend
+    outs = [fut.result(timeout=D_RESULT_S) for _, fut in served.requests]
+    if backend.live_cache is not None:
+        allowed = np.asarray(sorted(
+            set(stable_id_hash_array(corpus_ids).tolist()) | served.written),
+            np.int64)
+        for i, (ids, vals) in enumerate(outs):
+            if (ids.shape != (1, K) or vals.shape != (1, K)
+                    or not np.isfinite(vals).all()
+                    or (np.diff(vals, axis=1) > 0).any()
+                    or not np.isin(ids, allowed).all()):
+                fail(f"{tag} request {i}: ids {ids.shape} / scores "
+                     f"{vals.shape}, finite {np.isfinite(vals).all()}, "
+                     f"ids outside the corpus and the run's writes "
+                     f"{np.setdiff1d(ids, allowed).tolist()}")
+        return (f"shapes (1, {K}), scores finite and descending, every id "
+                f"among the {len(allowed)} of the corpus and the run's "
+                f"writes")
+    if hasattr(backend, "evs"):
+        rank0 = backend.evs[0]
+        ev = RetrievalEvaluator(rank0.args, rank0.retriever, rank0.collator,
+                                rank0.params, device=rank0.device,
+                                process_index=0, process_count=1)
+        prepared = backend.prepared[0]
+    else:
+        ev, prepared = backend.ev, backend.prepared
+    err = max(check_exact(f"{tag} request {i} vs solo search_texts",
+                          ids, vals, *ev.search_texts(texts, prepared))
+              for i, ((texts, _), (ids, vals))
+              in enumerate(zip(served.requests, outs)))
+    return (f"vs solo W = 1 search_texts over the same prepared corpus "
+            f"max abs error {err:.3g} (tol {TOL}), ids equal where "
+            f"separated")
+
+
+def serving_path(paths: dict, path: str, fn):
+    """One serving path on (fused, kernel): launches counted around
+    ``fn`` and predicted from the rounds it ran."""
+    log = RoundLog()
+
+    def run():
+        with log:
+            return fn()
+
+    return on_path(paths, path, "fused_score_topk", run,
+                   lambda _: predict(log.stats, "fused", "kernel"))
+
+
+def latency_summary(ms: list, seconds: float, n_queries: int) -> str:
+    import numpy as np
+    return (f"p50 {np.percentile(ms, 50):.3f} ms, p99 "
+            f"{np.percentile(ms, 99):.3f} ms, {n_queries / seconds:.1f} "
+            f"queries/s")
+
+
+def drive_frontend(paths: dict, tag: str, fe, texts, solo: dict,
+                   card: str) -> list:
+    """A frontend's rung warm pass, then D_SERIAL 32-query requests one
+    at a time and D_SINGLE single-query requests from D_THREADS threads,
+    each timed and held against its solo ``search_texts`` (scores within
+    TOL, ids equal where separated).  Returns the serial results."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    rung = 1
+    while True:
+        fe.search(texts[:rung], timeout=D_RESULT_S)
+        if rung >= fe.max_batch:
+            break
+        rung = min(2 * rung, fe.max_batch)
+    print(f"[d] {tag} rung warm pass (1 .. {fe.max_batch}): "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+    serial_ms = []
+
+    def serial():
+        outs = []
+        for r in range(D_SERIAL):
             t0 = time.perf_counter()
-            out = ev.search_texts(req, prepared)
-            latencies.append((time.perf_counter() - t0) * 1e3)
-            # the driver's round: partition, stream, kernels, finalize
-            # (the rest of the request is query encoding and id mapping)
-            search_ms.append(ev.last_search_stats["seconds"] * 1e3)
-            rounds.append(ev.last_search_stats["dispatch_rounds"])
-            if r == 0:
-                first = (req, out)
-        return first
+            outs.append(fe.search(texts[32 * r: 32 * (r + 1)],
+                                  timeout=D_RESULT_S))
+            serial_ms.append((time.perf_counter() - t0) * 1e3)
+        return outs
 
-    req, (ids, vals) = on_path(
-        paths, "serve: 8 x search_texts (fused, kernel)",
-        "fused_score_topk", serve,
-        lambda _: {"fused_score_topk": sum(rounds), "topk_update": 0,
-                   "embedding_bag": 0})
+    serial_outs = serving_path(
+        paths, f"{tag} {D_SERIAL} x 32-query requests (fused, kernel)",
+        serial)
+    err = max(check_exact(f"{tag} request {r} vs solo search_texts",
+                          out[0], out[1], *solo["serial"][r])
+              for r, out in enumerate(serial_outs))
+    print(f"[d] {tag} {D_SERIAL} requests of 32 queries one at a time on "
+          f"{card}: ms {json.dumps([round(x, 3) for x in serial_ms])}, "
+          f"median {statistics.median(serial_ms):.3f}; vs solo "
+          f"search_texts max abs error {err:.3g} (tol {TOL}), ids equal "
+          f"where separated")
+    single_ms = [0.0] * D_SINGLE
+
+    def single():
+        def client(i):
+            t0 = time.perf_counter()
+            out = fe.submit(texts[i]).result(timeout=D_RESULT_S)
+            single_ms[i] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(D_THREADS,
+                                thread_name_prefix="serve-client") as pool:
+            outs = list(pool.map(client, range(D_SINGLE)))
+        return outs, time.perf_counter() - t0
+
+    single_outs, wall = serving_path(
+        paths, f"{tag} {D_SINGLE} single-query requests from {D_THREADS} "
+        f"threads (fused, kernel)", single)
+    err = max(check_exact(f"{tag} single request {i} vs solo search_texts",
+                          out[0], out[1], *solo["single"][i])
+              for i, out in enumerate(single_outs))
+    print(f"[d] {tag} {D_SINGLE} single-query requests from {D_THREADS} "
+          f"threads on {card}: {latency_summary(single_ms, wall, D_SINGLE)}"
+          f" ({wall * 1e3:.3f} ms wall); vs solo search_texts max abs "
+          f"error {err:.3g} (tol {TOL}), ids equal where separated")
+    print(f"[d] {tag} frontend stats: {json.dumps(fe.stats)}")
+    return serial_outs
+
+
+def phase_serving(dev, card: str, trove: dict) -> dict:
+    """(d) serving at full width on (c)'s corpus, device-resident, S = 64:
+    (d1) ``ServeFrontend.from_evaluator``, (d2) ``from_cluster`` at
+    W = 2, (d3) ``repro_torch.launch.serve.main`` at ``--workers 1``,
+    ``--workers 2`` and ``--mutate``.  Returns each path's launches."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import sharded_search
+    from repro_torch.core.serving import ServeFrontend
+    from repro_torch.data.synthetic import make_retrieval_dataset
+    from repro_torch.launch import serve
+    from repro_torch.launch.distributed import SimulatedCluster
+
+    queries, corpus = trove["queries"], trove["corpus"]
+    texts = list(queries.values())
+    paths: dict = {}
+
+    # (d1) one evaluator, S = 64: a round is 4 K1 calls over 8192 rows
+    ev = trove_evaluator(dev, trove)
+    t0 = time.perf_counter()
+    fe = ServeFrontend.from_evaluator(ev, corpus)
+    torch.cuda.synchronize()
+    prepared = fe.backend.prepared
+    print(f"[d] (d1) ServeFrontend.from_evaluator (device-resident "
+          f"prepare of {len(prepared)} docs): "
+          f"{time.perf_counter() - t0:.3f} s")
+    try:
+        corpus_embs = prepared.load_chunk(0, len(prepared))
+        if corpus_embs.device != dev:
+            fail(f"prepared corpus on {corpus_embs.device}, not {dev}")
+        # solo search_texts of each request, outside every counted path;
+        # the 32-query ones timed as the bare baseline
+        solo = {"serial": [], "single": []}
+        bare_ms = []
+        for r in range(D_SERIAL):
+            t0 = time.perf_counter()
+            solo["serial"].append(ev.search_texts(
+                texts[32 * r: 32 * (r + 1)], prepared))
+            bare_ms.append((time.perf_counter() - t0) * 1e3)
+        solo["single"] = [ev.search_texts([t], prepared)
+                          for t in texts[:D_SINGLE]]
+        print(f"[d] bare search_texts of the same 32-query requests on "
+              f"{card}: ms {json.dumps([round(x, 3) for x in bare_ms])}, "
+              f"median {statistics.median(bare_ms):.3f}")
+        outs = drive_frontend(paths, "(d1)", fe, texts, solo, card)
+        # the bare requests again, after the frontend's: order vs design
+        bare_ms = []
+        for r in range(D_SERIAL):
+            t0 = time.perf_counter()
+            ev.search_texts(texts[32 * r: 32 * (r + 1)], prepared)
+            bare_ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"[d] bare search_texts again, after the frontend's requests, "
+              f"on {card}: ms {json.dumps([round(x, 3) for x in bare_ms])}"
+              f", median {statistics.median(bare_ms):.3f}")
+    finally:
+        fe.close()
     # request 0 against an exact float64 top-k over the same embeddings
-    q_emb = query_embeddings(dev, trove, req)
+    ids, vals = outs[0]
+    q_emb = query_embeddings(dev, trove, texts[:32])
     exact = q_emb.double() @ corpus_embs.double().T
     wv, wpos = torch.sort(exact, dim=1, descending=True, stable=True)
-    wv = wv[:, :K].float()
     want_ids = prepared.positions_to_ids(wpos[:, :K].cpu().numpy())
-    err = float((torch.from_numpy(vals) - wv.cpu()).abs().max())
-    sep = separated(wv.cpu()).numpy()
-    if err > TOL or not np.array_equal(ids[sep], want_ids[sep]):
-        fail(f"search_texts vs exact top-k: error {err}")
-    print(f"[d] request 0 vs exact float64 top-k: max abs error {err:.3g}, "
-          f"ids equal where separated by more than {TOL}")
-    st = ev.last_search_stats
-    print(f"[d] search_texts latency ms per request of 32 queries on "
-          f"{card}: {json.dumps([round(x, 3) for x in latencies])} "
-          f"({st['executor']}, S={st['superchunk_size']} autotuned, "
-          f"{rounds[0]} calls per request)")
-    print(f"[d] of which the search round (stream + kernels + finalize), "
-          f"ms: {json.dumps([round(x, 3) for x in search_ms])}")
-    return paths, runs
+    err = check_exact("(d1) request 0 vs exact float64 top-k", ids, vals,
+                      want_ids, wv[:, :K].float().cpu().numpy())
+    print(f"[d] (d1) request 0 vs exact float64 top-k: max abs error "
+          f"{err:.3g}, ids equal where separated by more than {TOL}")
+
+    # (d2) two simulated workers on the card, against the W = 1 solos
+    cluster = SimulatedCluster(2)
+    evs = cluster_evaluators(dev, trove, 2, "fused", "kernel", cluster)
+    t0 = time.perf_counter()
+    fe = ServeFrontend.from_cluster(evs, cluster, corpus)
+    torch.cuda.synchronize()
+    print(f"[d] (d2) ServeFrontend.from_cluster W=2 (each rank prepares "
+          f"the corpus): {time.perf_counter() - t0:.3f} s")
+    try:
+        drive_frontend(paths, "(d2) W=2", fe, texts, solo, card)
+    finally:
+        fe.close()
+    del corpus_embs, prepared, fe
+    torch.cuda.empty_cache()
+
+    # (d3) the launcher at full width over (c)'s dataset.  It autotunes
+    # S per rung in its warm pass: tune those keys here first, so the
+    # counted run launches only its rounds' K1 calls
+    rungs = (1, 2, 4, 8, 16, 32)
+    for q in rungs:
+        sharded_search.autotune_superchunk_size(q, D, C, K, "fused",
+                                                "kernel", dev.type)
+    n_tuned = len(sharded_search._AUTOTUNE_CACHE)
+    with tempfile.TemporaryDirectory() as tmp:
+        _, d3_corpus, _ = make_retrieval_dataset(
+            tmp, n_queries=Q, n_docs=8192, n_topics=64, seed=SEED)
+        argv = ["--data-dir", tmp, "--device", dev.type, "--topk", str(K),
+                "--n-requests", str(D_SINGLE), "--batch", "1",
+                "--concurrency", str(D_THREADS), "--max-batch",
+                str(rungs[-1])]
+        for mode in D3_MODES:
+            out = io.StringIO()
+            served = ServedLog()
+
+            def run(mode=mode, out=out, served=served):
+                with contextlib.redirect_stdout(out), served:
+                    return serve.main(argv + list(mode))
+
+            try:
+                stats = serving_path(
+                    paths, f"(d3) serve.main {' '.join(mode)} (fused, "
+                    f"kernel)", run)
+                held = check_served(f"(d3) serve.main {' '.join(mode)}",
+                                    served, list(d3_corpus))
+            finally:
+                served.close()
+            if len(sharded_search._AUTOTUNE_CACHE) != n_tuned:
+                fail(f"(d3) {mode}: the warm pass autotuned a new key")
+            fs = stats["frontend"]
+            lat = stats["latencies_ms"]
+            if (fs["completed"] != D_SINGLE + len(rungs) or fs["failed"]
+                    or fs["queries"] != D_SINGLE + sum(rungs)
+                    or not all(0 < x < D_RESULT_S * 1e3 for x in lat)
+                    or not np.isfinite([stats["p50_ms"], stats["p99_ms"],
+                                        stats["qps"]]).all()):
+                fail(f"(d3) {mode}: {json.dumps(fs)}, latencies {lat}")
+            lines = out.getvalue().splitlines()
+            for line in lines:
+                if line.startswith(("prepared corpus", "mutation:")):
+                    print(f"[d] (d3) {' '.join(mode)}: {line}")
+            print(f"[d] (d3) serve.main {' '.join(mode)} ({stats['label']}"
+                  f", {D_SINGLE} single-query requests from {D_THREADS} "
+                  f"threads) on {card}: p50 {stats['p50_ms']:.3f} ms, p99 "
+                  f"{stats['p99_ms']:.3f} ms, {stats['qps']:.1f} queries/s;"
+                  f" {fs['batches']} micro-batches, largest "
+                  f"{fs['max_batch_seen']}; {held}")
+    return paths
 
 
 # -- (g) the embedding cache on the card -------------------------------------
@@ -2091,6 +2423,7 @@ def main() -> int:
 
     trove = build_trove(dev)
     paths, runs = phase_main_path(dev, card, trove)
+    paths.update(phase_serving(dev, card, trove))
     paths.update(phase_cache(dev, card, trove,
                              kernels["fused_score_topk"]["timings"][0]["ms"]))
     paths.update(phase_workers(dev, card, trove, runs[("fused", "kernel")]))

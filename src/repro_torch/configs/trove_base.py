@@ -4,7 +4,11 @@ default architecture of the reference's serve and eval launchers.
 12 layers, d_model 768, 12 heads x 64, d_ff 3072, vocab 50304, a
 non-gated GELU FFN, LayerNorm with biases, bfloat16: about 124 M
 parameters.  The same fields as ``repro.configs.trove_base``.
+:func:`reduced` is the smoke-test size of the reference's
+``LMArch.reduced()``.
 """
+
+import dataclasses
 
 import torch
 
@@ -17,3 +21,13 @@ def get_config() -> LMConfig:
         n_kv_heads=12, head_dim=64, d_ff=3072, vocab_size=50304,
         activation="gelu", norm="layernorm", pooling="mean",
         dtype=torch.bfloat16)
+
+
+def reduced() -> LMConfig:
+    """trove-base cut to 2 layers of width 64 (4 heads x 16, 4 KV heads,
+    d_ff 128, vocab 512) in float32, as the reference's
+    ``get_arch("trove-base").reduced()`` with its dtype set to
+    float32 (``launch.serve --smoke``)."""
+    return dataclasses.replace(
+        get_config(), n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
+        head_dim=16, d_ff=128, vocab_size=512, dtype=torch.float32)

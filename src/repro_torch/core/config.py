@@ -60,6 +60,14 @@ class EvaluationArguments:
     tokenizer_workers: int = 2
     # Windows of text tokenized ahead of the device encode stage.
     encode_pipeline_depth: int = 2
+    # Continuous-batching serve frontend defaults (core.serving): a
+    # micro-batch flushes at serve_max_batch coalesced queries or after
+    # serve_max_wait_ms from its first request, whichever first;
+    # serve_max_queue bounds pending requests (admission control —
+    # submissions beyond it fast-fail with ServeOverloadError).
+    serve_max_batch: int = 32
+    serve_max_wait_ms: float = 2.0
+    serve_max_queue: int = 256
 
     def __post_init__(self):
         if self.score_impl not in SCORE_IMPLS:
@@ -76,7 +84,12 @@ class EvaluationArguments:
                             ("superchunk_max_mb", 1),
                             ("encode_buckets", 0),
                             ("tokenizer_workers", 0),
-                            ("encode_pipeline_depth", 0)):
+                            ("encode_pipeline_depth", 0),
+                            ("serve_max_batch", 1),
+                            ("serve_max_queue", 1)):
             if getattr(self, name) < floor:
                 raise ValueError(
                     f"{name} must be >= {floor}, got {getattr(self, name)}")
+        if self.serve_max_wait_ms < 0:
+            raise ValueError(f"serve_max_wait_ms must be >= 0, got "
+                             f"{self.serve_max_wait_ms}")

@@ -284,6 +284,9 @@ class RetrievalEvaluator:
 
     # -- search --------------------------------------------------------------
     def make_driver(self) -> ShardedSearchDriver:
+        """A driver of this evaluator's settings (backends, chunking,
+        superchunk size, rank, sharder, gather, device): the one way its
+        searches and the serve backends (``core.serving``) build one."""
         return ShardedSearchDriver(
             n_workers=self.process_count, worker_index=self.process_index,
             sharder=self.sharder, gather=self.gather,

@@ -23,16 +23,22 @@ and W > 1:
 Transports: :class:`ProcessAllGather` (processes over
 ``torch.distributed``) and ``repro_torch.launch.distributed.
 InMemoryAllGather`` (W drivers in one process) merge rank states in rank
-order, so every worker computes an identical merged ranking.  The
-resilient gather and ``search_async`` come with the fault-tolerance and
-serving slices (ROADMAP queue 1 items 4 and 3).
+order, so every worker computes an identical merged ranking.
+
+A round is two phases: scoring (acquire the round, stream, score, report)
+on the caller's thread, and the reduce (gather, merge, finalize).
+:meth:`ShardedSearchDriver.search` runs both; :meth:`ShardedSearchDriver.
+search_async` runs the reduce on a driver-owned thread and returns a
+Future, and :meth:`ShardedSearchDriver.close` drains that thread.  The
+resilient gather comes with the fault-tolerance slice (ROADMAP queue 1
+item 4).
 """
 
 from __future__ import annotations
 
 import math
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Protocol
 
 import numpy as np
@@ -269,6 +275,13 @@ ChunkLoader = Callable[[int, int], "np.ndarray | torch.Tensor"]
 class ShardedSearchDriver:
     """One worker's view of a W-worker sharded dense search.
 
+    :meth:`search` runs one round (scoring, then the reduce) and returns
+    its result; :meth:`search_async` runs the scoring phase on the
+    caller's thread and hands the reduce to a driver-owned thread,
+    returning a Future; :meth:`close` drains that thread.
+    ``RetrievalEvaluator.make_driver`` builds a driver from an
+    evaluator's arguments.
+
     Parameters
     ----------
     n_workers / worker_index : cluster shape and this worker's rank.
@@ -334,6 +347,8 @@ class ShardedSearchDriver:
         # round counter of the single-worker path (W > 1 uses the
         # sharder-global round from FairSharder.acquire)
         self._local_round = 0
+        # search_async's reduce thread, started at its first call
+        self._reduce_pool: ThreadPoolExecutor | None = None
 
     def partition(self, n_docs) -> list[tuple[int, int]]:
         """All workers' ``[lo, hi)`` bounds for this round (a count or a
@@ -509,6 +524,72 @@ class ShardedSearchDriver:
         for rank, n, secs in reports:
             self.sharder.update(rank, n, secs, round_no=round_no)
 
+    def _score_local(self, q_emb, n_docs, load_chunk: ChunkLoader,
+                     topk: int, generation=None):
+        """The scoring phase of one round: acquire the round and its
+        bounds, stream this worker's shard into a **fresh** (Q, k) heap
+        and set :attr:`stats`; at W > 1 also synchronise the device and
+        report the round's throughput.  Every call builds its own heap,
+        so a previous round's state may still be merging
+        (:meth:`search_async`) while this round scores.  Returns
+        ``(heap, stats, t0)``: the reduce phase writes its times into
+        that round's own stats dict (at W = 1 the round's ``seconds``,
+        which end after the finalize, as its untagged report does)."""
+        if not isinstance(n_docs, (int, np.integer)):
+            n_docs = len(n_docs)
+        if self.n_workers > 1:
+            round_no, bounds = self.sharder.acquire(
+                self.worker_index, int(n_docs), generation=generation)
+        else:
+            round_no = self._local_round
+            self._local_round += 1
+            bounds = self.sharder.bounds(int(n_docs))
+        lo, hi = bounds[self.worker_index]
+        self._chunk_devices: set[str] = set()
+        t0 = time.monotonic()
+        heap, calls, executor, s = self._score_range(q_emb, lo, hi,
+                                                     load_chunk, topk,
+                                                     round_no)
+        seconds = None
+        if self.n_workers > 1:
+            _sync(self.device)
+            seconds = time.monotonic() - t0
+            self._report(round_no, hi - lo, seconds)
+        self.stats = {"lo": lo, "hi": hi, "items": hi - lo,
+                      "chunks": -(-max(hi - lo, 0) // self.chunk_size),
+                      "seconds": seconds, "executor": executor,
+                      "superchunk_size": s, "dispatch_rounds": calls,
+                      "generation": generation, "round": round_no,
+                      "query_device": str(getattr(q_emb, "device", "cpu")),
+                      "chunk_devices": sorted(self._chunk_devices)}
+        return heap, self.stats, t0
+
+    def _reduce(self, heap: FastResultHeapq, stats: dict,
+                t0: float) -> SearchOutcome:
+        """The reduce phase: at W > 1 the gather fault point, the
+        all-gather and rank-order merge, then the host finalize; at
+        W = 1 the finalize and the round's untagged report."""
+        if self.n_workers > 1:
+            g0 = time.monotonic()
+            if self.gather is not None:
+                if self.fault_injector is not None:
+                    # a drop against a barrier transport propagates
+                    self.fault_injector.on_gather(self.worker_index,
+                                                  stats["round"])
+                heap = self.gather.merge(heap, self.worker_index)
+            vals, pos = heap.finalize()
+            # the reduce: waiting for the siblings, the all-gather, the
+            # rank-order merge and the host finalize
+            stats["gather_seconds"] = time.monotonic() - g0
+        else:
+            vals, pos = heap.finalize()
+            stats["seconds"] = time.monotonic() - t0
+            # untagged: the report lands on the sharder's next open round,
+            # which a sharder shared across per-search drivers keeps
+            # counting
+            self.sharder.update(0, stats["items"], stats["seconds"])
+        return SearchOutcome((vals, pos), coverage=full_coverage(len(vals)))
+
     def search(self, q_emb, n_docs, load_chunk: ChunkLoader,
                topk: int, generation=None) -> SearchOutcome:
         """Score this worker's shard of the corpus, then reduce.
@@ -529,49 +610,31 @@ class ShardedSearchDriver:
         One worker scores whatever snapshot its loader reads, so there
         the key is only recorded in :attr:`stats`.
         """
-        if not isinstance(n_docs, (int, np.integer)):
-            n_docs = len(n_docs)
-        if self.n_workers > 1:
-            round_no, bounds = self.sharder.acquire(
-                self.worker_index, int(n_docs), generation=generation)
-        else:
-            round_no = self._local_round
-            self._local_round += 1
-            bounds = self.sharder.bounds(int(n_docs))
-        lo, hi = bounds[self.worker_index]
-        self._chunk_devices: set[str] = set()
-        t0 = time.monotonic()
-        heap, calls, executor, s = self._score_range(q_emb, lo, hi,
-                                                     load_chunk, topk,
-                                                     round_no)
-        if self.n_workers == 1:
-            vals, pos = heap.finalize()
-            seconds = time.monotonic() - t0
-            # untagged: the report lands on the sharder's next open round,
-            # which a sharder shared across per-search drivers keeps
-            # counting
-            self.sharder.update(0, hi - lo, seconds)
-        else:
-            _sync(self.device)
-            seconds = time.monotonic() - t0
-            self._report(round_no, hi - lo, seconds)
-        self.stats = {"lo": lo, "hi": hi, "items": hi - lo,
-                      "chunks": -(-max(hi - lo, 0) // self.chunk_size),
-                      "seconds": seconds, "executor": executor,
-                      "superchunk_size": s, "dispatch_rounds": calls,
-                      "generation": generation, "round": round_no,
-                      "query_device": str(getattr(q_emb, "device", "cpu")),
-                      "chunk_devices": sorted(self._chunk_devices)}
-        if self.n_workers > 1:
-            t0 = time.monotonic()
-            if self.gather is not None:
-                if self.fault_injector is not None:
-                    # a drop against a barrier transport propagates
-                    self.fault_injector.on_gather(self.worker_index,
-                                                  round_no)
-                heap = self.gather.merge(heap, self.worker_index)
-            vals, pos = heap.finalize()
-            # the reduce: waiting for the siblings, the all-gather, the
-            # rank-order merge and the host finalize
-            self.stats["gather_seconds"] = time.monotonic() - t0
-        return SearchOutcome((vals, pos), coverage=full_coverage(len(vals)))
+        return self._reduce(*self._score_local(q_emb, n_docs, load_chunk,
+                                               topk, generation))
+
+    def search_async(self, q_emb, n_docs, load_chunk: ChunkLoader,
+                     topk: int, generation=None) -> Future:
+        """Like :meth:`search`, but the reduce phase runs on a
+        driver-owned thread and the result comes back as a Future.
+
+        The scoring phase runs on the caller's thread, so when this
+        returns the caller may score the next round while this round's
+        gather, merge and finalize are in flight (the round pipelining
+        behind ``ServeFrontend``).  Reduces run one at a time in
+        submission order, so results, and the gather transport's
+        rank-order merge, are bitwise those of :meth:`search`.
+        """
+        scored = self._score_local(q_emb, n_docs, load_chunk, topk,
+                                   generation)
+        if self._reduce_pool is None:
+            self._reduce_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="shard-reduce")
+        return self._reduce_pool.submit(self._reduce, *scored)
+
+    def close(self) -> None:
+        """Drain and shut down the reduce thread of :meth:`search_async`
+        (a no-op when it was never used).  Idempotent."""
+        if self._reduce_pool is not None:
+            self._reduce_pool.shutdown(wait=True)
+            self._reduce_pool = None

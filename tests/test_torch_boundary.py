@@ -45,7 +45,8 @@ def test_port_imports_no_jax_and_no_reference():
     assert {"repro_torch.kernels.topk", "repro_torch.core.evaluator",
             "repro_torch.core.embedding_cache", "repro_torch.core.faults",
             "repro_torch.models.convert", "repro_torch.launch.distributed",
-            "repro_torch.configs.trove_base"} <= set(out["imported"])
+            "repro_torch.configs.trove_base", "repro_torch.core.serving",
+            "repro_torch.launch.serve"} <= set(out["imported"])
     leaked = [m for m in out["loaded"]
               if m in ("jax", "repro") or m.startswith(("jax.", "repro."))]
     assert leaked == []

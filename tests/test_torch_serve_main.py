@@ -1,0 +1,255 @@
+"""``repro_torch.launch.serve``, the port of ``repro.launch.serve``.
+
+``main --smoke --device cpu`` (trove-base cut to 2 x 64, float32) in its
+modes: one worker, W = 2 simulated workers, ``--mutate`` (a writer thread
+adding, re-embedding, deleting and compacting while requests are served)
+and two real processes over ``torch.distributed`` (gloo).  The explicit
+warm pass and the wrap-around requests make the reference's counts: 6
+requests of 5 queries plus the rung ladder 1 + 2 + 4 + 8 (45 queries in
+10 micro-batch requests), on both launchers.  Two processes at
+``--concurrency 1`` return, request by request, results bitwise equal to
+one worker; at ``--concurrency 2`` or with ``--deadline-ms`` each raises
+before any collective.
+Flags whose modules are not ported yet raise and name their ROADMAP
+item.  Every wait on a child process has a timeout.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import serving
+from repro_torch.launch import serve
+
+pytestmark = pytest.mark.serving
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMOKE = ["--smoke", "--device", "cpu", "--n-requests", "6", "--batch", "5",
+         "--max-batch", "8", "--max-wait-ms", "2", "--topk", "7"]
+JOIN_S = 120
+
+
+def _run(tmp_path_factory, name, *extra):
+    data_dir = str(tmp_path_factory.mktemp(name))
+    return serve.main(SMOKE + ["--data-dir", data_dir, *extra])
+
+
+@pytest.fixture(scope="module")
+def port_stats(tmp_path_factory):
+    """One --smoke run at one worker, three submitter threads (5 does
+    not divide the 64 synthetic queries, so requests wrap around)."""
+    return _run(tmp_path_factory, "port", "--concurrency", "3",
+                "--workers", "1")
+
+
+def test_serve_main_steady_state_latencies(port_stats):
+    """The warm pass keeps corpus encoding out of request 0: it is a
+    steady-state sample, within ~3x of request 1."""
+    lat = port_stats["latencies_ms"]
+    assert len(lat) == 6 and all(x > 0 for x in lat)
+    assert lat[0] <= 3.0 * lat[1] + 1.0, lat
+    assert port_stats["warm_s"] > 0
+    assert max(lat) / 1e3 < port_stats["warm_s"] + port_stats["prep_s"]
+    assert port_stats["p50_ms"] <= port_stats["p99_ms"]
+    assert port_stats["label"] == "1 worker (forced)"
+
+
+def test_both_launchers_count_the_same_requests(port_stats,
+                                                tmp_path_factory):
+    """The reference's launcher and the port's, same flags: 6 timed
+    requests of exactly 5 queries (main asserts each response's shape)
+    plus the warm rung ladder 1 + 2 + 4 + 8, real rows only."""
+    from repro.launch import serve as ref_serve
+    data_dir = str(tmp_path_factory.mktemp("reference"))
+    ref_stats = ref_serve.main(
+        [a for a in SMOKE if a not in ("--device", "cpu")]
+        + ["--data-dir", data_dir, "--concurrency", "3", "--workers", "1"])
+    for stats in (port_stats, ref_stats):
+        fs = stats["frontend"]
+        assert fs["queries"] == 6 * 5 + 15
+        assert fs["completed"] == 6 + 4
+        assert fs["failed"] == fs["expired"] == fs["rejected"] == 0
+        assert stats["qps"] > 0
+    assert set(port_stats) == set(ref_stats)
+    assert set(port_stats["frontend"]) == set(ref_stats["frontend"])
+
+
+@pytest.mark.parametrize("mode", (["--workers", "2"], ["--mutate"],
+                                  ["--workers", "2", "--mutate"]))
+def test_serve_main_modes_resolve_every_request(tmp_path_factory, mode):
+    stats = _run(tmp_path_factory, "mode", "--concurrency", "3", *mode)
+    fs = stats["frontend"]
+    assert fs["completed"] == 6 + 4 and fs["failed"] == 0
+    assert fs["queries"] == 6 * 5 + 15
+    if "--mutate" in mode:
+        mut = stats["mutation"]
+        assert mut["adds"] >= 2 and mut["deletes"] >= 1
+        assert mut["compactions"] == 1
+        # one seed generation, then the writer's commits and one epoch
+        assert stats["generation"][0] > 1 and stats["generation"][1] == 1
+    if "--workers" in mode:
+        assert stats["label"] == "2 simulated workers"
+
+
+def test_deadline_ms_bounds_the_queue_wait(tmp_path_factory):
+    """``--deadline-ms`` reaches the frontend's queue expiry; a budget
+    that is never reached expires nothing."""
+    stats = _run(tmp_path_factory, "deadline", "--workers", "1",
+                 "--deadline-ms", "60000")
+    assert stats["frontend"]["expired"] == 0
+    assert stats["frontend"]["completed"] == 6 + 4
+
+
+@pytest.mark.parametrize("extra,match", (
+    (["--ckpt-dir", "ckpt"], "item 7"),
+    (["--index-impl", "ivf"], "item 6"),
+    (["--resilient"], "item 4"),
+    (["--chaos", "crash"], "item 4"),
+    (["--round-deadline-s", "1"], "item 4"),
+    (["--arch", "deepfm"], "item 8"),
+))
+def test_unported_flags_raise_naming_their_item(tmp_path, extra, match):
+    with pytest.raises(NotImplementedError, match=match):
+        serve.main(SMOKE + ["--data-dir", str(tmp_path), *extra])
+    assert not os.listdir(tmp_path)          # raised before any work
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")
+def test_default_device_is_the_card(tmp_path):
+    argv = [a for a in SMOKE if a not in ("--device", "cpu")]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(argv + ["--data-dir", str(tmp_path)])
+
+
+# -- two processes over torch.distributed ------------------------------------
+
+# One rank: join the group; --concurrency 2 and --deadline-ms must each
+# raise before any collective; then serve at --concurrency 1 and save
+# every request's results in submission order.
+_CHILD = r"""
+import json, sys
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+from repro_torch.core import serving
+from repro_torch.launch import serve
+from repro_torch.launch.distributed import init_distributed
+
+work, rank, world = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+argv = json.loads(sys.argv[4])
+assert init_distributed(init_method=f"file://{work}/rdzv", world_size=world,
+                        rank=rank) == (rank, world)
+refusals = []
+for extra in (["--concurrency", "2"], ["--deadline-ms", "60000"]):
+    try:
+        serve.main(argv + extra)
+        refusals.append(None)
+    except ValueError as e:
+        refusals.append(str(e))
+futs = []
+submit = serving.ServeFrontend.submit
+
+
+def recording(self, request, deadline_ms=None):
+    futs.append(submit(self, request, deadline_ms))
+    return futs[-1]
+
+
+serving.ServeFrontend.submit = recording
+stats = serve.main(argv + ["--concurrency", "1"])
+outs = [f.result(timeout=60) for f in futs]
+np.savez(f"{work}/out-{rank}.npz", ids=np.stack([o[0] for o in outs]),
+         vals=np.stack([o[1] for o in outs]))
+json.dump({"refusals": refusals, "label": stats["label"],
+           "frontend": stats["frontend"]},
+          open(f"{work}/out-{rank}.json", "w"))
+torch.distributed.destroy_process_group()
+"""
+
+
+def _wait_all(procs, timeout: float) -> None:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        codes = [proc.poll() for proc in procs]
+        if None not in codes or any(c not in (None, 0) for c in codes):
+            return
+        time.sleep(0.05)
+
+
+def _serve_recording(monkeypatch, argv):
+    """``serve.main`` in this process, with every request's result."""
+    futs = []
+    submit = serving.ServeFrontend.submit
+
+    def recording(self, request, deadline_ms=None):
+        futs.append(submit(self, request, deadline_ms))
+        return futs[-1]
+
+    with monkeypatch.context() as m:
+        m.setattr(serving.ServeFrontend, "submit", recording)
+        serve.main(argv)
+    outs = [f.result(timeout=60) for f in futs]
+    return (np.stack([o[0] for o in outs]), np.stack([o[1] for o in outs]))
+
+
+def test_two_processes_match_one_worker(tmp_path, monkeypatch):
+    """Two gloo ranks serving one warm cache at --concurrency 1: every
+    request's ids and scores on both ranks bitwise equal to one worker's,
+    and --concurrency 2 and --deadline-ms refused first, naming their
+    hazards."""
+    data_dir = str(tmp_path / "data")
+    argv = SMOKE + ["--data-dir", data_dir, "--workers", "0"]
+    serve.main(argv + ["--workers", "1"])            # fills the cache
+    want_ids, want_vals = _serve_recording(monkeypatch,
+                                           argv + ["--workers", "1"])
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(name, None)
+    logs = [tmp_path / f"rank-{r}.log" for r in range(2)]
+    procs = []
+    try:
+        for rank in range(2):
+            with open(logs[rank], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", _CHILD, str(tmp_path), str(rank),
+                     "2", json.dumps(argv)], cwd=str(tmp_path), env=env,
+                    stdout=log, stderr=subprocess.STDOUT))
+        _wait_all(procs, JOIN_S)
+        bad = [f"rank {rank} "
+               + ("still running, killed" if proc.returncode is None
+                  else f"exited {proc.returncode}")
+               + f":\n{logs[rank].read_text()[-3000:]}"
+               for rank, proc in enumerate(procs) if proc.returncode != 0]
+        if bad:
+            pytest.fail("\n".join(bad))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=JOIN_S)
+    for rank in range(2):
+        got = np.load(tmp_path / f"out-{rank}.npz")
+        meta = json.loads((tmp_path / f"out-{rank}.json").read_text())
+        concurrency, deadline = meta["refusals"]
+        assert "--concurrency 2" in concurrency
+        assert "different micro-batches" in concurrency
+        assert "observation exchange" in concurrency
+        assert "--deadline-ms" in deadline
+        assert "own clock" in deadline
+        assert "all-gather alone" in deadline
+        assert meta["label"] == "2 process(es)"
+        assert meta["frontend"]["completed"] == 6 + 4
+        assert got["ids"].dtype == want_ids.dtype
+        assert got["vals"].dtype == want_vals.dtype
+        np.testing.assert_array_equal(got["ids"], want_ids)
+        np.testing.assert_array_equal(got["vals"], want_vals)
+    assert want_ids.shape == (6, 5, 7) and (want_ids >= 0).all()
