@@ -50,10 +50,11 @@ Phases, each printing its own lines:
   (e) launches per path: every kernel's count is set to 0 just before
       each evaluate / search / mine_hard_negatives call of (c), each
       serving path of (d), each recsys cell of (f), each cached path of
-      (g) and each W > 1 path of (h), and read just after; each kernel of
-      that path must have launched exactly as often as predicted
-      (``ShardedSearchDriver.stats`` on (c) / (g) / (h), summed over
-      ranks, and on (d) over every round of the path, recorded by
+      (g), each W > 1 path of (h) and each fault path of (i), and read
+      just after; each kernel of that path must have launched exactly as
+      often as predicted (``ShardedSearchDriver.stats`` on (c) / (g) /
+      (h), summed over ranks, and on (d) and (i) over every round of the
+      path, rescores included, recorded by
       wrapping the driver's ``search`` / ``search_async`` in this script:
       one K1 launch per superchunk call, one K2 launch per scored chunk;
       the model on (f): K4 twice per DeepFM forward, once per Wide&Deep
@@ -94,7 +95,36 @@ Phases, each printing its own lines:
       with ``ProcessAllGather``, bitwise equal to W = 1 over one pinned
       snapshot, cutting the corpus identically on the second search.
       Launches on every (h) path: the sum over ranks of each rank's
-      prediction.
+      prediction;
+  (i) faults on the card (the model, dataset, k, C and S of (c), one
+      device-resident prepared corpus, 32-query ``search_texts``, a
+      round deadline of 0.5 s and stalls of 1 s): (i1) the chaos matrix —
+      a resilient ``SimulatedCluster`` at W = 2 and 4 for the (fused,
+      kernel) and (torch, kernel) pairs, with a crash, a stall or a
+      dropped gather send at worker 1 in round 0, every rank bitwise
+      equal to the pair's no-fault W = 1 search with coverage 1, worker
+      1's shard rescored once (and only a crashed rank marked dead; the
+      clean rounds with no rank dead and nothing rescored), and after a
+      crash a second round in which the dead rank's shard is empty;
+      each recovered round's time
+      against the clean round's and the rescore's share of it; (i2) the
+      retry budget spent at W = 2 (coverage 0.5, bitwise equal to a W = 1
+      search over rank 0's rows alone), then a request deadline with a
+      stalled rescuer at W = 4 (coverage 0.75, resolved within the
+      deadline plus a stated slack); (i3) 20 rounds at W = 4 with a crash
+      in round 0 and the ranks' acquires staggered (the order that made
+      the reference merge a shard twice): no duplicate id, every round
+      bitwise equal to W = 1, rank 1 the only rank dead and its round-0
+      shard the only one rescored; (i4) ``ServeFrontend.from_cluster`` on a
+      resilient W = 2 cluster whose rank 1 crashes in the first
+      steady-state round (every request resolved, each non-degraded one
+      within TOL of its solo W = 1 ``search_texts``), then
+      ``repro_torch.launch.serve.main --workers 2 --resilient --chaos``
+      crash / stall / drop with its ``chaos:`` line, held as (d3) holds
+      its runs.  Launches on every (i) path: each rank's calls on its own
+      shard and on the shards it rescored (``retry_dispatch_rounds`` /
+      ``retry_chunks``), summed; a crashed rank dies before its first
+      chunk is scored and launches nothing.
 The second-to-last line is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and the script
 exits non-zero without that line.  It imports nothing of JAX and nothing
@@ -978,13 +1008,17 @@ def predicted(ev, score: str, heap: str) -> dict:
 def predict(stats: list, score: str, heap: str) -> dict:
     """Each kernel's launches predicted from driver stats, summed over
     searches and ranks: one K1 launch per superchunk call on (fused, ·),
-    one K2 launch per scored chunk on (torch, kernel)."""
+    one K2 launch per scored chunk on (torch, kernel), a rank's own shard
+    and the orphaned shards it rescored (``retry_dispatch_rounds`` /
+    ``retry_chunks``, 0 without a resilient gather) alike."""
     for st in stats:
         if st["executor"] != "superchunk":
             fail(f"({score}, {heap}) ran {st['executor']}")
-    return {"fused_score_topk": (sum(st["dispatch_rounds"] for st in stats)
-                                 if score == "fused" else 0),
-            "topk_update": (sum(st["chunks"] for st in stats)
+    return {"fused_score_topk": (
+                sum(st["dispatch_rounds"] + st["retry_dispatch_rounds"]
+                    for st in stats) if score == "fused" else 0),
+            "topk_update": (sum(st["chunks"] + st["retry_chunks"]
+                                for st in stats)
                             if (score, heap) == ("torch", "kernel") else 0),
             "embedding_bag": 0}
 
@@ -1053,11 +1087,12 @@ def build_trove(dev) -> dict:
 
 def trove_evaluator(dev, trove: dict, score: str = "fused",
                     heap: str = "kernel", superchunk_size: int | None = None,
-                    **workers):
+                    recovery: dict | None = None, **workers):
     """A RetrievalEvaluator of the main path's settings (k = 100, chunks
     of 32 rows, 256 queries a batch, S = 64 unless given; 0 autotunes);
-    ``workers`` are its process_index / process_count / gather /
-    sharder."""
+    ``recovery`` sets its round_deadline_s / shard_retries /
+    shard_retry_backoff_s; ``workers`` are its process_index /
+    process_count / gather / sharder / fault_injector."""
     from repro_torch.core.config import EvaluationArguments
     from repro_torch.core.evaluator import RetrievalEvaluator
 
@@ -1065,7 +1100,7 @@ def trove_evaluator(dev, trove: dict, score: str = "fused",
         topk=K, encode_batch_size=C, query_batch_size=Q,
         superchunk_size=S if superchunk_size is None else superchunk_size,
         score_impl=score, heap_impl=heap,
-        metrics=("ndcg@10", "mrr@10", "recall@100"))
+        metrics=("ndcg@10", "mrr@10", "recall@100"), **(recovery or {}))
     return RetrievalEvaluator(args, trove["retriever"], trove["collator"],
                               trove["params"], device=dev, **workers)
 
@@ -2233,6 +2268,392 @@ def h4_rank(rank: int, tmp: str) -> int:
     return 0
 
 
+# -- (i) faults on the card ---------------------------------------------------
+
+# Short recovery settings, so phase (i) stays brief: a round waits
+# I_ROUND_DEADLINE_S for a silent worker before its shard goes to a
+# survivor, a stalled worker sleeps I_STALL_S (past that deadline), a
+# request deadline is I_DEADLINE_S and must resolve within I_SLACK_S of
+# it.  Requests are I_Q queries of (c)'s set; (i3) runs I_ROUNDS rounds,
+# and each clean cluster of (i1) I_CLEAN rounds (their median is the
+# clean round a recovered one is held beside).
+I_ROUND_DEADLINE_S, I_STALL_S, I_DEADLINE_S, I_SLACK_S = 0.5, 1.0, 0.5, 0.25
+I_RECOVERY = {"round_deadline_s": I_ROUND_DEADLINE_S,
+              "shard_retry_backoff_s": 0.01}
+I_Q, I_ROUNDS, I_CLEAN = 32, 20, 3
+I_PAIRS = (("fused", "kernel"), ("torch", "kernel"))
+I_KINDS = ("crash", "stall", "drop")
+
+
+def chaos_fault(kind: str, round_no: int = 0):
+    """The fault of ``kind`` at worker 1 in ``round_no``.  A crash fires
+    at chunk 0, before the first piece of the shard is scored, so the
+    crashed rank has launched no kernel when it dies and each path's
+    launches are the surviving ranks' (their own shards and rescores)."""
+    from repro_torch.core.faults import Fault
+    if kind == "drop":
+        return Fault(kind="drop", worker=1, round=round_no, phase="gather")
+    return Fault(kind=kind, worker=1, round=round_no, chunk=0,
+                 stall_s=I_STALL_S)
+
+
+class ChaosCluster:
+    """A resilient ``SimulatedCluster`` of W evaluators of the main
+    path's settings with the recovery settings of (i) and one shared
+    injector.  ``round(fn)`` runs ``fn(rank, ev)`` on every live rank
+    and returns the outputs with each rank's wall ms and the cluster's
+    (``stagger(rank)`` seconds of sleep first, where given)."""
+
+    def __init__(self, dev, trove, world: int, score: str, heap: str,
+                 faults=(), **recovery):
+        from repro_torch.core.faults import FaultInjector
+        from repro_torch.launch.distributed import SimulatedCluster
+
+        self.injector = FaultInjector(list(faults))
+        self.cluster = SimulatedCluster(world, resilient=True)
+        self.evs = [trove_evaluator(
+            dev, trove, score, heap, recovery={**I_RECOVERY, **recovery},
+            process_index=r, process_count=world,
+            gather=self.cluster.gather, sharder=self.cluster.sharder,
+            fault_injector=self.injector) for r in range(world)]
+
+    def round(self, fn, stagger=None):
+        wall = {}
+
+        def rank_fn(r):
+            if stagger is not None:
+                time.sleep(stagger(r))
+            t0 = time.perf_counter()
+            out = fn(r, self.evs[r])
+            wall[r] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        t0 = time.perf_counter()
+        outs = self.cluster.run(rank_fn)
+        return outs, wall, (time.perf_counter() - t0) * 1e3
+
+
+def logged_path(paths: dict, path: str, score: str, heap: str, fn):
+    """One (i) path: launches counted around ``fn`` and predicted from
+    the driver rounds it ran (``RoundLog``: each rank's own calls and
+    rescores; a rank that raised recorded nothing and launched nothing).
+    Returns ``(fn's result, the rounds' stats)``."""
+    log = RoundLog()
+
+    def run():
+        with log:
+            return fn()
+
+    out = on_path(paths, path, path_kernel(score, heap), run,
+                  lambda _: predict(log.stats, score, heap))
+    return out, log.stats
+
+
+def check_recovered(tag: str, outs, want) -> None:
+    """Every rank bitwise equal to the no-fault W = 1 search, with full
+    coverage, no duplicate id in a row."""
+    for r, out in enumerate(outs):
+        same_bits(f"{tag} rank {r} vs W=1", out, want)
+        if out.degraded or not (out.coverage == 1.0).all():
+            fail(f"{tag} rank {r}: coverage {out.coverage}")
+        no_duplicates(f"{tag} rank {r}", out[0])
+
+
+def no_duplicates(tag: str, ids) -> None:
+    for row in ids:
+        real = row[row >= 0]
+        if len(set(real.tolist())) != len(real):
+            fail(f"{tag}: a row holds a duplicate id")
+
+
+def phase_faults(dev, card: str, trove: dict) -> dict:
+    """(i) faults on the card: (i1) the chaos matrix, (i2) partial
+    results, (i3) the reference's race, (i4) serving through faults.
+    Returns each path's launch counts."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import sharded_search
+    from repro_torch.core.embedding_cache import EmbeddingCache
+    from repro_torch.core.evaluator import PreparedCorpus
+    from repro_torch.core.faults import Fault
+    from repro_torch.core.serving import ServeFrontend
+    from repro_torch.data.synthetic import make_retrieval_dataset
+    from repro_torch.launch import serve
+
+    corpus = trove["corpus"]
+    texts = list(trove["queries"].values())
+    batches = [texts[I_Q * i: I_Q * (i + 1)] for i in range(Q // I_Q)]
+    paths: dict = {}
+    t_phase = time.perf_counter()
+    prepared = trove_evaluator(dev, trove).prepare_corpus(
+        corpus, device_resident=True)
+    n_docs = len(prepared)
+    # the no-fault W = 1 search of every batch, per pair (not counted)
+    w1 = {pair: [trove_evaluator(dev, trove, *pair).search_texts(
+        b, prepared) for b in batches] for pair in I_PAIRS}
+
+    def search(batch):
+        return lambda r, ev: ev.search_texts(batch, prepared)
+
+    # (i1) the chaos matrix
+    for world in (2, 4):
+        for score, heap in I_PAIRS:
+            pair = f"({score}, {heap})"
+            clean = ChaosCluster(dev, trove, world, score, heap)
+            runs, stats = logged_path(
+                paths, f"(i1) W={world} no fault, {I_CLEAN} rounds {pair}",
+                score, heap, lambda: [clean.round(search(batches[0]))
+                                      for _ in range(I_CLEAN)])
+            for outs, _, _ in runs:
+                check_recovered(f"(i1) W={world} no fault {pair}", outs,
+                                w1[(score, heap)][0])
+            # a rank that raised would be marked dead and its shard
+            # rescored, the round still bitwise equal: rule both out
+            if (clean.cluster.health.dead or len(stats) != world * I_CLEAN
+                    or any(st["rescored"] for st in stats)):
+                fail(f"(i1) W={world} no fault {pair}: dead "
+                     f"{clean.cluster.health.dead}, {len(stats)} rank "
+                     f"rounds, rescored {[st['rescored'] for st in stats]}")
+            clean_ms = [max(wall.values()) for _, wall, _ in runs]
+            clean_rank = statistics.median(clean_ms)
+            print(f"[i] (i1) W={world} no fault {pair} on {card}: round ms "
+                  f"{json.dumps([round(x, 3) for x in clean_ms])}, median "
+                  f"{clean_rank:.3f}")
+            for kind in I_KINDS:
+                tag = f"(i1) W={world} {kind} {pair}"
+                cc = ChaosCluster(dev, trove, world, score, heap,
+                                  [chaos_fault(kind)])
+                (outs, wall, cluster_ms), stats = logged_path(
+                    paths, f"{tag} round 0", score, heap,
+                    lambda: cc.round(search(batches[0])))
+                check_recovered(tag, outs, w1[(score, heap)][0])
+                if len(cc.injector.fired) != 1:
+                    fail(f"{tag}: fired {cc.injector.fired}")
+                if cc.cluster.health.dead != ({1} if kind == "crash"
+                                              else set()):
+                    fail(f"{tag}: dead {cc.cluster.health.dead}")
+                rescuers = [st for st in stats if st["rescored"]]
+                want_shard = [(n_docs // world, 2 * n_docs // world)]
+                if ([r for st in rescuers for r in st["rescored"]]
+                        != want_shard):
+                    fail(f"{tag}: rescored "
+                         f"{[st['rescored'] for st in rescuers]}, not "
+                         f"worker 1's shard {want_shard}")
+                rescue = rescuers[0]
+                # the survivors' round: the ranks the fault did not hit
+                resolved = max(ms for r, ms in wall.items() if r != 1)
+                retry_ms = rescue["retry_seconds"] * 1e3
+                launched = (rescue["retry_dispatch_rounds"]
+                            if score == "fused" else rescue["retry_chunks"])
+                print(f"[i] {tag} on {card}: recovered round {resolved:.3f}"
+                      f" ms on the survivors (cluster {cluster_ms:.3f} ms) "
+                      f"against {clean_rank:.3f} ms clean; the rescore of "
+                      f"{want_shard[0]} {retry_ms:.3f} ms, "
+                      f"{retry_ms / resolved:.1%} of it ({launched} "
+                      f"{path_kernel(score, heap)} launches); every rank "
+                      f"bitwise equal to W=1, coverage 1")
+                if kind != "crash":
+                    continue
+                (outs, _, after_ms), stats = logged_path(
+                    paths, f"{tag} round 1", score, heap,
+                    lambda: cc.round(search(batches[1])))
+                check_recovered(f"{tag} round 1", outs,
+                                w1[(score, heap)][1])
+                shards = sorted((st["lo"], st["hi"]) for st in stats)
+                lo, hi = cc.cluster.sharder.bounds(n_docs)[1]
+                if (len(stats) != world - 1 or any(st["rescored"]
+                                                   for st in stats)
+                        or shards[0][0] != 0 or shards[-1][1] != n_docs
+                        or any(a[1] != b[0] for a, b in zip(shards,
+                                                            shards[1:]))
+                        or lo != hi):
+                    fail(f"{tag} round 1: shards {shards}, dead rank "
+                         f"{(lo, hi)}")
+                print(f"[i] {tag} round 1: rank 1 dead with an empty "
+                      f"shard, the survivors' shards {shards} cover the "
+                      f"corpus; {after_ms:.3f} ms; bitwise equal to W=1")
+
+    # (i2) partial results: the retry budget, then a request deadline
+    tag = "(i2) W=2 retry budget spent (fused, kernel)"
+    cc = ChaosCluster(dev, trove, 2, "fused", "kernel", [
+        chaos_fault("crash"),
+        Fault(kind="crash", round=0, phase="retry", chunk=0, repeat=True)],
+        shard_retries=1)
+    (outs, _, _), stats = logged_path(paths, tag, "fused", "kernel",
+                                      lambda: cc.round(search(batches[0])))
+    (st0,) = stats
+    half = PreparedCorpus(prepared.hashes[:st0["hi"]], st0["hi"],
+                          prepared.load_chunk)
+    want = trove_evaluator(dev, trove).search_texts(batches[0], half)
+    for r, out in enumerate(outs):
+        if not out.degraded or not np.allclose(out.coverage, 0.5):
+            fail(f"{tag} rank {r}: coverage {out.coverage}")
+        same_bits(f"{tag} rank {r} vs W=1 over rank 0's rows", out, want)
+    if cc.injector.fired.count(("crash", 0, 0, "retry")) != 2:
+        fail(f"{tag}: fired {cc.injector.fired}")
+    print(f"[i] {tag}: every rank degraded, coverage 0.5, bitwise equal to "
+          f"a W=1 search over rank 0's rows [0, {st0['hi']}) alone")
+
+    tag = "(i2) W=4 request deadline, stalled rescuer (fused, kernel)"
+    cc = ChaosCluster(dev, trove, 4, "fused", "kernel", [
+        chaos_fault("crash"),
+        Fault(kind="stall", round=0, phase="retry", chunk=0,
+              stall_s=I_STALL_S, repeat=True)])
+    (outs, wall, cluster_ms), stats = logged_path(
+        paths, tag, "fused", "kernel", lambda: cc.round(
+            lambda r, ev: ev.search_texts(batches[0], prepared,
+                                          deadline_s=I_DEADLINE_S)))
+    for r, out in enumerate(outs):
+        if not out.degraded or not np.allclose(out.coverage, 0.75):
+            fail(f"{tag} rank {r}: coverage {out.coverage}")
+        same_bits(f"{tag} rank {r} vs rank 0", out, outs[0])
+    waiters = [st["gather_seconds"] for st in stats if not st["rescored"]]
+    if len(waiters) != 2 or max(waiters) > I_DEADLINE_S + I_SLACK_S:
+        fail(f"{tag}: the waiters resolved after {waiters} s")
+    print(f"[i] {tag} on {card}: resolved partial (coverage 0.75) "
+          f"{max(waiters) * 1e3:.3f} ms into the reduce against a "
+          f"{I_DEADLINE_S * 1e3:.0f} ms deadline (slack "
+          f"{I_SLACK_S * 1e3:.0f} ms); the survivors' rounds "
+          f"{json.dumps({r: round(ms, 3) for r, ms in wall.items()})} ms, "
+          f"the stalled rescuer's included")
+
+    # (i3) the reference's race: a crash at round 0, ranks staggered
+    tag = (f"(i3) {I_ROUNDS} rounds W=4 crash at round 0, staggered "
+           f"(fused, kernel)")
+    cc = ChaosCluster(dev, trove, 4, "fused", "kernel",
+                      [chaos_fault("crash")])
+    rounds_ms = []
+
+    def rounds():
+        got = []
+        for i in range(I_ROUNDS):
+            # rank 1 acquires at once and dies at its first chunk; the
+            # others acquire 0-20 ms later, so some do after mark_dead
+            outs, _, ms = cc.round(
+                search(batches[i % len(batches)]),
+                stagger=lambda r, i=i: 0.0 if r == 1 else (
+                    (7 * r + 3 * i) % 5) * 0.005)
+            rounds_ms.append(ms)
+            got.append(outs)
+        return got
+
+    got, stats = logged_path(paths, tag, "fused", "kernel", rounds)
+    for i, outs in enumerate(got):
+        check_recovered(f"{tag} round {i}", outs,
+                        w1[("fused", "kernel")][i % len(batches)])
+    # only rank 1 died, and only its round-0 shard was rescored: a rank
+    # failing in a later round would show here, not in the results
+    rescored = [(st["round"], r) for st in stats for r in st["rescored"]]
+    if (cc.cluster.health.dead != {1} or len(stats) != 3 * I_ROUNDS
+            or rescored != [(0, (n_docs // 4, 2 * n_docs // 4))]):
+        fail(f"{tag}: dead {cc.cluster.health.dead}, {len(stats)} rank "
+             f"rounds, rescored {rescored}")
+    print(f"[i] {tag} on {card}: no duplicate id, every round bitwise "
+          f"equal to W=1; round ms median "
+          f"{statistics.median(rounds_ms):.3f} (round 0 "
+          f"{rounds_ms[0]:.3f})")
+
+    # (i4) serving: the corpus rows in a warm cache, so each rank's
+    # prepare and the launcher's read them instead of encoding
+    rows = prepared.load_chunk(0, n_docs).cpu().numpy()
+    rungs = (1, 2, 4, 8, 16, 32)
+    for q in rungs:
+        sharded_search.autotune_superchunk_size(q, D, C, K, "fused",
+                                                "kernel", dev.type)
+    n_tuned = len(sharded_search._AUTOTUNE_CACHE)
+    with tempfile.TemporaryDirectory() as tmp:
+        _, i4_corpus, _ = make_retrieval_dataset(
+            tmp, n_queries=Q, n_docs=n_docs, n_topics=64, seed=SEED)
+        cache = EmbeddingCache(os.path.join(tmp, "emb_cache"), D)
+        cache.cache_records(list(corpus), rows)
+        tag = "(i4) from_cluster W=2, rank 1 crashing in round 6"
+        cc = ChaosCluster(dev, trove, 2, "fused", "kernel",
+                          [chaos_fault("crash", len(rungs))])
+        fe = ServeFrontend.from_cluster(cc.evs, cc.cluster, corpus,
+                                        [cache] * 2)
+        single_texts = texts[:D_SINGLE // 2]
+
+        def serve_requests():
+            from concurrent.futures import ThreadPoolExecutor
+            for q in rungs:
+                fe.search(texts[:q], timeout=D_RESULT_S)
+            serial = [fe.search(b, timeout=D_RESULT_S)
+                      for b in batches]
+            with ThreadPoolExecutor(D_THREADS) as pool:
+                single = list(pool.map(
+                    lambda t: fe.submit(t).result(timeout=D_RESULT_S),
+                    single_texts))
+            return serial, single
+
+        try:
+            (serial, single), _ = logged_path(paths, tag, "fused",
+                                              "kernel", serve_requests)
+        finally:
+            fe.close()
+        solo_ev = trove_evaluator(dev, trove)
+        solo_prep = fe.backend.prepared[0]
+        held = 0
+        for name, outs, reqs in (("serial", serial, batches),
+                                 ("single", single,
+                                  [[t] for t in single_texts])):
+            for i, (out, req) in enumerate(zip(outs, reqs)):
+                if out.degraded:
+                    continue
+                check_exact(f"{tag} {name} request {i} vs solo", out[0],
+                            out[1], *solo_ev.search_texts(req, solo_prep))
+                held += 1
+        fs = fe.stats
+        if (cc.injector.fired != [("crash", 1, len(rungs), "load")]
+                or fs["failed"] or fs["completed"] != len(rungs)
+                + len(batches) + len(single_texts)):
+            fail(f"{tag}: fired {cc.injector.fired}, {json.dumps(fs)}")
+        print(f"[i] {tag}: {fs['completed']} requests resolved, "
+              f"{fs['degraded']} degraded, {held} held against their solo "
+              f"W=1 search_texts (scores within {TOL}, ids equal where "
+              f"separated); rank 1 dead: {cc.cluster.health.dead}")
+
+        argv = ["--data-dir", tmp, "--device", dev.type, "--topk", str(K),
+                "--n-requests", str(D_SINGLE), "--batch", "1",
+                "--concurrency", str(D_THREADS), "--max-batch",
+                str(rungs[-1]), "--workers", "2", "--resilient",
+                "--round-deadline-s", str(I_ROUND_DEADLINE_S)]
+        for kind in I_KINDS:
+            out = io.StringIO()
+            served = ServedLog()
+
+            def run(kind=kind, out=out, served=served):
+                with contextlib.redirect_stdout(out), served:
+                    return serve.main(argv + ["--chaos", kind])
+
+            tag = f"(i4) serve.main --workers 2 --resilient --chaos {kind}"
+            try:
+                stats, _ = logged_path(paths, f"{tag} (fused, kernel)",
+                                       "fused", "kernel", run)
+                held = check_served(tag, served, list(i4_corpus))
+            finally:
+                served.close()
+            if len(sharded_search._AUTOTUNE_CACHE) != n_tuned:
+                fail(f"{tag}: the warm pass autotuned a new key")
+            fs = stats["frontend"]
+            chaos = [ln for ln in out.getvalue().splitlines()
+                     if ln.startswith("chaos:")]
+            if (fs["completed"] != D_SINGLE + len(rungs) or fs["failed"]
+                    or fs["degraded"] or len(chaos) != 1
+                    or "1 fired" not in chaos[0]):
+                fail(f"{tag}: {json.dumps(fs)}, {chaos}")
+            print(f"[i] {tag} on {card}: {chaos[0]}; p50 "
+                  f"{stats['p50_ms']:.3f} ms, p99 {stats['p99_ms']:.3f} "
+                  f"ms, {stats['qps']:.1f} queries/s; {held}")
+    del prepared, rows
+    torch.cuda.empty_cache()
+    print(f"[i] phase (i): {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 # -- (f) recsys scoring at full width -----------------------------------------
 
 # (arch, shapes run): AutoInt's and BST's bulk / retrieval attention
@@ -2427,6 +2848,7 @@ def main() -> int:
     paths.update(phase_cache(dev, card, trove,
                              kernels["fused_score_topk"]["timings"][0]["ms"]))
     paths.update(phase_workers(dev, card, trove, runs[("fused", "kernel")]))
+    paths.update(phase_faults(dev, card, trove))
     paths.update(phase_recsys(dev, card))
     for t, call, reset, names in PROFILED:
         t["stage_ms"] = stage_ms(call, reset, names)

@@ -68,6 +68,14 @@ class EvaluationArguments:
     serve_max_batch: int = 32
     serve_max_wait_ms: float = 2.0
     serve_max_queue: int = 256
+    # Fault tolerance (core.faults, resilient gathers only): how long a
+    # round waits for a silent worker before reassigning its shard to a
+    # survivor, how many rescore attempts an orphaned shard gets before
+    # the round degrades to partial coverage, and the exponential-
+    # backoff base between attempts.
+    round_deadline_s: float = 30.0
+    shard_retries: int = 2
+    shard_retry_backoff_s: float = 0.05
 
     def __post_init__(self):
         if self.score_impl not in SCORE_IMPLS:
@@ -93,3 +101,12 @@ class EvaluationArguments:
         if self.serve_max_wait_ms < 0:
             raise ValueError(f"serve_max_wait_ms must be >= 0, got "
                              f"{self.serve_max_wait_ms}")
+        if self.round_deadline_s <= 0:
+            raise ValueError(f"round_deadline_s must be > 0, got "
+                             f"{self.round_deadline_s}")
+        if self.shard_retries < 0:
+            raise ValueError(f"shard_retries must be >= 0, got "
+                             f"{self.shard_retries}")
+        if self.shard_retry_backoff_s < 0:
+            raise ValueError(f"shard_retry_backoff_s must be >= 0, got "
+                             f"{self.shard_retry_backoff_s}")

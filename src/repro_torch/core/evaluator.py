@@ -27,7 +27,11 @@ Every entry point runs unchanged on 1..W workers: with
 ``repro_torch.launch.distributed.init_distributed``) each worker scores
 its shard of the corpus and the gather transport merges the W states, so
 every worker returns the same ranking; ``SimulatedCluster`` runs W
-evaluators in one process.
+evaluators in one process.  Under its resilient gather a worker's death
+costs no round: the survivors rescore its shard, and a search given
+``deadline_s`` that runs out of recovery time returns a partial result
+whose ``coverage`` (a :class:`~repro_torch.core.faults.SearchOutcome`)
+says how much of the corpus it saw.
 
 Scoring is ``EvaluationArguments.score_impl`` (``numpy | torch |
 fused``) and the heap ``heap_impl`` (``python | torch | kernel``); all
@@ -47,7 +51,7 @@ from repro_torch.core.embedding_cache import EmbeddingCache
 from repro_torch.core.encode_pipeline import (EncodePipeline,
                                               PipelineChunkSource)
 from repro_torch.core.fair_sharding import FairSharder
-from repro_torch.core.faults import SearchOutcome
+from repro_torch.core.faults import FaultInjector, SearchOutcome
 from repro_torch.core.metrics import compute_metrics
 from repro_torch.core.result_heap import to_tensor
 from repro_torch.core.sharded_search import (ProcessAllGather,
@@ -161,13 +165,17 @@ class RetrievalEvaluator:
     sharder : a :class:`FairSharder` shared across searches (and across
         the evaluators of a ``SimulatedCluster``); a fresh
         ``FairSharder(process_count)`` by default.
+    fault_injector : a :class:`~repro_torch.core.faults.FaultInjector`
+        every driver of this evaluator consults (chaos tests, ``serve
+        --chaos``); none by default.
     """
 
     def __init__(self, args: EvaluationArguments, retriever, collator,
                  params, *, device: str | torch.device = "cuda",
                  process_index: int | None = None,
                  process_count: int | None = None,
-                 gather=None, sharder: FairSharder | None = None):
+                 gather=None, sharder: FairSharder | None = None,
+                 fault_injector: FaultInjector | None = None):
         self.device = resolve_device(device)
         self.args = args
         self.retriever = retriever
@@ -189,6 +197,7 @@ class RetrievalEvaluator:
             self.gather = ProcessAllGather()
         else:
             self.gather = None
+        self.fault_injector = fault_injector
         self.encode_pipeline = (EncodePipeline(
             self._encode_batch, collator.tokenizer,
             append_eos=collator.append_eos,
@@ -285,8 +294,9 @@ class RetrievalEvaluator:
     # -- search --------------------------------------------------------------
     def make_driver(self) -> ShardedSearchDriver:
         """A driver of this evaluator's settings (backends, chunking,
-        superchunk size, rank, sharder, gather, device): the one way its
-        searches and the serve backends (``core.serving``) build one."""
+        superchunk size, rank, sharder, gather, fault injector, recovery
+        settings, device): the one way its searches and the serve
+        backends (``core.serving``) build one."""
         return ShardedSearchDriver(
             n_workers=self.process_count, worker_index=self.process_index,
             sharder=self.sharder, gather=self.gather,
@@ -296,6 +306,10 @@ class RetrievalEvaluator:
             prefetch=self.args.async_prefetch,
             superchunk_size=self.args.superchunk_size,
             superchunk_max_mb=self.args.superchunk_max_mb,
+            fault_injector=self.fault_injector,
+            round_deadline_s=self.args.round_deadline_s,
+            max_shard_retries=self.args.shard_retries,
+            retry_backoff_s=self.args.shard_retry_backoff_s,
             device=self.device)
 
     def _on_device(self) -> bool:
@@ -392,37 +406,43 @@ class RetrievalEvaluator:
                               generation=snap.key, snapshot=snap)
 
     def _search_embedded(self, q_emb, prepared: PreparedCorpus,
-                         topk: int):
+                         topk: int, deadline_s: float | None = None):
         driver = self.make_driver()
         out = driver.search(q_emb, prepared.sized, prepared.load_chunk,
-                            topk, generation=prepared.generation)
+                            topk, deadline_s=deadline_s,
+                            generation=prepared.generation)
         self.last_search_stats = driver.stats
         return out
 
     def search_prepared(self, queries, prepared: PreparedCorpus,
-                        topk: int | None = None) -> SearchOutcome:
-        """:meth:`search` against an already-prepared corpus."""
+                        topk: int | None = None,
+                        deadline_s: float | None = None) -> SearchOutcome:
+        """:meth:`search` against an already-prepared corpus.
+        ``deadline_s`` bounds a resilient round's recovery (see
+        ``ShardedSearchDriver.search``); the outcome carries its
+        coverage."""
         topk = topk or self.args.topk
         q_view = self._corpus_view(queries)
         q_emb = self._encode_texts(q_view.texts(), True,
                                    device=self._on_device())
-        out = self._search_embedded(q_emb, prepared, topk)
+        out = self._search_embedded(q_emb, prepared, topk, deadline_s)
         vals, pos = out
         return SearchOutcome((np.asarray(q_view.id_hashes),
                               prepared.positions_to_ids(pos), vals),
                              coverage=out.coverage, degraded=out.degraded)
 
     def search_texts(self, texts: Sequence[str], prepared: PreparedCorpus,
-                     topk: int | None = None,
-                     min_batch_dim: int = 8) -> SearchOutcome:
+                     topk: int | None = None, min_batch_dim: int = 8,
+                     deadline_s: float | None = None) -> SearchOutcome:
         """Raw-text query search against a prepared corpus — the serve
         backends' entry point.  Returns ``(doc_id_hashes (Q, k), scores
-        (Q, k))``."""
+        (Q, k))``, with the round's coverage (``deadline_s`` as in
+        :meth:`search_prepared`)."""
         topk = topk or self.args.topk
         q_emb = self._encode_texts(list(texts), True,
                                    device=self._on_device(),
                                    min_batch_dim=min_batch_dim)
-        out = self._search_embedded(q_emb, prepared, topk)
+        out = self._search_embedded(q_emb, prepared, topk, deadline_s)
         vals, pos = out
         return SearchOutcome((prepared.positions_to_ids(pos), vals),
                              coverage=out.coverage, degraded=out.degraded)
@@ -447,14 +467,22 @@ class RetrievalEvaluator:
                  qrels: dict[str, dict[str, float]],
                  cache: EmbeddingCache | None = None) -> dict:
         """Metrics for one (queries, corpus, qrels) scenario; ``qrels``
-        may be keyed by raw ids or by stable hashes."""
-        q_hashes, run_ids, _ = self.search(queries, corpus, cache=cache)
+        may be keyed by raw ids or by stable hashes.  A degraded search
+        (a resilient round that ran out of recovery) adds ``coverage``
+        (the mean fraction of the corpus scored) and ``degraded``, so its
+        numbers are never read as full-coverage ones."""
+        out = self.search(queries, corpus, cache=cache)
+        q_hashes, run_ids, _ = out
         qrels_h = {
             stable_id_hash(q): {stable_id_hash(d): float(g)
                                 for d, g in docs.items()}
             for q, docs in qrels.items()}
-        return compute_metrics(self.args.metrics, run_ids, q_hashes,
-                               qrels_h)
+        report = compute_metrics(self.args.metrics, run_ids, q_hashes,
+                                 qrels_h)
+        if out.degraded:
+            report["coverage"] = float(np.asarray(out.coverage).mean())
+            report["degraded"] = True
+        return report
 
     def mine_hard_negatives(self, queries, corpus,
                             qrels: dict[str, dict[str, float]],

@@ -1,17 +1,17 @@
 """Fair sharding: throughput-weighted shard sizes (paper §3.5).
 
-The port's own copy of ``repro.core.fair_sharding`` for a flat index and
-a cluster whose workers all stay alive: shares, bounds, round-versioned
-and generation-agreed :meth:`FairSharder.acquire`, round aborts and
-round-tagged reports.  Dead workers (``mark_dead``, ``absolve`` and the
-zero shares they get) come with the fault-tolerance slice (ROADMAP queue
-1 item 4); cluster-edge snapping (``bounds(boundaries=)``) with IVF
-(item 6).
+The port's own copy of ``repro.core.fair_sharding`` for a flat index:
+shares, bounds, round-versioned and generation-agreed
+:meth:`FairSharder.acquire`, round aborts, round-tagged reports, and dead
+workers (:meth:`FairSharder.mark_dead` gives them exact-zero shares,
+:meth:`FairSharder.absolve` counts a recovered worker's round as
+reported).  Cluster-edge snapping (``bounds(boundaries=)``) comes with
+IVF (ROADMAP queue 1 item 6).
 
 Mixing devices with different throughput (or pods with stragglers) stalls
 the fast ones under equal sharding.  ``FairSharder`` keeps an EMA of
 per-worker throughput and splits each round's items proportionally, so all
-workers finish together.
+workers finish together.  A slow worker's share shrinks on the next round.
 
 The EMA commits **per round**: ``update`` buffers observations and only
 folds them into the EMA once every worker has reported the round, so
@@ -19,6 +19,15 @@ shard bounds stay frozen while a round is in flight — essential when one
 sharder instance is shared by W workers (``SimulatedCluster``) that
 partition at different wall-clock times.  With one worker every report
 commits at once.
+
+Each round's partition is also **frozen**: the first acquirer of round r
+computes its bounds under the lock and every later acquirer of r gets
+that same list, so a worker marked dead mid-round changes the shares of
+the first round not yet partitioned, never of one in flight.  (The
+reference computes the bounds after the lock is released, so a sibling
+acquiring the same round after a ``mark_dead`` gets a partition over the
+survivors while the others hold the W-worker one, and a shard is scored
+twice.)
 
 On a real cluster each process holds its own replica and only observes
 its own rank, so the search driver exchanges observations through the
@@ -53,11 +62,12 @@ class GenerationMismatch(RuntimeError):
 
 
 class ShardAborted(RuntimeError):
-    """A sibling worker died mid-round (or a round wait timed out); this
-    worker's wait was released.  Secondary casualty — cluster runners
-    filter it in favour of the original error (like
-    ``threading.BrokenBarrierError``).  The message says how many rounds
-    committed and which workers the blocking round still waits on."""
+    """A sibling worker died mid-round (or a round wait timed out, or no
+    live worker is left to shard across); this worker's wait was
+    released.  Secondary casualty — cluster runners filter it in favour
+    of the original error (like ``threading.BrokenBarrierError``).  The
+    message says how many rounds committed, which workers the blocking
+    round still waits on and which are dead."""
 
 
 class FairSharder:
@@ -72,7 +82,7 @@ class FairSharder:
         self.min_share = min_share
         self.throughput = np.ones(n_workers, np.float64)
         # round -> {worker: items/s} (None = reported with no timing
-        # signal: an empty shard)
+        # signal: an empty shard, or an absolved / recovered worker)
         self._pending: dict[int, dict[int, float | None]] = {}
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
@@ -80,46 +90,75 @@ class FairSharder:
         self._issued = [0] * n_workers       # rounds begun, per worker
         # round -> agreed corpus generation key (first acquirer wins)
         self._round_gen: dict[int, object] = {}
+        # round -> (total_items, bounds): the partition its first acquirer
+        # computed, handed to every later acquirer of that round
+        self._round_bounds: dict[int, tuple[int, list]] = {}
         self._abort_exc: BaseException | None = None
+        self._dead: set[int] = set()
 
     def shares(self, total_items: int) -> list[int]:
         """Split ``total_items`` proportionally to throughput.
 
         Shares are non-negative and sum to ``total_items`` exactly: the
         floor() pass leaves a remainder in ``[0, n]`` which goes to the
-        fastest workers, one item each.  ``total_items < n`` is legal:
-        the workers left without an item get empty (contiguous) bounds.
+        fastest live workers, one item each.  ``total_items < n`` is
+        legal: the workers left without an item get empty (contiguous)
+        bounds.
+
+        Workers reported dead (:meth:`mark_dead`) get an exact-zero share
+        — ``min_share`` applies to live workers only — so the partition
+        covers the corpus with survivors alone.  With every worker dead
+        this raises :class:`ShardAborted`.
         """
-        assert total_items >= 0, total_items
         with self._lock:
-            w = np.maximum(self.throughput, 1e-9)
-        frac = np.maximum(w / w.sum(), self.min_share)
-        frac = frac / frac.sum()
+            return self._shares_locked(total_items)
+
+    def _shares_locked(self, total_items: int) -> list[int]:
+        """:meth:`shares` with the lock held by the caller."""
+        assert total_items >= 0, total_items
+        if len(self._dead) >= self.n:
+            raise ShardAborted(
+                f"all {self.n} workers are dead; no survivor left to "
+                f"shard {total_items} items across")
+        live = np.array([wk not in self._dead for wk in range(self.n)])
+        w = np.where(live, np.maximum(self.throughput, 1e-9), 0.0)
+        frac = np.zeros(self.n, np.float64)
+        lf = np.maximum(w[live] / w[live].sum(), self.min_share)
+        frac[live] = lf / lf.sum()
         sizes = np.floor(frac * total_items).astype(int)
         rem = int(total_items - sizes.sum())
         assert 0 <= rem <= self.n, (
             f"floor remainder {rem} outside [0, {self.n}] "
             f"(total_items={total_items}, frac sum={frac.sum()!r})")
-        order = np.argsort(-w, kind="stable")
+        order = [int(i) for i in np.argsort(-w, kind="stable") if live[i]]
         for i in range(rem):
-            sizes[order[i % self.n]] += 1
+            sizes[order[i % len(order)]] += 1
         return sizes.tolist()
 
     def bounds(self, total_items: int) -> list[tuple[int, int]]:
-        """Contiguous ``[lo, hi)`` per worker covering ``total_items``."""
-        ends = np.cumsum(self.shares(total_items))
+        """Contiguous ``[lo, hi)`` per worker covering ``total_items``
+        (dead workers' bounds are empty)."""
+        with self._lock:
+            return self._bounds_locked(total_items)
+
+    def _bounds_locked(self, total_items: int) -> list[tuple[int, int]]:
+        ends = np.cumsum(self._shares_locked(total_items))
         starts = np.concatenate([[0], ends[:-1]])
         return list(zip(starts.tolist(), ends.tolist()))
 
     def _round_diagnostics(self) -> str:
-        """Lock held.  Which round is blocking and who hasn't reported."""
+        """Lock held.  Which round is blocking, who has not reported, and
+        who is dead."""
         bucket = self._pending.get(self._committed, {})
-        missing = [wk for wk in range(self.n) if wk not in bucket]
-        return "; ".join([
-            f"rounds 0..{self._committed - 1} committed"
-            if self._committed else "no round committed yet",
-            f"round {self._committed} still pending reports from "
-            f"workers {missing}"])
+        missing = [wk for wk in range(self.n)
+                   if wk not in self._dead and wk not in bucket]
+        parts = [f"rounds 0..{self._committed - 1} committed"
+                 if self._committed else "no round committed yet",
+                 f"round {self._committed} still pending reports from "
+                 f"workers {missing}"]
+        if self._dead:
+            parts.append(f"dead workers: {sorted(self._dead)}")
+        return "; ".join(parts)
 
     def acquire(self, worker: int, total_items: int,
                 generation=None) -> tuple[int, list[tuple[int, int]]]:
@@ -138,7 +177,15 @@ class FairSharder:
         and a later acquirer pinned to a different one gets
         :class:`GenerationMismatch` without consuming the round — it
         re-prepares at the agreed key and re-acquires, so all W workers
-        of a round score the same corpus snapshot.
+        of a round score the same corpus snapshot.  That check comes
+        first: a worker pinned to another generation may be sizing
+        another corpus.
+
+        The round's bounds are frozen at its first acquire (computed
+        under the lock), and every later acquirer of the round gets the
+        same list, whatever :meth:`mark_dead` did in between; one that
+        passes another ``total_items`` than the round's raises
+        ``ValueError`` without consuming the round.
         """
         with self._cv:
             r = self._issued[worker]
@@ -163,9 +210,19 @@ class FairSharder:
                     # roll the issue back: the round was not consumed
                     self._issued[worker] -= 1
                     raise GenerationMismatch(r, agreed, generation)
-        # safe outside the lock: round r cannot commit (and move the
-        # EMA) until THIS worker reports it, after scoring these bounds
-        return r, self.bounds(total_items)
+            frozen = self._round_bounds.get(r)
+            if frozen is None:
+                bounds = self._bounds_locked(total_items)
+                self._round_bounds[r] = (total_items, bounds)
+            elif frozen[0] != total_items:
+                self._issued[worker] -= 1
+                raise ValueError(
+                    f"worker {worker} acquired round {r} for {total_items} "
+                    f"items, but the round was partitioned over "
+                    f"{frozen[0]}")
+            else:
+                bounds = frozen[1]
+            return r, list(bounds)
 
     def abort(self, exc: BaseException | None = None) -> None:
         """Release workers blocked in :meth:`acquire` when a sibling
@@ -175,20 +232,43 @@ class FairSharder:
                 "aborted")
             self._cv.notify_all()
 
+    def mark_dead(self, worker: int) -> None:
+        """Remove ``worker`` from the cluster: it gets exact-zero shares
+        from the first round not yet partitioned on (see :meth:`shares`;
+        a partitioned round keeps its bounds) and rounds stop waiting for
+        its reports — a round blocked on it alone commits at once.
+        Unlike :meth:`abort`, survivors keep running."""
+        with self._cv:
+            self._dead.add(worker)
+            self._try_commit_locked()
+            self._cv.notify_all()
+
+    def absolve(self, worker: int, round_no: int) -> None:
+        """Count ``worker`` as having reported ``round_no`` without a
+        throughput observation — its shard was recovered by a survivor
+        (or given up), so the round may commit without it.  A no-op for
+        rounds already committed."""
+        with self._cv:
+            if round_no < self._committed:
+                return
+            self._pending.setdefault(round_no, {}).setdefault(worker, None)
+            self._try_commit_locked()
+
     def update(self, worker: int, items: int, seconds: float,
                round_no: int | None = None) -> None:
         """Report one worker's round observation.
 
-        The observation is buffered per round; once every worker has
-        reported the oldest uncommitted round, its observations fold
-        into the EMA and the round commits.  A worker with an empty
-        shard reports ``items == 0`` and counts toward the round without
-        moving its EMA.
+        The observation is buffered per round; once every live worker has
+        reported (or been absolved for) the oldest uncommitted round, its
+        observations fold into the EMA and the round commits.  A worker
+        with an empty shard reports ``items == 0`` and counts toward the
+        round without moving its EMA.
 
         ``round_no`` tags the observation with the round it belongs to
         (from :meth:`acquire`).  Without it, the report lands on the
         earliest uncommitted round this worker has not reported.
-        Reports for rounds already committed are dropped.
+        Reports for rounds already committed (a stalled straggler
+        finishing after its shard was recovered) are dropped.
         """
         with self._cv:
             if round_no is None:
@@ -205,13 +285,19 @@ class FairSharder:
             self._try_commit_locked()
 
     def _try_commit_locked(self) -> None:
-        """Commit every leading round whose workers all reported."""
-        while len(self._pending.get(self._committed, {})) == self.n:
+        """Commit every leading round whose live workers all reported."""
+        while True:
+            needed = [wk for wk in range(self.n) if wk not in self._dead]
+            bucket = self._pending.get(self._committed)
+            if not needed or bucket is None or any(
+                    wk not in bucket for wk in needed):
+                return
             for wk, obs in self._pending.pop(self._committed).items():
-                if obs is not None:
+                if obs is not None and wk not in self._dead:
                     self.throughput[wk] = (
                         self.alpha * obs
                         + (1 - self.alpha) * self.throughput[wk])
             self._round_gen.pop(self._committed, None)
+            self._round_bounds.pop(self._committed, None)
             self._committed += 1
             self._cv.notify_all()

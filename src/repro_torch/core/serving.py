@@ -30,9 +30,12 @@ The port's counterpart of ``repro.core.serving``:
     into a fresh (Q, k) state, so no state is shared between rounds in
     flight.
   * **deadlines** — ``submit(deadline_ms=)`` resolves a request still
-    queued past its deadline with a degraded empty result;
-    ``search(timeout=)`` abandons a request the caller stopped waiting
-    for, and coalescing skips it.
+    queued past its deadline with a degraded empty result, and a
+    dispatched one hands its remaining budget (the micro-batch's
+    tightest) to the backend as ``deadline_s``, which bounds a resilient
+    round's shard recovery: the request then resolves with a partial,
+    ``degraded`` result instead of waiting; ``search(timeout=)`` abandons
+    a request the caller stopped waiting for, and coalescing skips it.
   * **clean shutdown** — :meth:`ServeFrontend.close` stops admission,
     drains every queued request through the normal batch path, joins
     the dispatcher and the backend's reduce thread, and only then
@@ -45,10 +48,10 @@ through ``SimulatedCluster``, the ``launch.serve --workers N`` path).
 Each returns per query what a solo ``RetrievalEvaluator.search_texts``
 of that query returns.
 
-The backends take no per-request recovery deadline: that comes with the
-resilient gather (ROADMAP queue 1 item 4).  A backend whose ``begin`` /
-``run`` accepts ``deadline_s`` gets the micro-batch's tightest remaining
-budget.
+Both backends take ``deadline_s``; any backend whose ``begin`` / ``run``
+accepts it gets the micro-batch's tightest remaining budget.  Rounds that
+come back degraded (a resilient cluster out of retries or time) count in
+``ServeFrontend.stats["degraded"]``, one per request.
 """
 
 from __future__ import annotations
@@ -195,7 +198,8 @@ class EvaluatorServeBackend:
         if retired is not None:
             retired.close()
 
-    def begin(self, texts: Sequence[str], topk: int) -> Future:
+    def begin(self, texts: Sequence[str], topk: int,
+              deadline_s: float | None = None) -> Future:
         prepared = self._acquire()
         try:
             q_emb = self.ev._encode_texts(list(texts), True,
@@ -203,7 +207,7 @@ class EvaluatorServeBackend:
                                           min_batch_dim=1)
             inner = self.driver.search_async(
                 q_emb, prepared.sized, prepared.load_chunk, topk,
-                generation=prepared.generation)
+                deadline_s=deadline_s, generation=prepared.generation)
         except BaseException:
             self._release(prepared)
             raise
@@ -238,7 +242,8 @@ class ClusterServeBackend:
     """W evaluators in one process (``SimulatedCluster``) — the
     ``launch.serve --workers N`` path.  Each micro-batch runs one sharded
     round: every rank scores its fair shard and merges through the
-    in-memory all-gather; rank 0's (identical) result is returned.
+    in-memory all-gather; rank 0's (identical) result is returned — on a
+    resilient cluster, the first live rank's.
 
     With ``live_cache`` (one cache shared by every rank) each micro-batch
     pins one ``(generation, epoch)`` key for all W ranks before the
@@ -284,11 +289,13 @@ class ClusterServeBackend:
                     self.live_cache, generation=key)
                 old.close()
 
-    def _rank_search(self, rank: int, texts, topk: int):
+    def _rank_search(self, rank: int, texts, topk: int,
+                     deadline_s: float | None):
         while True:
             try:
                 return self.evs[rank].search_texts(
-                    texts, self.prepared[rank], topk, min_batch_dim=1)
+                    texts, self.prepared[rank], topk, min_batch_dim=1,
+                    deadline_s=deadline_s)
             except GenerationMismatch as e:
                 if self.live_cache is None:
                     raise
@@ -300,11 +307,12 @@ class ClusterServeBackend:
                     self.live_cache, generation=e.agreed)
                 old.close()
 
-    def run(self, texts: Sequence[str], topk: int):
+    def run(self, texts: Sequence[str], topk: int,
+            deadline_s: float | None = None):
         if self.live_cache is not None:
             self._refresh()
         outs = self.cluster.run(
-            lambda rank: self._rank_search(rank, texts, topk))
+            lambda rank: self._rank_search(rank, texts, topk, deadline_s))
         return outs[0]
 
     def close(self) -> None:

@@ -18,7 +18,12 @@ and W > 1:
     superchunks through ``kernels.ops.superchunk_update``;
   * **reduce**    — at W > 1 the per-worker (Q, k) states merge through
     a :class:`ShardGather` transport in rank order: an ``O(Q·k·W)``
-    reduction, never ``O(Q·N)``.
+    reduction, never ``O(Q·N)``.  Through a resilient gather
+    (``core.faults.ResilientAllGather``) a shard whose owner died, was
+    dropped in flight or missed the round deadline is rescored by a
+    survivor over the same rows (:meth:`ShardedSearchDriver.
+    _rescore_shard`), and a round whose retry budget or request deadline
+    ran out resolves partial, with coverage < 1.
 
 Transports: :class:`ProcessAllGather` (processes over
 ``torch.distributed``) and ``repro_torch.launch.distributed.
@@ -29,9 +34,7 @@ A round is two phases: scoring (acquire the round, stream, score, report)
 on the caller's thread, and the reduce (gather, merge, finalize).
 :meth:`ShardedSearchDriver.search` runs both; :meth:`ShardedSearchDriver.
 search_async` runs the reduce on a driver-owned thread and returns a
-Future, and :meth:`ShardedSearchDriver.close` drains that thread.  The
-resilient gather comes with the fault-tolerance slice (ROADMAP queue 1
-item 4).
+Future, and :meth:`ShardedSearchDriver.close` drains that thread.
 """
 
 from __future__ import annotations
@@ -45,8 +48,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.fair_sharding import FairSharder
-from repro_torch.core.faults import (FaultInjector, SearchOutcome,
-                                     full_coverage)
+from repro_torch.core.faults import (FaultInjector, InjectedTransportDrop,
+                                     SearchOutcome, full_coverage)
 from repro_torch.core.result_heap import (FastResultHeapq, to_numpy,
                                           to_tensor)
 from repro_torch.device import resolve_device
@@ -304,6 +307,12 @@ class ShardedSearchDriver:
     superchunk_max_mb : cap on one superchunk's (S, C, d) float32 rows.
     fault_injector : optional :class:`~repro_torch.core.faults.
         FaultInjector` consulted at the chunk and gather fault points.
+    round_deadline_s / max_shard_retries / retry_backoff_s : recovery
+        settings handed to a resilient gather (one with
+        ``merge_resilient``): how long a round waits for a silent worker
+        before its shard goes to a survivor, how many rescore attempts an
+        orphaned shard gets, and the base of the exponential backoff
+        between attempts.  Barrier transports ignore them.
     device : where the heap state and the device backends run.
     """
 
@@ -314,6 +323,9 @@ class ShardedSearchDriver:
                  gather: ShardGather | None = None,
                  superchunk_size: int = 0, superchunk_max_mb: int = 64,
                  fault_injector: FaultInjector | None = None,
+                 round_deadline_s: float = 30.0,
+                 max_shard_retries: int = 2,
+                 retry_backoff_s: float = 0.05,
                  device: str | torch.device = "cuda"):
         if not 0 <= worker_index < n_workers:
             raise ValueError(
@@ -342,6 +354,9 @@ class ShardedSearchDriver:
         self.superchunk_size = superchunk_size
         self.superchunk_max_mb = superchunk_max_mb
         self.fault_injector = fault_injector
+        self.round_deadline_s = round_deadline_s
+        self.max_shard_retries = max_shard_retries
+        self.retry_backoff_s = retry_backoff_s
         # per-round observability (serve logging, chip_smoke.py)
         self.stats: dict = {}
         # round counter of the single-worker path (W > 1 uses the
@@ -390,11 +405,13 @@ class ShardedSearchDriver:
                 yield off, embs
 
     def _chunk_iter(self, lo: int, hi: int, load_chunk: ChunkLoader,
-                    round_no: int, span: int | None = None):
-        """The streamed pieces, with the chunk fault point applied before
-        each piece is scored: once per ``chunk_size`` chunk of the piece,
-        with the chunk's index in the slice — the index the reference's
-        per-chunk stream gives it, whatever the superchunk size."""
+                    round_no: int, phase: str, span: int | None = None):
+        """The streamed pieces, with the chunk fault point of ``phase``
+        (``load`` for this worker's shard, ``retry`` for a rescore)
+        applied before each piece is scored: once per ``chunk_size``
+        chunk of the piece, with the chunk's index in the slice — the
+        index the reference's per-chunk stream gives it, whatever the
+        superchunk size."""
         chunks = self._pipelined_chunks(lo, hi, load_chunk, span)
         if self.fault_injector is None:
             return chunks
@@ -406,7 +423,7 @@ class ShardedSearchDriver:
                     first = (off - lo) // c
                     for ci in range(first, first - (-embs.shape[0] // c)):
                         self.fault_injector.on_chunk(self.worker_index,
-                                                     round_no, ci)
+                                                     round_no, ci, phase)
                     yield off, embs
             finally:
                 # an injected crash abandons the slice mid-stream: close
@@ -485,9 +502,13 @@ class ShardedSearchDriver:
             yield off, embs
 
     def _score_range(self, q_emb, lo: int, hi: int, load_chunk: ChunkLoader,
-                     topk: int, round_no: int):
+                     topk: int, round_no: int, phase: str = "load"):
         """Score ``[lo, hi)`` into a fresh heap -> (heap, calls, executor,
-        superchunk_size)."""
+        superchunk_size).  The one scoring routine for this worker's own
+        shard (``phase="load"``) and for a survivor rescoring an orphaned
+        one (``phase="retry"``): the same chunking, executor and kernels,
+        so a recovered shard's state is bitwise what its owner would have
+        produced."""
         n_queries = q_emb.shape[0]
         heap = FastResultHeapq(n_queries, topk, impl=self.heap_impl,
                                device=self.device)
@@ -499,12 +520,13 @@ class ShardedSearchDriver:
              if scan_ok else 1)
         if scan_ok and s > 1:
             pieces = self._tracked(self._chunk_iter(
-                lo, hi, load_chunk, round_no, span=s * self.chunk_size))
+                lo, hi, load_chunk, round_no, phase,
+                span=s * self.chunk_size))
             return (heap, self._search_superchunk(
                 _as_device(q_emb, self.device), heap, pieces, topk, s),
                 "superchunk", s)
         chunks = self._tracked(self._chunk_iter(lo, hi, load_chunk,
-                                                round_no))
+                                                round_no, phase))
         backend = get_score_backend(self.score_impl)
         calls = 0
         for off, embs in chunks:
@@ -524,17 +546,40 @@ class ShardedSearchDriver:
         for rank, n, secs in reports:
             self.sharder.update(rank, n, secs, round_no=round_no)
 
+    def _rescore_shard(self, q_emb, lo: int, hi: int,
+                       load_chunk: ChunkLoader, topk: int, round_no: int,
+                       stats: dict):
+        """The resilient gather's recovery callback: score an orphaned
+        sibling shard ``[lo, hi)`` as its owner would (``_score_range``
+        in the ``retry`` phase) and return its finalized ``(vals, ids)``.
+        Its calls, chunks and seconds add to this round's ``stats``
+        (``retry_dispatch_rounds``, ``retry_chunks``, ``retry_seconds``)
+        and ``[lo, hi)`` to ``stats["rescored"]``; a rescore that raises
+        adds nothing."""
+        t0 = time.monotonic()
+        heap, calls, _, _ = self._score_range(q_emb, lo, hi, load_chunk,
+                                              topk, round_no, phase="retry")
+        out = heap.finalize()
+        stats["retry_dispatch_rounds"] += calls
+        stats["retry_chunks"] += -(-(hi - lo) // self.chunk_size)
+        stats["retry_seconds"] += time.monotonic() - t0
+        stats["rescored"].append((lo, hi))
+        return out
+
     def _score_local(self, q_emb, n_docs, load_chunk: ChunkLoader,
-                     topk: int, generation=None):
+                     topk: int, deadline_s: float | None = None,
+                     generation=None):
         """The scoring phase of one round: acquire the round and its
         bounds, stream this worker's shard into a **fresh** (Q, k) heap
         and set :attr:`stats`; at W > 1 also synchronise the device and
         report the round's throughput.  Every call builds its own heap,
         so a previous round's state may still be merging
         (:meth:`search_async`) while this round scores.  Returns
-        ``(heap, stats, t0)``: the reduce phase writes its times into
-        that round's own stats dict (at W = 1 the round's ``seconds``,
-        which end after the finalize, as its untagged report does)."""
+        ``(heap, stats, t0, ctx)``: the reduce phase writes its times
+        into that round's own stats dict (at W = 1 the round's
+        ``seconds``, which end after the finalize, as its untagged report
+        does), and ``ctx`` is what a resilient gather needs — the round's
+        whole partition, the request deadline and the rescore callback."""
         if not isinstance(n_docs, (int, np.integer)):
             n_docs = len(n_docs)
         if self.n_workers > 1:
@@ -555,22 +600,51 @@ class ShardedSearchDriver:
             _sync(self.device)
             seconds = time.monotonic() - t0
             self._report(round_no, hi - lo, seconds)
-        self.stats = {"lo": lo, "hi": hi, "items": hi - lo,
-                      "chunks": -(-max(hi - lo, 0) // self.chunk_size),
-                      "seconds": seconds, "executor": executor,
-                      "superchunk_size": s, "dispatch_rounds": calls,
-                      "generation": generation, "round": round_no,
-                      "query_device": str(getattr(q_emb, "device", "cpu")),
-                      "chunk_devices": sorted(self._chunk_devices)}
-        return heap, self.stats, t0
+        stats = {"lo": lo, "hi": hi, "items": hi - lo,
+                 "chunks": -(-max(hi - lo, 0) // self.chunk_size),
+                 "seconds": seconds, "executor": executor,
+                 "superchunk_size": s, "dispatch_rounds": calls,
+                 "retry_dispatch_rounds": 0, "retry_chunks": 0,
+                 "retry_seconds": 0.0, "rescored": [],
+                 "generation": generation, "round": round_no,
+                 "query_device": str(getattr(q_emb, "device", "cpu")),
+                 "chunk_devices": sorted(self._chunk_devices)}
+        self.stats = stats
+        ctx = {"bounds": bounds, "deadline_s": deadline_s,
+               "rescore": lambda rlo, rhi: self._rescore_shard(
+                   q_emb, rlo, rhi, load_chunk, topk, round_no, stats)}
+        return heap, stats, t0, ctx
 
-    def _reduce(self, heap: FastResultHeapq, stats: dict,
-                t0: float) -> SearchOutcome:
+    def _reduce(self, heap: FastResultHeapq, stats: dict, t0: float,
+                ctx: dict) -> SearchOutcome:
         """The reduce phase: at W > 1 the gather fault point, the
-        all-gather and rank-order merge, then the host finalize; at
-        W = 1 the finalize and the round's untagged report."""
+        all-gather and rank-order merge (through a resilient gather, with
+        orphaned shards rescored and the round's coverage), then the host
+        finalize; at W = 1 the finalize and the round's untagged
+        report."""
         if self.n_workers > 1:
             g0 = time.monotonic()
+            resilient = getattr(self.gather, "merge_resilient", None)
+            if resilient is not None:
+                dropped = False
+                if self.fault_injector is not None:
+                    try:
+                        self.fault_injector.on_gather(self.worker_index,
+                                                      stats["round"])
+                    except InjectedTransportDrop:
+                        # this worker's state is lost in flight; it stays
+                        # alive and joins the recovery instead
+                        dropped = True
+                vals, pos, coverage = resilient(
+                    heap, self.worker_index, stats["round"], ctx["bounds"],
+                    ctx["rescore"], dropped=dropped,
+                    round_deadline_s=self.round_deadline_s,
+                    max_retries=self.max_shard_retries,
+                    backoff_s=self.retry_backoff_s,
+                    deadline_s=ctx["deadline_s"])
+                stats["gather_seconds"] = time.monotonic() - g0
+                return SearchOutcome((vals, pos), coverage=coverage,
+                                     degraded=bool((coverage < 1.0).any()))
             if self.gather is not None:
                 if self.fault_injector is not None:
                     # a drop against a barrier transport propagates
@@ -591,7 +665,8 @@ class ShardedSearchDriver:
         return SearchOutcome((vals, pos), coverage=full_coverage(len(vals)))
 
     def search(self, q_emb, n_docs, load_chunk: ChunkLoader,
-               topk: int, generation=None) -> SearchOutcome:
+               topk: int, deadline_s: float | None = None,
+               generation=None) -> SearchOutcome:
         """Score this worker's shard of the corpus, then reduce.
 
         ``n_docs`` is a count or a sized corpus object.  Returns
@@ -609,12 +684,19 @@ class ShardedSearchDriver:
         re-prepare at the agreed key and call again for the same round.
         One worker scores whatever snapshot its loader reads, so there
         the key is only recorded in :attr:`stats`.
+
+        ``deadline_s`` (a resilient gather only) bounds how long the
+        reduce may spend recovering orphaned shards; past it the round
+        resolves partial — ``degraded`` set and per-query ``coverage``
+        < 1 — instead of raising.
         """
         return self._reduce(*self._score_local(q_emb, n_docs, load_chunk,
-                                               topk, generation))
+                                               topk, deadline_s,
+                                               generation))
 
     def search_async(self, q_emb, n_docs, load_chunk: ChunkLoader,
-                     topk: int, generation=None) -> Future:
+                     topk: int, deadline_s: float | None = None,
+                     generation=None) -> Future:
         """Like :meth:`search`, but the reduce phase runs on a
         driver-owned thread and the result comes back as a Future.
 
@@ -626,7 +708,7 @@ class ShardedSearchDriver:
         rank-order merge, are bitwise those of :meth:`search`.
         """
         scored = self._score_local(q_emb, n_docs, load_chunk, topk,
-                                   generation)
+                                   deadline_s, generation)
         if self._reduce_pool is None:
             self._reduce_pool = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="shard-reduce")

@@ -11,7 +11,9 @@ Two ways to get a W-worker cluster:
   * **simulated** — :class:`SimulatedCluster` runs W real
     ``ShardedSearchDriver`` / ``RetrievalEvaluator`` instances inside one
     process (worker threads), wired to a shared ``FairSharder`` and a
-    deterministic :class:`InMemoryAllGather`.
+    deterministic :class:`InMemoryAllGather` — or, with
+    ``resilient=True``, a :class:`~repro_torch.core.faults.
+    ResilientAllGather` whose survivors recover a dead worker's shard.
 
 Determinism: ``InMemoryAllGather.merge`` folds rank states in rank order
 (exactly like ``ProcessAllGather``), so the merged ranking is independent
@@ -25,6 +27,7 @@ import threading
 from typing import Callable
 
 from repro_torch.core.fair_sharding import FairSharder, ShardAborted
+from repro_torch.core.faults import ResilientAllGather, WorkerHealth
 from repro_torch.core.result_heap import FastResultHeapq
 
 
@@ -104,43 +107,81 @@ class SimulatedCluster:
     Construct once, hand ``gather`` and ``sharder`` to W drivers (or
     evaluators with ``process_index=rank, process_count=W``), then
     ``run(worker_fn)`` executes ``worker_fn(rank)`` on W threads and
-    returns all ranks' results.  Because :class:`InMemoryAllGather`
-    merges in rank order, all results are identical.
+    returns all ranks' results.  Because the gather merges in rank
+    order, all results are identical.
 
     A worker raising aborts the gather and the sharder, so its siblings
     are released from their waits; ``run`` then re-raises the original
     error rather than a sibling's secondary ``BrokenBarrierError`` /
-    ``ShardAborted``.  A resilient cluster (survivors recovering a dead
-    worker's shard) comes with the fault-tolerance slice (ROADMAP queue
-    1 item 4).
+    ``ShardAborted``.
+
+    ``resilient=True`` swaps the barrier gather for a
+    :class:`~repro_torch.core.faults.ResilientAllGather` wired to a
+    shared :class:`~repro_torch.core.faults.WorkerHealth` board
+    (:attr:`health`, None otherwise): a worker raising no longer aborts
+    its siblings — the cluster marks it dead (on the board, in the
+    sharder, and wakes the gather), the survivors recover its shard
+    inside the round, and later ``run`` calls skip the dead rank.  A
+    stalled worker is recovered by the round deadline.  ``run`` returns
+    the first live rank's result (all live ranks' are identical) in
+    every dead rank's slot, and raises :class:`ShardAborted` (or the
+    last error) when no rank is left.
     """
 
-    def __init__(self, world_size: int):
+    def __init__(self, world_size: int, resilient: bool = False):
         self.world_size = world_size
         self.sharder = FairSharder(world_size)
-        self.gather = InMemoryAllGather(world_size)
+        if resilient:
+            self.health = WorkerHealth(world_size)
+            self.gather = ResilientAllGather(world_size, health=self.health,
+                                             sharder=self.sharder)
+        else:
+            self.health = None
+            self.gather = InMemoryAllGather(world_size)
 
     def run(self, worker_fn: Callable[[int], object]) -> list:
         results: list = [None] * self.world_size
         errors: list = [None] * self.world_size
+        resilient = self.health is not None
+        dead_before = self.health.dead if resilient else set()
 
         def target(rank: int) -> None:
             try:
                 results[rank] = worker_fn(rank)
             except BaseException as exc:     # noqa: BLE001 — re-raised below
                 errors[rank] = exc
-                self.gather.abort()
-                # siblings may equally be blocked waiting for this rank's
-                # round report (a round-versioned acquire)
-                self.sharder.abort(exc)
+                if resilient:
+                    # degrade, don't collapse: the sharder stops waiting
+                    # for this rank and the gather hands its shard on
+                    self.sharder.mark_dead(rank)
+                    self.gather.notify_death(rank)
+                else:
+                    self.gather.abort()
+                    # siblings may equally be blocked waiting for this
+                    # rank's round report (a round-versioned acquire)
+                    self.sharder.abort(exc)
 
         threads = [threading.Thread(target=target, args=(rank,),
                                     name=f"sim-worker-{rank}")
-                   for rank in range(self.world_size)]
+                   for rank in range(self.world_size)
+                   if rank not in dead_before]
         for t in threads:
             t.start()
         for t in threads:
             t.join()
+        if resilient:
+            live = [rank for rank in range(self.world_size)
+                    if rank not in dead_before and errors[rank] is None]
+            if not live:
+                for exc in errors:
+                    if exc is not None:
+                        raise exc
+                raise ShardAborted(
+                    f"no live worker left of {self.world_size}")
+            for rank in range(self.world_size):
+                if rank in dead_before or errors[rank] is not None:
+                    results[rank] = results[live[0]]
+            return results
         for exc in errors:
             if exc is not None and not isinstance(
                     exc, (threading.BrokenBarrierError, ShardAborted)):
@@ -149,4 +190,3 @@ class SimulatedCluster:
             if exc is not None:
                 raise exc
         return results
-

@@ -20,7 +20,12 @@ The port of ``repro.launch.serve``, with the port's backend names
   * ``--workers N``: N workers in this process (``SimulatedCluster``);
   * ``--mutate``: serve the embedding cache's live set while a writer
     thread adds, re-embeds and deletes documents and runs one online
-    compaction; each micro-batch pins the newest committed generation.
+    compaction; each micro-batch pins the newest committed generation;
+  * ``--workers N --resilient``: the simulated cluster's gather is the
+    fault-tolerant one — a dead, stalled or dropped worker's shard is
+    rescored by a survivor within ``--round-deadline-s`` — and
+    ``--chaos crash | stall | drop`` injects that fault into worker 1 at
+    the first steady-state round, then prints a ``chaos:`` line.
 
 Measurement: corpus encoding and the encoder's first calls happen in an
 explicit warm pass over every power-of-two micro-batch rung, reported
@@ -38,7 +43,10 @@ dispatcher's observation exchange of round r + 1, two collectives on
 one group from two threads in an order the ranks need not share.  For
 the same reason ``--deadline-ms`` is refused there: each rank would
 expire queued requests on its own clock, so one rank could skip a
-request that another dispatches into the all-gather alone.
+request that another dispatches into the all-gather alone.  And
+``--resilient`` is refused there: the resilient gather is in-process
+(a dead rank's shard is rescored by a sibling thread), and across
+processes nothing tells a dead rank from a slow collective.
 """
 
 from __future__ import annotations
@@ -113,16 +121,21 @@ def main(argv=None):
                     default=defaults.serve_max_queue,
                     help="admission-control bound on pending requests")
     ap.add_argument("--resilient", action="store_true",
-                    help="fault-tolerant cluster (not ported yet)")
+                    help="fault-tolerant cluster (workers > 1): a dead "
+                         "or silent worker's shard is reassigned to "
+                         "survivors instead of aborting the round")
     ap.add_argument("--chaos", default=None,
                     choices=("crash", "stall", "drop"),
-                    help="inject one worker fault (not ported yet)")
+                    help="inject one fault of this kind into worker 1 "
+                         "at the first steady-state round (requires "
+                         "--resilient and --workers > 1)")
     ap.add_argument("--deadline-ms", type=float, default=None,
-                    help="per-request bound on the queue wait: queued "
-                         "past it -> degraded empty result")
-    ap.add_argument("--round-deadline-s", type=float, default=None,
-                    help="how long a resilient round waits for a silent "
-                         "worker (not ported yet)")
+                    help="per-request latency bound: queued past it -> "
+                         "degraded empty result; dispatched -> bounds "
+                         "shard-recovery time")
+    ap.add_argument("--round-deadline-s", type=float, default=5.0,
+                    help="how long a round waits for a silent worker "
+                         "before reassigning its shard (resilient only)")
     ap.add_argument("--mutate", action="store_true",
                     help="live-corpus mode: serve the embedding cache's "
                          "generation-versioned live set while a writer "
@@ -131,6 +144,8 @@ def main(argv=None):
                          "the newest committed generation; in-flight "
                          "requests finish on their pinned snapshot")
     args = ap.parse_args(argv)
+    if args.chaos and not (args.resilient and args.workers > 1):
+        ap.error("--chaos requires --resilient and --workers > 1")
 
     if args.arch != "trove-base":
         raise _not_ported(f"--arch {args.arch}", 8,
@@ -140,12 +155,6 @@ def main(argv=None):
         raise _not_ported("--ckpt-dir", 7, "training/checkpoint.py")
     if args.index_impl == "ivf":
         raise _not_ported("--index-impl ivf", 6, "the IVF index")
-    for flag, given in (("--resilient", args.resilient),
-                        ("--chaos", args.chaos is not None),
-                        ("--round-deadline-s",
-                         args.round_deadline_s is not None)):
-        if given:
-            raise _not_ported(flag, 4, "the resilient gather")
     dist = torch.distributed
     world = (dist.get_world_size()
              if dist.is_available() and dist.is_initialized() else 1)
@@ -165,6 +174,14 @@ def main(argv=None):
             f"dispatches it and enters the all-gather alone, and the "
             f"ranks' collectives and sharder rounds would no longer pair "
             f"up; leave --deadline-ms unset")
+    if args.workers == 0 and world > 1 and args.resilient:
+        raise ValueError(
+            f"--resilient with {world} torch.distributed processes: the "
+            f"resilient gather is in-process (a sibling thread rescores a "
+            f"dead rank's shard), while across processes a dead rank "
+            f"cannot be told from a slow collective and the survivors' "
+            f"all-gather would wait on it; use --workers N for a "
+            f"resilient cluster in one process")
 
     device = resolve_device(args.device)
     cfg = trove_base.reduced() if args.smoke else trove_base.get_config()
@@ -188,9 +205,25 @@ def main(argv=None):
                                     score_impl=args.score_impl,
                                     serve_max_batch=args.max_batch,
                                     serve_max_wait_ms=args.max_wait_ms,
-                                    serve_max_queue=args.max_queue)
+                                    serve_max_queue=args.max_queue,
+                                    round_deadline_s=args.round_deadline_s)
     cache = EmbeddingCache(os.path.join(args.data_dir, "emb_cache"),
                            dim=cfg.d_model)
+
+    # one micro-batch is one sharded round, and the warm pass below makes
+    # one round per rung, so the first steady-state round is known ahead
+    # of time: that is where the chaos fault strikes
+    n_warm_rounds, b = 1, 1
+    while b < args.max_batch:
+        n_warm_rounds += 1
+        b *= 2
+    injector = None
+    if args.chaos:
+        from repro_torch.core.faults import Fault, FaultInjector
+        injector = FaultInjector([Fault(
+            kind=args.chaos, worker=1, round=n_warm_rounds,
+            phase="gather" if args.chaos == "drop" else "load",
+            stall_s=2 * args.round_deadline_s)])
 
     # -- frontend construction (the expensive pass: corpus encode / cache
     # warm-up and driver setup happen here, once) ----------------------------
@@ -199,18 +232,20 @@ def main(argv=None):
         # W driver instances in this process with a deterministic
         # in-memory all-gather: the code path of W processes
         from repro_torch.launch.distributed import SimulatedCluster
-        cluster = SimulatedCluster(args.workers)
+        cluster = SimulatedCluster(args.workers, resilient=args.resilient)
         evs = [RetrievalEvaluator(eval_args, retriever, collator, params,
                                   device=device, process_index=rank,
                                   process_count=args.workers,
                                   gather=cluster.gather,
-                                  sharder=cluster.sharder)
+                                  sharder=cluster.sharder,
+                                  fault_injector=injector)
                for rank in range(args.workers)]
         frontend = ServeFrontend.from_cluster(
             evs, cluster, corpus, [cache] * args.workers,
             live=args.mutate)
         mut_ev = evs[0]
-        label = f"{args.workers} simulated workers"
+        label = (f"{args.workers} simulated workers"
+                 + (" (resilient)" if args.resilient else ""))
     elif args.workers == 1:
         # forced single worker, even inside a process group
         ev = RetrievalEvaluator(eval_args, retriever, collator, params,
@@ -340,6 +375,15 @@ def main(argv=None):
     print(f"steady state: p50 {p50:.1f} ms  p99 {p99:.1f} ms  "
           f"{qps:.1f} queries/s  ({fs['batches']} micro-batches, "
           f"largest {fs['max_batch_seen']} queries)")
+    if args.chaos:
+        # every accepted request resolved (submit_one asserts each
+        # result's shape), and the fault really fired
+        assert injector.fired, "chaos fault never fired"
+        injected = ", ".join(f"{f.kind}@r{f.round}" for f in injector.faults)
+        print(f"chaos: injected [{injected}] -> {len(injector.fired)} "
+              f"fired, {args.n_requests}/{args.n_requests} requests "
+              f"resolved, {fs['degraded']} degraded, {fs['expired']} "
+              f"expired")
     if args.mutate:
         gen_end = cache.generation_key
         # the writer really ran: generations advanced and every request

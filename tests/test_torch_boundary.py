@@ -46,7 +46,9 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.core.embedding_cache", "repro_torch.core.faults",
             "repro_torch.models.convert", "repro_torch.launch.distributed",
             "repro_torch.configs.trove_base", "repro_torch.core.serving",
-            "repro_torch.launch.serve"} <= set(out["imported"])
+            "repro_torch.launch.serve", "repro_torch.core.fair_sharding",
+            "repro_torch.core.sharded_search", "repro_torch.core.config",
+            "repro_torch.training.fault_tolerance"} <= set(out["imported"])
     leaked = [m for m in out["loaded"]
               if m in ("jax", "repro") or m.startswith(("jax.", "repro."))]
     assert leaked == []

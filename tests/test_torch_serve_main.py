@@ -8,10 +8,12 @@ warm pass and the wrap-around requests make the reference's counts: 6
 requests of 5 queries plus the rung ladder 1 + 2 + 4 + 8 (45 queries in
 10 micro-batch requests), on both launchers.  Two processes at
 ``--concurrency 1`` return, request by request, results bitwise equal to
-one worker; at ``--concurrency 2`` or with ``--deadline-ms`` each raises
-before any collective.
+one worker; at ``--concurrency 2``, with ``--deadline-ms`` or with
+``--resilient`` each raises before any collective.
 Flags whose modules are not ported yet raise and name their ROADMAP
-item.  Every wait on a child process has a timeout.
+item.  Every wait on a child process has a timeout.  (The resilient
+modes, ``--workers N --resilient --chaos``, are in
+``tests/test_torch_resilient_serving.py``.)
 """
 
 import json
@@ -108,13 +110,12 @@ def test_deadline_ms_bounds_the_queue_wait(tmp_path_factory):
     assert stats["frontend"]["completed"] == 6 + 4
 
 
+# --resilient / --chaos / --round-deadline-s (item 4) are ported now and
+# left this list; the other cases keep their ids
 @pytest.mark.parametrize("extra,match", (
-    (["--ckpt-dir", "ckpt"], "item 7"),
-    (["--index-impl", "ivf"], "item 6"),
-    (["--resilient"], "item 4"),
-    (["--chaos", "crash"], "item 4"),
-    (["--round-deadline-s", "1"], "item 4"),
-    (["--arch", "deepfm"], "item 8"),
+    pytest.param(["--ckpt-dir", "ckpt"], "item 7", id="extra0-item 7"),
+    pytest.param(["--index-impl", "ivf"], "item 6", id="extra1-item 6"),
+    pytest.param(["--arch", "deepfm"], "item 8", id="extra5-item 8"),
 ))
 def test_unported_flags_raise_naming_their_item(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -149,7 +150,8 @@ argv = json.loads(sys.argv[4])
 assert init_distributed(init_method=f"file://{work}/rdzv", world_size=world,
                         rank=rank) == (rank, world)
 refusals = []
-for extra in (["--concurrency", "2"], ["--deadline-ms", "60000"]):
+for extra in (["--concurrency", "2"], ["--deadline-ms", "60000"],
+              ["--resilient"]):
     try:
         serve.main(argv + extra)
         refusals.append(None)
@@ -204,8 +206,8 @@ def _serve_recording(monkeypatch, argv):
 def test_two_processes_match_one_worker(tmp_path, monkeypatch):
     """Two gloo ranks serving one warm cache at --concurrency 1: every
     request's ids and scores on both ranks bitwise equal to one worker's,
-    and --concurrency 2 and --deadline-ms refused first, naming their
-    hazards."""
+    and --concurrency 2, --deadline-ms and --resilient refused first,
+    naming their hazards."""
     data_dir = str(tmp_path / "data")
     argv = SMOKE + ["--data-dir", data_dir, "--workers", "0"]
     serve.main(argv + ["--workers", "1"])            # fills the cache
@@ -239,13 +241,14 @@ def test_two_processes_match_one_worker(tmp_path, monkeypatch):
     for rank in range(2):
         got = np.load(tmp_path / f"out-{rank}.npz")
         meta = json.loads((tmp_path / f"out-{rank}.json").read_text())
-        concurrency, deadline = meta["refusals"]
+        concurrency, deadline, resilient = meta["refusals"]
         assert "--concurrency 2" in concurrency
         assert "different micro-batches" in concurrency
         assert "observation exchange" in concurrency
         assert "--deadline-ms" in deadline
         assert "own clock" in deadline
         assert "all-gather alone" in deadline
+        assert "--resilient" in resilient and "in-process" in resilient
         assert meta["label"] == "2 process(es)"
         assert meta["frontend"]["completed"] == 6 + 4
         assert got["ids"].dtype == want_ids.dtype

@@ -236,8 +236,8 @@ def test_backend_error_propagates_to_every_request_future():
 
 def test_backend_taking_deadline_s_gets_the_tightest_budget():
     """A backend whose entry point takes ``deadline_s`` gets the
-    micro-batch's tightest remaining request budget; the port's own
-    backends take none and are called without it."""
+    micro-batch's tightest remaining request budget, and the port's own
+    backends take it (it bounds a resilient round's recovery)."""
     budgets = []
 
     def run(texts, topk, deadline_s=None):
@@ -250,7 +250,7 @@ def test_backend_taking_deadline_s_gets_the_tightest_budget():
     assert budgets[0] is None
     assert 0 < budgets[1] <= 60.0
     for entry in (EvaluatorServeBackend.begin, ClusterServeBackend.run):
-        assert "deadline_s" not in inspect.signature(entry).parameters
+        assert "deadline_s" in inspect.signature(entry).parameters
 
 
 # -- deadlines, abandonment, never-dropped (tests/test_faults.py) -------------
