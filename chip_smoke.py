@@ -50,7 +50,8 @@ Phases, each printing its own lines:
   (e) launches per path: every kernel's count is set to 0 just before
       each evaluate / search / mine_hard_negatives call of (c), each
       serving path of (d), each recsys cell of (f), each cached path of
-      (g), each W > 1 path of (h) and each fault path of (i), and read
+      (g), each W > 1 path of (h), each fault path of (i) and each data
+      path of (j), and read
       just after; each kernel of that path must have launched exactly as
       often as predicted (``ShardedSearchDriver.stats`` on (c) / (g) /
       (h), summed over ranks, and on (d) and (i) over every round of the
@@ -124,7 +125,32 @@ Phases, each printing its own lines:
       its runs.  Launches on every (i) path: each rank's calls on its own
       shard and on the shards it rescored (``retry_dispatch_rounds`` /
       ``retry_chunks``), summed; a crashed rank dies before its first
-      chunk is scored and launches nothing.
+      chunk is scored and launches nothing;
+  (j) data management on the card (the model, k, C and S of (c)): two
+      datasets of 128 queries and 4096 docs (``repro_torch.launch.
+      evalsuite.make_synthetic_suite``, seeds 100 and 101, ids "d0-" /
+      "d1-") loaded through ``build_scenarios`` (``MaterializedQRel``
+      mmap tables, ``TableView``s, hash-keyed qrels): (j1) ``evaluate_
+      suite`` online on (fused, kernel) and (torch, kernel), each
+      dataset's row equal to a solo ``evaluate``, the combined pass over
+      a ``ConcatView`` bitwise equal to a search of the eagerly merged
+      dict union (its row equal to the union's metrics), the two pairs
+      within TOL; (j2) the suite with one ``EmbeddingCache``: the
+      per-dataset passes cold, the combined pass encoding no corpus row
+      and bitwise equal to the warm dict union's; (j3) the suite over
+      that cache at W = 2 (``SimulatedCluster``), every rank's tables and
+      combined rankings equal W = 1's, rank 0 alone writing the tables;
+      (j4) ``repro_torch.launch.evalsuite.main`` at full width,
+      ``--workers 1`` then ``2`` (64 queries x 1024 docs a dataset), its
+      tables equal to an in-process ``evaluate_suite`` on the same files,
+      with its wall time; (j5) the paper's memory claim as host RSS
+      (after ``benchmarks/bench_memory.py``: a subprocess's peak RSS less
+      its import floor, 150,000 docs of 80 words and two parts of 75,000):
+      naive loading against ``MaterializedQRel`` (``table1``) and a naive
+      union dict against a streamed ``ConcatView`` of ``TableView``s
+      (``concat_view``), beside the reference's container figures; it
+      fails only if the streamed union takes more than the naive one.
+      Launches on every (j) path: the sum over its driver rounds.
 The second-to-last line is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and the script
 exits non-zero without that line.  It imports nothing of JAX and nothing
@@ -2654,6 +2680,473 @@ def phase_faults(dev, card: str, trove: dict) -> dict:
     return paths
 
 
+# -- (j) data management on the card -----------------------------------------
+
+# (j1)-(j3): two datasets of J_QUERIES queries and J_DOCS docs each, written
+# by the launcher's make_synthetic_suite (seeds 100 and 101, ids "d0-" and
+# "d1-"); their union is (c)'s 256 x 8192.  (j4): the launcher at
+# J4_QUERIES x J4_DOCS per dataset.  (j5): benchmarks/bench_memory.py's
+# sizes: J5_DOCS docs of J5_DOC_LEN words (J5_QUERIES queries), and two
+# parts of J5_PART_DOCS docs and J5_PART_QUERIES queries.
+J_QUERIES, J_DOCS, J_TOPICS = 128, 4096, 64
+J_PAIRS = (("fused", "kernel"), ("torch", "kernel"))
+J4_QUERIES, J4_DOCS = 64, 1024
+J5_DOCS, J5_QUERIES, J5_DOC_LEN = 150_000, 8_000, 80
+J5_PART_DOCS, J5_PART_QUERIES, J5_TOPICS = 75_000, 4_000, 512
+# the reference's container figures (results/bench_memory.json)
+J5_REF = {"table1": (111.35, 11.41), "concat_view": (103.81, 3.33)}
+
+
+def record_searches(ev, seen: list | None = None) -> list:
+    """Wrap ``ev.search``; returns the list of ``(result, corpus rows
+    encoded during it)`` it records, one per search (``seen`` is a
+    ``count_corpus_encodes`` list, else the count is 0)."""
+    log = []
+    search = ev.search
+
+    def recording(*args, **kw):
+        before = sum(seen) if seen is not None else 0
+        out = search(*args, **kw)
+        log.append((out, (sum(seen) if seen is not None else 0) - before))
+        return out
+
+    ev.search = recording
+    return log
+
+
+def eager_union(dirs: list) -> dict:
+    """The datasets' files loaded eagerly into merged ``{id: text}``
+    dicts and a ``{qid: {did: grade}}`` qrels dict (raw ids)."""
+    union = {"queries": {}, "corpus": {}, "qrels": {}}
+    for d in dirs:
+        for name in ("queries", "corpus"):
+            with open(os.path.join(d, f"{name}.jsonl")) as f:
+                for line in f:
+                    rec = json.loads(line)
+                    union[name][rec["_id"]] = rec["text"]
+        with open(os.path.join(d, "qrels", "train.tsv")) as f:
+            for line in f:
+                q, doc, s = line.rstrip("\n").split("\t")
+                union["qrels"].setdefault(q, {})[doc] = float(s)
+    return union
+
+
+def union_metrics(ev, out, qrels: dict) -> dict:
+    """``ev``'s metrics of one search result against raw-id qrels, as
+    ``evaluate`` computes them."""
+    from repro_torch.core.metrics import compute_metrics
+    from repro_torch.data.table import stable_id_hash
+    q_hashes, run_ids, _ = out
+    qrels_h = {stable_id_hash(q): {stable_id_hash(d): g
+                                   for d, g in docs.items()}
+               for q, docs in qrels.items()}
+    return compute_metrics(ev.args.metrics, run_ids, q_hashes, qrels_h)
+
+
+def rounded(metrics: dict) -> str:
+    return json.dumps({n: round(m, 4) for n, m in metrics.items()})
+
+
+def suite_paths(dev, card: str, trove: dict, tmp: str) -> dict:
+    """(j1)-(j4) in the directory ``tmp``; returns each path's launch
+    counts."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.core import sharded_search
+    from repro_torch.core.embedding_cache import EmbeddingCache
+    from repro_torch.data.views import TableView
+    from repro_torch.launch import evalsuite
+    from repro_torch.launch.distributed import SimulatedCluster
+
+    paths: dict = {}
+    t0 = time.perf_counter()
+    dirs = evalsuite.make_synthetic_suite(
+        os.path.join(tmp, "suite"), 2, n_queries=J_QUERIES,
+        n_docs=J_DOCS, n_topics=J_TOPICS)
+    scenarios = evalsuite.build_scenarios(dirs,
+                                          os.path.join(tmp, "tables"))
+    t_load = time.perf_counter() - t0
+    for name, sc in scenarios.items():
+        if not (isinstance(sc["queries"], TableView)
+                and isinstance(sc["corpus"], TableView)):
+            fail(f"(j) {name}: build_scenarios gave no TableViews")
+    union = eager_union(dirs)
+    n_q, n_d = len(union["queries"]), len(union["corpus"])
+    if (n_q, n_d) != (2 * J_QUERIES, 2 * J_DOCS):
+        fail(f"(j) the union is {n_q} x {n_d}")
+    print(f"[j] suite: {len(scenarios)} datasets of {J_QUERIES} "
+          f"queries x {J_DOCS} docs written and loaded through "
+          f"MaterializedQRel (TableViews, hash-keyed qrels) in "
+          f"{t_load:.3f} s; union {n_q} x {n_d}")
+
+    # (j1) the suite online, on two backend pairs
+    combined = {}
+    for score, heap in J_PAIRS:
+        ev = trove_evaluator(dev, trove, score, heap)
+        kernel = path_kernel(score, heap)
+        log = record_searches(ev)
+        t0 = time.perf_counter()
+        results, _ = logged_path(
+            paths, f"(j1) evaluate_suite ({score}, {heap})", score,
+            heap, lambda: ev.evaluate_suite(scenarios))
+        t_suite = time.perf_counter() - t0
+        if set(results) != {"d0", "d1", "combined"} or len(log) != 3:
+            fail(f"(j1) ({score}, {heap}): tables {sorted(results)}, "
+                 f"{len(log)} searches")
+        st = ev.last_search_stats
+        if st["query_device"] != str(dev) or st["chunk_devices"] != [
+                str(dev)]:
+            fail(f"(j1) ({score}, {heap}): not on {dev}: {st}")
+        for name, sc in scenarios.items():
+            solo = on_path(
+                paths, f"(j1) solo evaluate {name} ({score}, {heap})",
+                kernel, lambda sc=sc: ev.evaluate(
+                    sc["queries"], sc["corpus"], sc["qrels"]),
+                lambda _, ev=ev: predicted(ev, score, heap))
+            if solo != results[name]:
+                fail(f"(j1) ({score}, {heap}) {name}: suite row "
+                     f"{results[name]} != solo {solo}")
+        suite_out = log[2][0]
+        want = on_path(
+            paths, f"(j1) search dict union ({score}, {heap})", kernel,
+            lambda: ev.search(union["queries"], union["corpus"]),
+            lambda _, ev=ev: predicted(ev, score, heap))
+        same_bits(f"(j1) ({score}, {heap}) combined vs dict union",
+                  suite_out, want)
+        if union_metrics(ev, want, union["qrels"]) != \
+                results["combined"]:
+            fail(f"(j1) ({score}, {heap}): combined row != the dict "
+                 f"union's metrics")
+        combined[(score, heap)] = suite_out
+        print(f"[j] (j1) evaluate_suite ({score}, {heap}) online on "
+              f"{card}: {t_suite:.3f} s for 3 passes ({2 * J_DOCS + n_d}"
+              f" docs encoded); combined {rounded(results['combined'])}"
+              f"; rows equal solo evaluates; combined rankings bitwise "
+              f"equal to the dict union's")
+    (_, fi, fv), (_, ti, tv) = (combined[("fused", "kernel")],
+                                combined[("torch", "kernel")])
+    err = check_exact("(j1) combined fused vs torch", fi, fv, ti, tv)
+    print(f"[j] (j1) combined (fused, kernel) vs (torch, kernel): max "
+          f"abs score error {err:.3g} (tol {TOL}), ids equal where "
+          f"separated")
+
+    # (j2) one cache shared by every pass: the per-dataset passes are
+    # cold and fill it, the combined pass reads it and encodes nothing
+    cache = EmbeddingCache(os.path.join(tmp, "j2"), D)
+    ev = trove_evaluator(dev, trove, "fused", "kernel")
+    seen = count_corpus_encodes(ev)
+    log = record_searches(ev, seen)
+    t0 = time.perf_counter()
+    results, _ = logged_path(
+        paths, "(j2) evaluate_suite cache (fused, kernel)", "fused",
+        "kernel", lambda: ev.evaluate_suite(scenarios, cache=cache))
+    t_suite = time.perf_counter() - t0
+    encoded = [n for _, n in log]
+    if encoded != [J_DOCS, J_DOCS, 0] or cache.n_live != n_d:
+        fail(f"(j2) corpus rows encoded per pass {encoded}, cache "
+             f"{cache.n_live} rows")
+    want = on_path(
+        paths, "(j2) search dict union cache (fused, kernel)",
+        "fused_score_topk", lambda: ev.search(
+            union["queries"], union["corpus"], cache=cache),
+        lambda _: predicted(ev, "fused", "kernel"))
+    same_bits("(j2) warm combined vs dict union", log[2][0], want)
+    if sum(seen) != 2 * J_DOCS:
+        fail(f"(j2) the warm dict-union search encoded "
+             f"{sum(seen) - 2 * J_DOCS} rows")
+    print(f"[j] (j2) evaluate_suite with one cache (fused, kernel) on "
+          f"{card}: {t_suite:.3f} s; corpus rows encoded per pass "
+          f"{encoded} (d0, d1 cold; combined warm); combined "
+          f"{rounded(results['combined'])}, rankings bitwise equal to "
+          f"the warm dict union's")
+
+    # (j3) W = 2 over the warm cache: every rank's tables and combined
+    # rankings equal W = 1's over the same rows; rank 0 alone writes
+    w1 = trove_evaluator(dev, trove, "fused", "kernel")
+    w1_log = record_searches(w1)
+    w1_tables, _ = logged_path(
+        paths, "(j3) evaluate_suite W=1 cache (fused, kernel)", "fused",
+        "kernel", lambda: w1.evaluate_suite(scenarios, cache=cache))
+    cluster = SimulatedCluster(2)
+    evs = cluster_evaluators(dev, trove, 2, "fused", "kernel", cluster)
+    logs = [record_searches(e) for e in evs]
+    out_dirs = [os.path.join(tmp, f"j3-rank{r}") for r in range(2)]
+    t0 = time.perf_counter()
+    outs, _ = logged_path(
+        paths, "(j3) evaluate_suite W=2 cache (fused, kernel)", "fused",
+        "kernel", lambda: cluster.run(lambda r: evs[r].evaluate_suite(
+            scenarios, cache=cache, out_dir=out_dirs[r],
+            suite_name="j3")))
+    t_w2 = time.perf_counter() - t0
+    for r in range(2):
+        if outs[r] != w1_tables:
+            fail(f"(j3) rank {r}'s tables {outs[r]} != W=1's "
+                 f"{w1_tables}")
+        same_bits(f"(j3) rank {r} combined vs W=1", logs[r][2][0],
+                  w1_log[2][0])
+    on_ranks(dev, evs, "fused", "kernel", "cpu")
+    if os.path.exists(out_dirs[1]):
+        fail("(j3) rank 1 wrote the suite tables")
+    with open(os.path.join(out_dirs[0], "j3.json")) as f:
+        written = json.load(f)
+    if written["results"] != w1_tables:
+        fail(f"(j3) rank 0 wrote {written['results']}")
+    print(f"[j] (j3) evaluate_suite W=2 over the cache (fused, kernel) "
+          f"on {card}: {t_w2:.3f} s; both ranks' tables equal W=1's, "
+          f"combined rankings bitwise equal; rank 0 alone wrote "
+          f"j3.json / j3.md")
+    del cache
+
+    # (j4) the launcher at full width, --workers 1 then 2 over one
+    # data root (the second run finds the first's cache warm).  The
+    # suite autotunes S per query count: tune those keys here first,
+    # so the counted runs launch only their rounds' K1 calls
+    # (the launcher's device is "cuda", the check's "cuda:0": two keys)
+    for q in (J4_QUERIES, 2 * J4_QUERIES):
+        for device in (dev.type, dev):
+            sharded_search.autotune_superchunk_size(
+                q, D, C, K, "fused", "kernel", device)
+    n_tuned = len(sharded_search._AUTOTUNE_CACHE)
+    root = os.path.join(tmp, "j4")
+    argv = ["--data-root", root, "--device", dev.type, "--topk", str(K),
+            "--n-queries", str(J4_QUERIES), "--n-docs", str(J4_DOCS),
+            "--suite-name", "j4"]
+    check = trove_evaluator(dev, trove, "fused", "kernel",
+                            superchunk_size=0)
+    for workers in (1, 2):
+        out = io.StringIO()
+        out_dir = os.path.join(root, f"out-w{workers}")
+
+        def run(workers=workers, out=out, out_dir=out_dir):
+            with contextlib.redirect_stdout(out):
+                return evalsuite.main(argv + [
+                    "--workers", str(workers), "--out-dir", out_dir])
+
+        t0 = time.perf_counter()
+        got = serving_path(
+            paths, f"(j4) evalsuite.main --workers {workers} (fused, "
+            f"kernel)", run)
+        wall = time.perf_counter() - t0
+        if len(sharded_search._AUTOTUNE_CACHE) != n_tuned:
+            fail(f"(j4) --workers {workers}: autotuned a new key")
+        j4_dirs = [os.path.join(root, f"d{i}") for i in range(2)]
+        j4_scen = evalsuite.build_scenarios(
+            j4_dirs, os.path.join(tmp, f"j4-tables-w{workers}"))
+        # W = 1 began with an empty cache: check it with a fresh one;
+        # W = 2 read the cache W = 1 left: check it over that cache
+        check_cache = EmbeddingCache(
+            os.path.join(tmp, "j4-check") if workers == 1
+            else os.path.join(root, "emb_cache"), D)
+        want, _ = logged_path(
+            paths, f"(j4) in-process evaluate_suite for --workers "
+            f"{workers} (fused, kernel)", "fused", "kernel",
+            lambda: check.evaluate_suite(j4_scen, cache=check_cache))
+        if got != want:
+            fail(f"(j4) --workers {workers}: launcher tables {got} != "
+                 f"in-process {want}")
+        with open(os.path.join(out_dir, "j4.json")) as f:
+            if json.load(f)["results"] != got:
+                fail(f"(j4) --workers {workers}: j4.json differs")
+        line = [x for x in out.getvalue().splitlines()
+                if x.startswith("evalsuite:")]
+        print(f"[j] (j4) evalsuite.main --workers {workers} at full "
+              f"width on {card}: wall {wall:.3f} s; tables equal the "
+              f"in-process evaluate_suite's; combined "
+              f"{rounded(got['combined'])}; {line[0] if line else ''}")
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_data(dev, card: str, trove: dict) -> dict:
+    """(j) data management on the card: (j1) the eval suite online over
+    MaterializedQRel tables, (j2) with one shared cache, (j3) at W = 2,
+    (j4) the launcher, (j5) the memory claim as host RSS.  Returns each
+    path's launch counts."""
+    paths: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        mem_dir = os.path.join(tmp, "mem")
+        setup = start_memory_data(mem_dir)
+        try:
+            paths.update(suite_paths(dev, card, trove, tmp))
+            memory = data_memory(mem_dir, setup)
+        finally:
+            if setup.poll() is None:
+                setup.kill()
+                setup.wait()
+    labels = {"table1": "MaterializedQRel", "concat_view": "ConcatView stream"}
+    for case, (naive, streamed) in memory.items():
+        ref_naive, ref_streamed = J5_REF[case]
+        print(f"[j] (j5) {case}, host RSS (peak less the import floor; "
+              f"not device memory): naive {naive:.2f} MB, {labels[case]} "
+              f"{streamed:.2f} MB, {naive / streamed:.1f}x; the "
+              f"reference's container figures {ref_naive} / "
+              f"{ref_streamed} MB, {ref_naive / ref_streamed:.1f}x")
+    naive, streamed = memory["concat_view"]
+    if streamed > naive:
+        fail(f"(j5) the streamed union's net RSS {streamed:.2f} MB exceeds "
+             f"the naive union's {naive:.2f} MB")
+    return paths
+
+
+# (j5)'s subprocess programs, after benchmarks/bench_memory.py: the data
+# (written once), the naive loaders (json into dicts) and the port's
+# (MaterializedQRel, ConcatView streaming), each measured as its peak RSS
+# less the import floor of its own imports.  The port's programs import
+# only repro_torch.data.* and core.materialized_qrel: no torch module, so
+# no CUDA context, enters their floor.
+J5_GEN = """
+import os
+from repro_torch.data.synthetic import make_retrieval_dataset
+d = {dir!r}
+make_retrieval_dataset(d, n_queries=%d, n_docs=%d, n_topics=%d,
+                       doc_len=%d)
+for i in range(2):
+    make_retrieval_dataset(os.path.join(d, f"part{{i}}"), n_queries=%d,
+                           n_docs=%d, n_topics=%d, doc_len=%d,
+                           seed=10 + i, id_prefix=f"p{{i}}-")
+""" % (J5_QUERIES, J5_DOCS, J5_TOPICS, J5_DOC_LEN, J5_PART_QUERIES,
+       J5_PART_DOCS, J5_TOPICS, J5_DOC_LEN)
+J5_NAIVE_IMPORTS = "import json\nd = {dir!r}\n"
+J5_NAIVE = """
+queries, corpus, qrels = {}, {}, {}
+with open(d + "/queries.jsonl") as f:
+    for line in f:
+        r = json.loads(line); queries[r["_id"]] = r["text"]
+with open(d + "/corpus.jsonl") as f:
+    for line in f:
+        r = json.loads(line); corpus[r["_id"]] = r["text"]
+with open(d + "/qrels/train.tsv") as f:
+    for line in f:
+        q, doc, s = line.split("\\t")
+        qrels.setdefault(q, {})[doc] = float(s)
+inst = [(queries[q], [corpus[doc] for doc in docs])
+        for q, docs in qrels.items()]
+print("instances", len(inst))
+"""
+J5_NAIVE_UNION = """
+corpus = {}
+for i in range(2):
+    with open(d + f"/part{i}/corpus.jsonl") as f:
+        for line in f:
+            r = json.loads(line); corpus[r["_id"]] = r["text"]
+texts = list(corpus.values())
+print("union docs", len(corpus), sum(len(t) for t in texts[:8]))
+"""
+J5_PORT_IMPORTS = """
+import sys
+from repro_torch.core.config import MaterializedQRelConfig
+from repro_torch.core.materialized_qrel import MaterializedQRel
+from repro_torch.data.views import ConcatView, row_text
+assert not [n for n in sys.modules if n == "torch" or n.startswith("torch.")]
+d = {dir!r}
+def source(p, **kw):
+    return MaterializedQRel(MaterializedQRelConfig(
+        qrel_path=p + "/qrels/train.tsv", query_path=p + "/queries.jsonl",
+        corpus_path=p + "/corpus.jsonl", **kw), cache_root=d + "/cache")
+def stream(view):
+    n = 0
+    for off, rows in view.open_slice(0, len(view), 1024):
+        n += sum(len(row_text(r)) for r in rows)
+    return n
+"""
+# every query's text and its positive docs' texts, materialized once
+J5_PORT = """
+m = source(d, min_score=1)
+n = 0
+for q in m.query_id_hashes:
+    n += len(m.query_text(int(q)))
+    for did in m.group(int(q))[0]:
+        n += len(m.doc_text(int(did)))
+print("instances", len(m), n)
+"""
+J5_PORT_UNION = """
+v = ConcatView(source(d + "/part0").corpus_view(),
+               source(d + "/part1").corpus_view())
+print("union bytes", stream(v))
+"""
+# The peak: VmHWM where the kernel keeps it; where /proc/self/status has
+# VmRSS only, the largest VmRSS that a sampling thread started before the
+# program's imports saw, and a last reading at the end.  ru_maxrss will
+# not do: a child inherits its parent's peak through exec, and the
+# parent here holds a CUDA context.
+J5_SAMPLER = """
+import threading as _threading, time as _time
+def _vm_kb(key):
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith(key):
+                return int(line.split()[1])
+    return None
+_sampled = [0]
+def _sample():
+    while True:
+        _sampled[0] = max(_sampled[0], _vm_kb("VmRSS:"))
+        _time.sleep(0.001)
+_threading.Thread(target=_sample, daemon=True).start()
+"""
+J5_PEAK = """
+_hwm = _vm_kb("VmHWM:")
+print("PEAK_RSS_KB", _hwm if _hwm is not None
+      else max(_sampled[0], _vm_kb("VmRSS:")),
+      "VmHWM" if _hwm is not None else "sampled-VmRSS")
+"""
+
+
+def peak_rss_mb(program: str) -> tuple[float, str]:
+    """Run ``program`` in a fresh interpreter with the checkout's ``src``
+    on its path; its peak RSS in MB, and where the peak was read."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", J5_SAMPLER + program + J5_PEAK], env=env,
+        capture_output=True, text=True, timeout=900, check=True).stdout
+    for line in out.splitlines():
+        if line.startswith("PEAK_RSS_KB"):
+            _, kb, source = line.split()
+            return int(kb) / 1024.0, source
+    raise RuntimeError(f"no peak in the output: {out[-500:]!r}")
+
+
+def start_memory_data(d: str) -> subprocess.Popen:
+    """(j5)'s set-up, started in the background while (j1)-(j4) run: a
+    process that writes the data and builds its tables and groups once,
+    so no build is measured."""
+    os.makedirs(d, exist_ok=True)
+    program = (J5_GEN + J5_PORT_IMPORTS + J5_PORT + J5_PORT_UNION).format(
+        dir=d)
+    return subprocess.Popen(
+        [sys.executable, "-c", program], stdout=subprocess.DEVNULL,
+        env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+
+
+def data_memory(d: str, setup: subprocess.Popen) -> dict:
+    """(j5): ``{"table1": (naive MB, MaterializedQRel MB), "concat_view":
+    (naive union MB, ConcatView stream MB)}``, each a subprocess's peak
+    RSS less its import floor."""
+    t0 = time.perf_counter()
+    if setup.wait(timeout=900) != 0:
+        fail(f"(j5) writing the data failed: exit {setup.returncode}")
+    t_wait = time.perf_counter() - t0
+    naive_floor, source = peak_rss_mb(J5_NAIVE_IMPORTS.format(dir=d))
+    port_floor, _ = peak_rss_mb(J5_PORT_IMPORTS.format(dir=d))
+    out = {}
+    for case, naive, port in (("table1", J5_NAIVE, J5_PORT),
+                              ("concat_view", J5_NAIVE_UNION,
+                               J5_PORT_UNION)):
+        n, _ = peak_rss_mb(J5_NAIVE_IMPORTS.format(dir=d) + naive)
+        p, _ = peak_rss_mb(J5_PORT_IMPORTS.format(dir=d) + port)
+        out[case] = (max(n - naive_floor, 1e-3), max(p - port_floor, 1e-3))
+    corpus_mb = [os.path.getsize(os.path.join(d, *part, "corpus.jsonl"))
+                 / 2 ** 20 for part in ((), ("part0",), ("part1",))]
+    print(f"[j] (j5) data and tables ready {t_wait:.3f} s after (j4); "
+          f"corpus files {corpus_mb[0]:.2f} MB, parts {corpus_mb[1]:.2f} + "
+          f"{corpus_mb[2]:.2f} MB; peaks from {source}; import floors: "
+          f"naive {naive_floor:.2f} MB, port {port_floor:.2f} MB (host RSS)")
+    return out
+
+
 # -- (f) recsys scoring at full width -----------------------------------------
 
 # (arch, shapes run): AutoInt's and BST's bulk / retrieval attention
@@ -2849,6 +3342,7 @@ def main() -> int:
                              kernels["fused_score_topk"]["timings"][0]["ms"]))
     paths.update(phase_workers(dev, card, trove, runs[("fused", "kernel")]))
     paths.update(phase_faults(dev, card, trove))
+    paths.update(phase_data(dev, card, trove))
     paths.update(phase_recsys(dev, card))
     for t, call, reset, names in PROFILED:
         t["stage_ms"] = stage_ms(call, reset, names)

@@ -17,6 +17,9 @@ _EXPORTS = {
     "DataArguments": "repro_torch.core.config",
     "EvaluationArguments": "repro_torch.core.config",
     "ModelArguments": "repro_torch.core.config",
+    "MaterializedQRelConfig": "repro_torch.core.config",
+    "MaterializedQRel": "repro_torch.core.materialized_qrel",
+    "EncodingDataset": "repro_torch.core.datasets",
     "RetrievalEvaluator": "repro_torch.core.evaluator",
     "EmbeddingCache": "repro_torch.core.embedding_cache",
     "compute_metrics": "repro_torch.core.metrics",
@@ -25,6 +28,17 @@ _EXPORTS = {
     "ShardedSearchDriver": "repro_torch.core.sharded_search",
     "SimulatedCluster": "repro_torch.launch.distributed",
     "HashTokenizer": "repro_torch.data.tokenizer",
+    "MMapTable": "repro_torch.data.table",
+    "register_loader": "repro_torch.data.loaders",
+    "DatasetView": "repro_torch.data.views",
+    "TableView": "repro_torch.data.views",
+    "DictView": "repro_torch.data.views",
+    "RecordsView": "repro_torch.data.views",
+    "FilterView": "repro_torch.data.views",
+    "MapView": "repro_torch.data.views",
+    "SelectView": "repro_torch.data.views",
+    "ConcatView": "repro_torch.data.views",
+    "InterleaveView": "repro_torch.data.views",
     "DefaultEncoder": "repro_torch.models.encoder",
     "PretrainedEncoder": "repro_torch.models.encoder",
     "get_encoder": "repro_torch.models.encoder",

@@ -1,8 +1,9 @@
 """Configuration objects of the port (paper §3.1).
 
 The port's own ``DataArguments`` / ``ModelArguments`` /
-``EvaluationArguments``.  ``EvaluationArguments`` validates the port's
-backend names in ``__post_init__`` without importing anything: the
+``EvaluationArguments`` / ``MaterializedQRelConfig``.
+``EvaluationArguments`` validates the port's backend names in
+``__post_init__`` without importing anything: the
 reference class imports the JAX heap and driver to validate, and its
 names (``jax``, ``pallas``, ``pallas_fused``) are not the port's.
 """
@@ -10,6 +11,7 @@ names (``jax``, ``pallas``, ``pallas_fused``) are not the port's.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Callable
 
 # Scoring backends of ShardedSearchDriver: "numpy" = host q @ d.T
 # baseline; "torch" = device matmul then the heap merge; "fused" = the
@@ -110,3 +112,29 @@ class EvaluationArguments:
         if self.shard_retry_backoff_s < 0:
             raise ValueError(f"shard_retry_backoff_s must be >= 0, got "
                              f"{self.shard_retry_backoff_s}")
+
+
+@dataclasses.dataclass
+class MaterializedQRelConfig:
+    """How one (query, corpus, qrel) source is loaded & processed on the fly.
+
+    Mirrors the paper's options: score-window filtering, relabeling,
+    per-query random subsetting of documents, query-id subsetting, and
+    arbitrary user callbacks.  The fields and defaults of the
+    reference's class, so one config names the same cache directories in
+    either package.
+    """
+
+    qrel_path: str = ""
+    query_path: str = ""
+    corpus_path: str = ""
+    # filtering / transformation (applied lazily, in this order)
+    min_score: float | None = None
+    max_score: float | None = None
+    filter_fn: Callable[..., Any] | None = None     # (qid, did, score) -> bool
+    new_label: float | None = None                  # relabel kept triplets
+    transform_fn: Callable[..., Any] | None = None  # (score) -> score
+    group_random_k: int | None = None               # sample k docs per query
+    query_subset_from: str | None = None            # qrel file giving query ids
+    loader: str | None = None                       # registered loader name
+    seed: int = 0

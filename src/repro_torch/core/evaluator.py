@@ -14,6 +14,9 @@ Every search entry point is a thin instantiation of
     later (warm) passes pin a snapshot that covers the corpus and stream
     its float16 rows off the mmap, cast to float32 and uploaded once per
     superchunk, with no corpus encoding;
+  * :meth:`evaluate_suite` — N datasets, each on its own and then as
+    one combined corpus: a ``ConcatView`` of the datasets' views, so the
+    union is never built on disk or in RAM;
   * :meth:`prepare_corpus` (``device_resident=True``) +
     :meth:`search_texts` — the serving regime: the corpus is encoded
     once and kept on the card, each request encodes its queries and
@@ -41,6 +44,8 @@ combinations return the same rankings.  Queries and corpora are
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Sequence
 
 import numpy as np
@@ -57,7 +62,7 @@ from repro_torch.core.result_heap import to_tensor
 from repro_torch.core.sharded_search import (ProcessAllGather,
                                              ShardedSearchDriver)
 from repro_torch.data.table import stable_id_hash, stable_id_hash_array
-from repro_torch.data.views import DatasetView, as_view
+from repro_torch.data.views import ConcatView, DatasetView, as_view
 from repro_torch.device import resolve_device
 
 
@@ -483,6 +488,62 @@ class RetrievalEvaluator:
             report["coverage"] = float(np.asarray(out.coverage).mean())
             report["degraded"] = True
         return report
+
+    def evaluate_suite(self, scenarios: dict[str, dict], *,
+                       combined: bool = True,
+                       cache: EmbeddingCache | None = None,
+                       out_dir: str | None = None,
+                       suite_name: str = "evalsuite") -> dict:
+        """Evaluate N datasets — per-dataset AND as one combined corpus.
+
+        ``scenarios`` maps a dataset name to ``{"queries", "corpus",
+        "qrels"}`` (dicts or views).  The combined pass concatenates the
+        query and corpus *views* (``ConcatView``) and unions the qrels,
+        so queries are scored against the union of all corpora without
+        the union ever being built on disk or in RAM.  Dataset id
+        spaces must be disjoint (namespace your ids per dataset, e.g.
+        via ``view.map(..., rekey=True)``) — collisions raise.
+
+        One shared ``cache`` (keyed by stable doc-id hash) serves every
+        per-dataset pass and the combined pass.  Runs on 1..W workers
+        unchanged: under a gather transport every worker computes
+        identical tables and only worker 0 writes
+        ``{out_dir}/{suite_name}.json`` / ``.md``.
+        """
+        results: dict[str, dict] = {}
+        for name, sc in scenarios.items():
+            results[name] = self.evaluate(sc["queries"], sc["corpus"],
+                                          sc["qrels"], cache=cache)
+        if combined and len(scenarios) > 1:
+            q_views = [self._corpus_view(sc["queries"])
+                       for sc in scenarios.values()]
+            c_views = [self._corpus_view(sc["corpus"])
+                       for sc in scenarios.values()]
+            for kind, views in (("query", q_views), ("doc", c_views)):
+                all_h = np.concatenate(
+                    [np.asarray(v.id_hashes) for v in views])
+                if len(np.unique(all_h)) != len(all_h):
+                    raise ValueError(
+                        f"duplicate {kind} ids across suite datasets — "
+                        f"namespace ids per dataset (e.g. "
+                        f"view.map(..., rekey=True)) before combining")
+            merged_qrels: dict = {}
+            for sc in scenarios.values():
+                merged_qrels.update(sc["qrels"])
+            results["combined"] = self.evaluate(
+                ConcatView(*q_views), ConcatView(*c_views), merged_qrels,
+                cache=cache)
+        if out_dir is not None and self.process_index == 0:
+            os.makedirs(out_dir, exist_ok=True)
+            payload = {"suite": suite_name, "metrics": self.args.metrics,
+                       "datasets": list(scenarios),
+                       "results": results}
+            with open(os.path.join(out_dir, f"{suite_name}.json"),
+                      "w") as f:
+                json.dump(payload, f, indent=2, sort_keys=True)
+            with open(os.path.join(out_dir, f"{suite_name}.md"), "w") as f:
+                f.write(format_metrics_table(results))
+        return results
 
     def mine_hard_negatives(self, queries, corpus,
                             qrels: dict[str, dict[str, float]],

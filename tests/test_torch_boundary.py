@@ -48,10 +48,33 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.configs.trove_base", "repro_torch.core.serving",
             "repro_torch.launch.serve", "repro_torch.core.fair_sharding",
             "repro_torch.core.sharded_search", "repro_torch.core.config",
-            "repro_torch.training.fault_tolerance"} <= set(out["imported"])
+            "repro_torch.training.fault_tolerance",
+            "repro_torch.data.table", "repro_torch.data.views",
+            "repro_torch.data.loaders", "repro_torch.core.materialized_qrel",
+            "repro_torch.core.datasets",
+            "repro_torch.launch.evalsuite"} <= set(out["imported"])
     leaked = [m for m in out["loaded"]
               if m in ("jax", "repro") or m.startswith(("jax.", "repro."))]
     assert leaked == []
+
+
+_DATA_PROBE = """
+import json, sys
+import repro_torch.data.views, repro_torch.core.materialized_qrel
+print(json.dumps(sorted(n for n in sys.modules
+                        if n == "torch" or n.startswith("torch."))))
+"""
+
+
+def test_data_modules_load_no_torch():
+    """The view algebra and MaterializedQRel import no torch module, so a
+    process that only loads and streams data (the memory measurement of
+    ``chip_smoke.py``) carries no torch in its resident floor."""
+    proc = subprocess.run([sys.executable, "-c", _DATA_PROBE], cwd=REPO,
+                          env=_env(), capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
 def test_chip_smoke_refuses_without_card_or_checkout(tmp_path):
