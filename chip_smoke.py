@@ -50,8 +50,8 @@ Phases, each printing its own lines:
   (e) launches per path: every kernel's count is set to 0 just before
       each evaluate / search / mine_hard_negatives call of (c), each
       serving path of (d), each recsys cell of (f), each cached path of
-      (g), each W > 1 path of (h), each fault path of (i) and each data
-      path of (j), and read
+      (g), each W > 1 path of (h), each fault path of (i), each data
+      path of (j) and each IVF path of (k), and read
       just after; each kernel of that path must have launched exactly as
       often as predicted (``ShardedSearchDriver.stats`` on (c) / (g) /
       (h), summed over ranks, and on (d) and (i) over every round of the
@@ -150,7 +150,40 @@ Phases, each printing its own lines:
       union dict against a streamed ``ConcatView`` of ``TableView``s
       (``concat_view``), beside the reference's container figures; it
       fails only if the streamed union takes more than the naive one.
-      Launches on every (j) path: the sum over its driver rounds.
+      Launches on every (j) path: the sum over its driver rounds;
+  (k) the IVF index on the card (the model, dataset, k, C and S of (c),
+      64 clusters, pruned rounds probing 8): (k2) a cold ``evaluate(
+      cache=)`` that builds and saves ``{cache}/ivf_k64``, two warm
+      searches (the first rebuilds under the pinned snapshot's digest, as
+      the reference does, the second loads it, 0 builds, bitwise equal),
+      warm evaluates flat and pruned and a warm ``mine_hard_negatives``;
+      (k1) device-resident prepared corpora over the warm cache's rows on
+      (fused, kernel) and (torch, kernel): a full probe against flat
+      (scores bitwise, ids equal outside runs of exactly equal scores),
+      nprobe 8 against an exact float64 top-k over the selected rows for
+      the 256-query batch and for single queries, with rows scanned and
+      recall@100 against flat; (k3) W = 1 (twice), 2 and 4, every rank
+      building its own index from its own cache copy: centroids, perm and
+      offsets bitwise equal across ranks and builds, every rank bitwise
+      equal to W = 1, every cut on a cluster edge; then a crash at W = 2
+      (the snapped shard rescored, bitwise equal to W = 1) and the round
+      after it (the dead rank's shard empty, cuts on edges); (k4)
+      ``ServeFrontend.from_evaluator`` at nprobe 64 driven as (d1) is,
+      each request held against its flat solo ``search_texts``; at nprobe
+      8 each request against an exact float64 top-k over its
+      micro-batch's selection (recorded by wrapping ``round_for``) and at
+      least its solo pruned search; ``serve.main --index-impl ivf`` at
+      ``--workers 1`` and ``2``; (k2) a live corpus through
+      ``prepare_cache_corpus`` (deletes and adds, a compaction into
+      ``cluster_order``), one build per generation, each search against an
+      exact float64 top-k over its snapshot's selected rows; (k5) 262,144
+      seeded unit rows around 512 topics drawn on the card (the
+      reference's ``_clustered`` recipe), 512 clusters (k-means and
+      assignment times), 8 requests of 32 queries at nprobe 8, 32, 512
+      and flat (ms, rows scanned, recall@100; nprobe 512 held as (k1)
+      holds a full probe), and K1 timed on the nprobe-8 round's first
+      superchunk.  Launches on every (k) path: the sum over its driver
+      rounds and ranks.
 The second-to-last line is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and the script
 exits non-zero without that line.  It imports nothing of JAX and nothing
@@ -605,12 +638,23 @@ def k1_timing(dev, unit, steps, q: int, s: int) -> dict:
     read once and the state read and written, over the memory rate, and
     float32 operations over the float32 rate); its two kernels' device
     times are added after the last phase (PROFILED)."""
+    queries, tile = unit(q, D), unit(s, C, D)
+    offs, nvs = steps(s, C)
+    return k1_time(dev, queries, tile, offs, nvs,
+                   f"Q={q} S={s} C={C} d={D} k={K}")
+
+
+def k1_time(dev, queries, tile, offs, nvs, shape: str,
+            phase: str = "b") -> dict:
+    """:func:`k1_timing` on given inputs: K1 folding the (S, C, d)
+    ``tile`` with its per-step offsets and valid counts into an empty
+    (Q, K) state, its plain version, the library call over the valid
+    rows and the bound of the rows this tile holds."""
     import torch
 
     from repro_torch.kernels import ops, ref, topk
-    queries, tile = unit(q, D), unit(s, C, D)
-    offs, nvs = steps(s, C)
-    docs = tile.view(s * C, D)
+    q, s = queries.shape[0], tile.shape[0]
+    docs = tile.view(s * C, D)[:int(nvs.sum())]
     v, i = ops.empty_state(q, K, dev)
 
     def reset():
@@ -624,7 +668,7 @@ def k1_timing(dev, unit, steps, q: int, s: int) -> dict:
         HBM_BYTES_S * 1e3
     t_ops = 2 * q * int(nvs.sum()) * D / F32_FLOPS * 1e3
     rows, splits, span = topk.fused_split_plan(q, s * C, topk.sm_count(dev))
-    t = {"shape": f"Q={q} S={s} C={C} d={D} k={K}", "tile_rows": rows,
+    t = {"shape": shape, "tile_rows": rows,
          "splits": splits, "span": span, "ms": median_ms(call, reset),
          "plain_ms": median_ms(lambda: ref.fused_score_topk_ref(
              v, i, queries, tile, offs, nvs), reset),
@@ -633,7 +677,7 @@ def k1_timing(dev, unit, steps, q: int, s: int) -> dict:
          "bound_ms": max(t_bytes, t_ops),
          "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     PROFILED.append((t, call, reset, K1_STAGES))
-    print(f"[b] fused_score_topk at {t['shape']} ({splits} range(s) of "
+    print(f"[{phase}] fused_score_topk at {t['shape']} ({splits} range(s) of "
           f"{span} rows, tiles of {rows}): kernel {t['ms']:.4f} ms, plain "
           f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
           f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
@@ -1036,9 +1080,11 @@ def predict(stats: list, score: str, heap: str) -> dict:
     searches and ranks: one K1 launch per superchunk call on (fused, ·),
     one K2 launch per scored chunk on (torch, kernel), a rank's own shard
     and the orphaned shards it rescored (``retry_dispatch_rounds`` /
-    ``retry_chunks``, 0 without a resilient gather) alike."""
+    ``retry_chunks``, 0 without a resilient gather) alike.  An empty
+    shard (an IVF round's shard past the cluster edges, or an empty
+    selection) runs no executor and launches nothing."""
     for st in stats:
-        if st["executor"] != "superchunk":
+        if st["executor"] != "superchunk" and st["items"]:
             fail(f"({score}, {heap}) ran {st['executor']}")
     return {"fused_score_topk": (
                 sum(st["dispatch_rounds"] + st["retry_dispatch_rounds"]
@@ -1113,12 +1159,14 @@ def build_trove(dev) -> dict:
 
 def trove_evaluator(dev, trove: dict, score: str = "fused",
                     heap: str = "kernel", superchunk_size: int | None = None,
-                    recovery: dict | None = None, **workers):
+                    recovery: dict | None = None, index: dict | None = None,
+                    **workers):
     """A RetrievalEvaluator of the main path's settings (k = 100, chunks
     of 32 rows, 256 queries a batch, S = 64 unless given; 0 autotunes);
     ``recovery`` sets its round_deadline_s / shard_retries /
-    shard_retry_backoff_s; ``workers`` are its process_index /
-    process_count / gather / sharder / fault_injector."""
+    shard_retry_backoff_s, ``index`` its index_impl / ivf_*;
+    ``workers`` are its process_index / process_count / gather / sharder
+    / fault_injector."""
     from repro_torch.core.config import EvaluationArguments
     from repro_torch.core.evaluator import RetrievalEvaluator
 
@@ -1126,7 +1174,8 @@ def trove_evaluator(dev, trove: dict, score: str = "fused",
         topk=K, encode_batch_size=C, query_batch_size=Q,
         superchunk_size=S if superchunk_size is None else superchunk_size,
         score_impl=score, heap_impl=heap,
-        metrics=("ndcg@10", "mrr@10", "recall@100"), **(recovery or {}))
+        metrics=("ndcg@10", "mrr@10", "recall@100"), **(recovery or {}),
+        **(index or {}))
     return RetrievalEvaluator(args, trove["retriever"], trove["collator"],
                               trove["params"], device=dev, **workers)
 
@@ -1366,11 +1415,12 @@ def latency_summary(ms: list, seconds: float, n_queries: int) -> str:
 
 
 def drive_frontend(paths: dict, tag: str, fe, texts, solo: dict,
-                   card: str) -> list:
+                   card: str, phase: str = "d") -> list:
     """A frontend's rung warm pass, then D_SERIAL 32-query requests one
     at a time and D_SINGLE single-query requests from D_THREADS threads,
     each timed and held against its solo ``search_texts`` (scores within
-    TOL, ids equal where separated).  Returns the serial results."""
+    TOL, ids equal where separated); lines printed under ``phase``.
+    Returns the serial results."""
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
@@ -1380,7 +1430,7 @@ def drive_frontend(paths: dict, tag: str, fe, texts, solo: dict,
         if rung >= fe.max_batch:
             break
         rung = min(2 * rung, fe.max_batch)
-    print(f"[d] {tag} rung warm pass (1 .. {fe.max_batch}): "
+    print(f"[{phase}] {tag} rung warm pass (1 .. {fe.max_batch}): "
           f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
     serial_ms = []
 
@@ -1399,8 +1449,8 @@ def drive_frontend(paths: dict, tag: str, fe, texts, solo: dict,
     err = max(check_exact(f"{tag} request {r} vs solo search_texts",
                           out[0], out[1], *solo["serial"][r])
               for r, out in enumerate(serial_outs))
-    print(f"[d] {tag} {D_SERIAL} requests of 32 queries one at a time on "
-          f"{card}: ms {json.dumps([round(x, 3) for x in serial_ms])}, "
+    print(f"[{phase}] {tag} {D_SERIAL} requests of 32 queries one at a "
+          f"time on {card}: ms {json.dumps([round(x, 3) for x in serial_ms])}, "
           f"median {statistics.median(serial_ms):.3f}; vs solo "
           f"search_texts max abs error {err:.3g} (tol {TOL}), ids equal "
           f"where separated")
@@ -1425,11 +1475,11 @@ def drive_frontend(paths: dict, tag: str, fe, texts, solo: dict,
     err = max(check_exact(f"{tag} single request {i} vs solo search_texts",
                           out[0], out[1], *solo["single"][i])
               for i, out in enumerate(single_outs))
-    print(f"[d] {tag} {D_SINGLE} single-query requests from {D_THREADS} "
+    print(f"[{phase}] {tag} {D_SINGLE} single-query requests from {D_THREADS} "
           f"threads on {card}: {latency_summary(single_ms, wall, D_SINGLE)}"
           f" ({wall * 1e3:.3f} ms wall); vs solo search_texts max abs "
           f"error {err:.3g} (tol {TOL}), ids equal where separated")
-    print(f"[d] {tag} frontend stats: {json.dumps(fe.stats)}")
+    print(f"[{phase}] {tag} frontend stats: {json.dumps(fe.stats)}")
     return serial_outs
 
 
@@ -2331,7 +2381,7 @@ class ChaosCluster:
     (``stagger(rank)`` seconds of sleep first, where given)."""
 
     def __init__(self, dev, trove, world: int, score: str, heap: str,
-                 faults=(), **recovery):
+                 faults=(), index: dict | None = None, **recovery):
         from repro_torch.core.faults import FaultInjector
         from repro_torch.launch.distributed import SimulatedCluster
 
@@ -2339,7 +2389,7 @@ class ChaosCluster:
         self.cluster = SimulatedCluster(world, resilient=True)
         self.evs = [trove_evaluator(
             dev, trove, score, heap, recovery={**I_RECOVERY, **recovery},
-            process_index=r, process_count=world,
+            index=index, process_index=r, process_count=world,
             gather=self.cluster.gather, sharder=self.cluster.sharder,
             fault_injector=self.injector) for r in range(world)]
 
@@ -3147,6 +3197,913 @@ def data_memory(d: str, setup: subprocess.Popen) -> dict:
     return out
 
 
+# -- (k) the IVF index on the card --------------------------------------------
+
+# (k1)-(k4): (c)'s dataset behind K_CLUSTERS clusters, pruned rounds
+# probing K_NPROBE of them; K_SINGLE single-query searches show a lone
+# query's pruning.  (k5): K5_N seeded unit rows around K5_TOPICS topic
+# centres (the reference's ``_clustered`` recipe, tests/test_ivf.py),
+# indexed with K5_CLUSTERS clusters, searched by K5_REQUESTS requests of
+# K5_Q queries at each of K5_NPROBES and flat, and by K5_Q single
+# queries.
+K_CLUSTERS, K_NPROBE, K_SINGLE, K_LIVE_Q = 64, 8, 32, 32
+K_PAIRS = (("fused", "kernel"), ("torch", "kernel"))
+K5_N, K5_TOPICS, K5_CLUSTERS, K5_Q, K5_REQUESTS = 262_144, 512, 512, 32, 8
+K5_NPROBES = (8, 32, 512)
+# (train_steps, train_batch) of (k5)'s two builds: the reference's
+# defaults (each of 512 centroids sees ~80 rows in all), then batches of
+# 16,384 rows (~32 per centroid a step)
+K5_BUILDS = ((40, 1024), (40, 16384))
+
+
+def ivf(nprobe: int, nclusters: int = K_CLUSTERS) -> dict:
+    return {"index_impl": "ivf", "ivf_nclusters": nclusters,
+            "ivf_nprobe": nprobe}
+
+
+def same_ranking(name: str, ids, vals, want_ids, want_vals) -> int:
+    """Scores bitwise equal; ids equal except inside runs of exactly
+    equal scores, where the id sets match (a run cut by the end of a row
+    may hold other members of its tie group: only its scores are held).
+    A full probe scans the rows in cluster order, so among equal scores
+    another row may come first.  Returns the number of tied slots."""
+    import numpy as np
+    if vals.dtype != want_vals.dtype or not np.array_equal(vals, want_vals):
+        fail(f"{name}: scores not bitwise equal")
+    ties = 0
+    for r, wv in enumerate(want_vals):
+        start = 0
+        while start < len(wv):
+            end = start + 1
+            while end < len(wv) and wv[end] == wv[start]:
+                end += 1
+            if end - start == 1:
+                if ids[r, start] != want_ids[r, start]:
+                    fail(f"{name}: row {r} slot {start} id differs")
+            else:
+                ties += end - start
+                if end < len(wv) and (set(ids[r, start:end].tolist())
+                                      != set(want_ids[r, start:end].tolist())):
+                    fail(f"{name}: row {r} tie run {start}..{end} ids "
+                         f"differ")
+            start = end
+    return ties
+
+
+def exact_over(q, rows, row_ids):
+    """Exact float64 top-K of ``q @ rows.T`` on the card -> (ids, values
+    as float32), over at most K of the rows."""
+    import torch
+    scores = q.double() @ rows.double().T
+    v, p = torch.sort(scores, dim=1, descending=True, stable=True)
+    k = min(K, rows.shape[0])
+    return (row_ids[p[:, :k].cpu().numpy()],
+            v[:, :k].float().cpu().numpy())
+
+
+def check_exact_over(name, ids, vals, q, rows, row_ids) -> float:
+    """``check_exact`` against an exact float64 top-k over ``rows``."""
+    want_ids, want_vals = exact_over(q, rows, row_ids)
+    k = want_ids.shape[1]
+    return check_exact(name, ids[:, :k], vals[:, :k], want_ids, want_vals)
+
+
+def recall(ids, flat_ids) -> float:
+    """Mean recall@K of ``ids`` against the flat search's ids."""
+    import numpy as np
+    return float(np.mean([len(set(a.tolist()) & set(b.tolist())) / K
+                          for a, b in zip(ids, flat_ids)]))
+
+
+def selected_rows(prepared, q_emb):
+    """The store rows an IVF round of ``q_emb`` scans."""
+    index = prepared.index
+    return index.gather_rows(index.select(q_emb, prepared.nprobe))
+
+
+def fetch(dev, prepared, sel):
+    """``sel``'s rows of a prepared IVF corpus, as float32 on the card."""
+    import torch
+    rows = (torch.from_numpy(sel).to(dev) if prepared.rows_device is not None
+            else sel)
+    return torch.as_tensor(prepared.fetch_rows(rows)).to(dev)
+
+
+class BuildLog:
+    """Counts ``IVFIndex.build`` calls, and times the k-means training
+    and the row assignment inside them, by wrapping them here."""
+
+    def __init__(self):
+        self.builds = 0
+        self.kmeans_s: list = []
+        self.assign_s: list = []
+
+    def __enter__(self):
+        from repro_torch.index import ivf as ivf_mod
+        self._orig = (ivf_mod.IVFIndex.build, ivf_mod.train_kmeans,
+                      ivf_mod.assign_rows)
+        build, train, assign = self._orig
+
+        def timed(fn, into):
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                into.append(time.perf_counter() - t0)
+                return out
+            return call
+
+        def counted(cls, *a, **kw):
+            self.builds += 1
+            return build.__func__(cls, *a, **kw)
+
+        ivf_mod.IVFIndex.build = classmethod(counted)
+        ivf_mod.train_kmeans = timed(train, self.kmeans_s)
+        ivf_mod.assign_rows = timed(assign, self.assign_s)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.index import ivf as ivf_mod
+        (ivf_mod.IVFIndex.build, ivf_mod.train_kmeans,
+         ivf_mod.assign_rows) = self._orig
+
+
+def expect_builds(name: str, log: BuildLog, n: int) -> None:
+    if log.builds != n:
+        fail(f"{name}: {log.builds} IVFIndex.build calls, expected {n}")
+
+
+class SelectionLog:
+    """Per frontend micro-batch, its texts, query embeddings and the
+    store rows its IVF round selected, recorded by wrapping
+    ``EvaluatorServeBackend.begin`` and ``IVFPreparedCorpus.round_for``
+    (both run on the dispatcher thread) here, in the script."""
+
+    def __init__(self):
+        self.batches: list = []
+        self._texts = None
+
+    def __enter__(self):
+        from repro_torch.core.evaluator import IVFPreparedCorpus
+        from repro_torch.core.serving import EvaluatorServeBackend
+        self._orig = (EvaluatorServeBackend.begin,
+                      IVFPreparedCorpus.round_for)
+        begin, round_for = self._orig
+
+        def logged_begin(backend, texts, *a, **kw):
+            self._texts = list(texts)
+            return begin(backend, texts, *a, **kw)
+
+        def logged_round_for(prepared, q_emb):
+            out = round_for(prepared, q_emb)
+            if self._texts is not None:
+                self.batches.append((self._texts, q_emb.clone(),
+                                     selected_rows(prepared, q_emb)))
+                self._texts = None
+            return out
+
+        EvaluatorServeBackend.begin = logged_begin
+        IVFPreparedCorpus.round_for = logged_round_for
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.evaluator import IVFPreparedCorpus
+        from repro_torch.core.serving import EvaluatorServeBackend
+        EvaluatorServeBackend.begin, IVFPreparedCorpus.round_for = (
+            self._orig)
+
+    def batch_of(self, text: str, first: int = 0):
+        """(the query row for ``text``, the selection) of the first
+        recorded micro-batch from ``first`` on that holds ``text``."""
+        for texts, q_emb, sel in self.batches[first:]:
+            if text in texts:
+                i = texts.index(text)
+                return q_emb[i: i + 1], sel
+        fail(f"no recorded micro-batch holds {text!r}")
+
+
+def phase_ivf(dev, card: str, trove: dict) -> tuple[dict, list]:
+    """(k) the IVF index on the card: (k2) a cold and warm cached
+    evaluate, (k1) device-resident prepared corpora against flat, (k3)
+    W > 1 with every rank's own build and a crash, (k4) serving, (k2)
+    a live corpus, (k5) a 262,144-row corpus.  Returns each path's
+    launches and K1's timing at (k5)'s pruned serving round."""
+    from repro_torch.core.embedding_cache import EmbeddingCache
+
+    paths: dict = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = EmbeddingCache(os.path.join(tmp, "cache"), D)
+        ivf_cached_passes(dev, card, trove, cache, paths)
+        prepared = ivf_prepared(dev, card, trove, cache, paths)
+        ivf_workers(dev, card, trove, cache, prepared, tmp, paths)
+        ivf_serving(dev, card, trove, cache, prepared, tmp, paths)
+        del prepared
+        ivf_live(dev, card, trove, cache, paths)
+    timing = ivf_at_scale(dev, card, trove, paths)
+    print(f"[k] phase (k): {time.perf_counter() - t_phase:.1f} s")
+    return paths, [timing]
+
+
+def ivf_cached_passes(dev, card, trove, cache, paths) -> None:
+    """(k2) a cold ``evaluate(cache=)`` builds and saves the index; the
+    first warm pass keys it by the pinned snapshot's generation (a
+    rebuild, as in the reference), the next loads it; flat and pruned
+    metrics; a warm ``mine_hard_negatives``."""
+    import numpy as np
+
+    queries, corpus, qrels = (trove["queries"], trove["corpus"],
+                              trove["qrels"])
+    ev = trove_evaluator(dev, trove, index=ivf(K_NPROBE))
+    index_dir = os.path.join(cache.path, f"ivf_k{K_CLUSTERS}")
+
+    def want(_):
+        return predicted(ev, "fused", "kernel")
+
+    with BuildLog() as log:
+        t0 = time.perf_counter()
+        cold = on_path(paths, "(k2) cold evaluate(cache=) nprobe 8 (fused, "
+                       "kernel)", "fused_score_topk",
+                       lambda: ev.evaluate(queries, corpus, qrels,
+                                           cache=cache), want)
+        cold_s = time.perf_counter() - t0
+    expect_builds("(k2) cold evaluate", log, 1)
+    if not os.path.exists(os.path.join(index_dir, "meta.json")):
+        fail(f"(k2) no index saved under {index_dir}")
+    print(f"[k] (k2) cold evaluate(cache=) nprobe {K_NPROBE} (fused, kernel) "
+          f"on {card}: {cold_s:.3f} s, one build (k-means "
+          f"{log.kmeans_s[0]:.3f} s, assignment {log.assign_s[0]:.3f} s), "
+          f"saved to ivf_k{K_CLUSTERS}; metrics {rounded(cold)}")
+    warm = []
+    for i in range(2):
+        with BuildLog() as log:
+            t0 = time.perf_counter()
+            warm.append(on_path(
+                paths, f"(k2) warm search {i + 1} nprobe 8 (fused, kernel)",
+                "fused_score_topk",
+                lambda: ev.search(queries, corpus, cache=cache), want))
+            warm_s = time.perf_counter() - t0
+        expect_builds(f"(k2) warm search {i + 1}", log, 1 - i)
+        print(f"[k] (k2) warm search {i + 1} on {card}: {warm_s:.3f} s, "
+              f"{log.builds} build(s)"
+              + (" (the snapshot's generation keys the index)" if i == 0
+                 else ", the persisted index loaded"))
+    same_bits("(k2) warm search 2 vs 1", warm[1], warm[0])
+    with BuildLog() as log:
+        pruned = on_path(paths, "(k2) warm evaluate nprobe 8 (fused, "
+                         "kernel)", "fused_score_topk",
+                         lambda: ev.evaluate(queries, corpus, qrels,
+                                             cache=cache), want)
+        expect_builds("(k2) warm evaluate", log, 0)
+        flat_ev = trove_evaluator(dev, trove)
+        flat = on_path(paths, "(k2) warm evaluate flat (fused, kernel)",
+                       "fused_score_topk",
+                       lambda: flat_ev.evaluate(queries, corpus, qrels,
+                                                cache=cache),
+                       lambda _: predicted(flat_ev, "fused", "kernel"))
+        negs = on_path(paths, "(k2) warm mine_hard_negatives nprobe 8 "
+                       "(fused, kernel)", "fused_score_topk",
+                       lambda: ev.mine_hard_negatives(
+                           queries, corpus, qrels, depth=20, cache=cache),
+                       want)
+        expect_builds("(k2) warm evaluate and mine", log, 0)
+    if not negs or not np.isfinite([s for _, _, s in negs]).all():
+        fail("(k2) mine_hard_negatives returned nothing / non-finite")
+    st = ev.last_search_stats
+    print(f"[k] (k2) warm search 2 bitwise equal to warm search 1; warm "
+          f"evaluate metrics flat {rounded(flat)}, nprobe {K_NPROBE} "
+          f"{rounded(pruned)} ({st['items']} of {len(corpus)} rows scanned "
+          f"for the {len(queries)}-query batch); mine_hard_negatives "
+          f"{len(negs)} triplets")
+
+
+def ivf_prepared(dev, card, trove, cache, paths):
+    """(k1) device-resident prepared corpora over the warm cache's rows:
+    a full probe against flat (scores bitwise, ids outside exact ties)
+    on both pairs, and nprobe 8 against an exact float64 top-k over the
+    selected rows, for the 256-query batch and for single queries.
+    Returns the nprobe-8 prepared corpus."""
+    import numpy as np
+    import torch
+
+    queries, corpus = trove["queries"], trove["corpus"]
+    texts = list(queries.values())
+    flat = trove_evaluator(dev, trove).prepare_corpus(
+        corpus, cache, device_resident=True)
+    with BuildLog() as log:
+        full = trove_evaluator(dev, trove, index=ivf(K_CLUSTERS)
+                               ).prepare_corpus(corpus, cache,
+                                                device_resident=True)
+        expect_builds("(k1) full-probe prepare", log, 1)
+        pruned = trove_evaluator(dev, trove, index=ivf(K_NPROBE)
+                                 ).prepare_corpus(corpus, cache,
+                                                  device_resident=True)
+        expect_builds("(k1) nprobe 8 prepare (the index loaded)", log, 1)
+    n = len(corpus)
+    if full.rows_device != dev or not torch.equal(
+            fetch(dev, full, np.arange(n)), flat.load_chunk(0, n)):
+        fail("(k1) the IVF store is not the flat rows on the card")
+    for name in ("centroids", "perm", "offsets"):
+        if not np.array_equal(getattr(full.index, name),
+                              getattr(pruned.index, name)):
+            fail(f"(k1) the loaded index's {name} differs from the built")
+    sizes = full.index.cluster_sizes()
+    print(f"[k] (k1) {K_CLUSTERS} clusters over {n} rows: sizes "
+          f"{int(sizes.min())}..{int(sizes.max())}, "
+          f"{int((sizes == 0).sum())} empty; k-means "
+          f"{log.kmeans_s[0]:.3f} s, assignment {log.assign_s[0]:.3f} s "
+          f"on {card}")
+    q_emb = query_embeddings(dev, trove, texts)
+    sel = selected_rows(pruned, q_emb)
+    singles = texts[:K_SINGLE]
+    flat_single = None
+    for score, heap in K_PAIRS:
+        pair = f"({score}, {heap})"
+        evs = {name: trove_evaluator(dev, trove, score, heap, index=index)
+               for name, index in (("flat", None),
+                                   ("full", ivf(K_CLUSTERS)),
+                                   ("pruned", ivf(K_NPROBE)))}
+        kernel = path_kernel(score, heap)
+        out = {}
+        for name, prep in (("flat", flat), ("full", full),
+                           ("pruned", pruned)):
+            ev = evs[name]
+            out[name] = on_path(
+                paths, f"(k1) search_prepared {name} {pair}", kernel,
+                lambda ev=ev, prep=prep: ev.search_prepared(queries, prep),
+                lambda _, ev=ev: predicted(ev, score, heap))
+        ties = same_ranking(f"(k1) full probe vs flat {pair}",
+                            out["full"][1], out["full"][2], out["flat"][1],
+                            out["flat"][2])
+        _, ids, vals = out["pruned"]
+        err = check_exact_over(f"(k1) nprobe 8 {pair}", ids, vals, q_emb,
+                               fetch(dev, pruned, sel), pruned.hashes[sel])
+        print(f"[k] (k1) {pair}: full probe vs flat scores bitwise, ids "
+              f"equal outside {ties} tied slots; nprobe {K_NPROBE} over "
+              f"{len(sel)} of {n} rows for {len(texts)} queries: vs exact "
+              f"float64 top-k {err:.3g} (tol {TOL}), recall@{K} vs flat "
+              f"{recall(ids, out['flat'][1]):.4f}")
+        # a lone query probes its own clusters only
+        ev = evs["pruned"]
+        if flat_single is None:
+            flat_ms, flat_single = [], []
+            for t in singles:
+                t0 = time.perf_counter()
+                flat_single.append(evs["flat"].search_texts([t], flat))
+                flat_ms.append((time.perf_counter() - t0) * 1e3)
+        single_ms = []
+
+        def run_singles(ev=ev):
+            outs = []
+            for t in singles:
+                t0 = time.perf_counter()
+                outs.append(ev.search_texts([t], pruned))
+                single_ms.append((time.perf_counter() - t0) * 1e3)
+            return outs
+
+        log = RoundLog()
+
+        def logged():
+            with log:
+                return run_singles()
+        outs = on_path(paths, f"(k1) {K_SINGLE} single-query search_texts "
+                       f"nprobe 8 {pair}", kernel, logged,
+                       lambda _: predict(log.stats, score, heap))
+        scanned, err = [], 0.0
+        for t, (ids, vals) in zip(singles, outs):
+            q1 = ev._encode_texts([t], True, device=True)
+            rows = selected_rows(pruned, q1)
+            scanned.append(len(rows))
+            err = max(err, check_exact_over(
+                f"(k1) single {pair}", ids, vals, q1,
+                fetch(dev, pruned, rows), pruned.hashes[rows]))
+        rec = recall(np.concatenate([o[0] for o in outs]),
+                     np.concatenate([o[0] for o in flat_single]))
+        print(f"[k] (k1) {K_SINGLE} single-query search_texts nprobe "
+              f"{K_NPROBE} {pair} on {card}: median "
+              f"{statistics.median(single_ms):.3f} ms (flat, fused: "
+              f"{statistics.median(flat_ms):.3f}), rows scanned mean "
+              f"{statistics.mean(scanned):.1f} of {n}; vs exact float64 "
+              f"top-k {err:.3g}; recall@{K} vs flat {rec:.4f}")
+    return pruned
+
+
+def ivf_workers(dev, card, trove, cache, pruned, tmp, paths) -> None:
+    """(k3) a device-resident IVF corpus at W = 1, 2, 4, every rank
+    preparing from its own copy of the cache, so each builds its own
+    index: the indexes bitwise equal across ranks and builds, every rank
+    bitwise equal to W = 1, every cut on a cluster edge; then a crash at
+    W = 2 over the pruned space, and the round after it."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.core.embedding_cache import EmbeddingCache
+    from repro_torch.core.fair_sharding import FairSharder
+    from repro_torch.launch.distributed import SimulatedCluster
+
+    corpus = trove["corpus"]
+    texts = list(trove["queries"].values())
+    batch = texts[:I_Q]
+    own, first = {}, None
+    for label, world in (("W=1", 1), ("W=1 again", 1), ("W=2", 2),
+                         ("W=4", 4)):
+        caches = []
+        for r in range(world):
+            path = os.path.join(tmp, f"rank-cache-{len(own)}-{r}")
+            shutil.copytree(cache.path, path,
+                            ignore=shutil.ignore_patterns("ivf_k*"))
+            caches.append(EmbeddingCache(path, D))
+        evs = [trove_evaluator(dev, trove, index=ivf(K_NPROBE))
+               for _ in range(world)]
+        with BuildLog() as log:
+            t0 = time.perf_counter()
+            preps = SimulatedCluster(world).run(
+                lambda r: evs[r].prepare_corpus(corpus, caches[r],
+                                                device_resident=True))
+            prep_s = time.perf_counter() - t0
+        expect_builds(f"(k3) {label} prepares", log, world)
+        if first is None:
+            first = preps[0]
+        for r, p in enumerate(preps):
+            for name in ("centroids", "perm", "offsets"):
+                if not np.array_equal(getattr(p.index, name),
+                                      getattr(first.index, name)):
+                    fail(f"(k3) {label} rank {r}'s {name} differs from "
+                         f"the first build's")
+        own[label] = preps
+        print(f"[k] (k3) {label}: each rank built its own index from its "
+              f"own cache copy, concurrently ({prep_s:.3f} s for the "
+              f"prepares, k-means {max(log.kmeans_s):.3f} s at most): "
+              f"centroids, perm and offsets bitwise equal to the first "
+              f"build's")
+    q32 = query_embeddings(dev, trove, batch)
+    q_all = query_embeddings(dev, trove, texts)
+    for score, heap in K_PAIRS:
+        pair = f"({score}, {heap})"
+        kernel = path_kernel(score, heap)
+        w1_ev = trove_evaluator(dev, trove, score, heap, index=ivf(K_NPROBE))
+        w1 = (w1_ev.search_prepared(trove["queries"], own["W=1"][0])[1:],
+              tuple(w1_ev.search_texts(batch, own["W=1"][0])))
+        for world in (2, 4):
+            cluster = SimulatedCluster(world)
+            evs = [trove_evaluator(dev, trove, score, heap,
+                                   index=ivf(K_NPROBE), process_index=r,
+                                   process_count=world,
+                                   gather=cluster.gather,
+                                   sharder=cluster.sharder)
+                   for r in range(world)]
+            preps = own[f"W={world}"]
+            for tag, q, fn, want in (
+                    ("256-query search_prepared", q_all,
+                     lambda r: evs[r].search_prepared(trove["queries"],
+                                                      preps[r])[1:], w1[0]),
+                    ("32-query search_texts", q32,
+                     lambda r: tuple(evs[r].search_texts(batch, preps[r])),
+                     w1[1])):
+                t0 = time.perf_counter()
+                outs = on_path(
+                    paths, f"(k3) W={world} {tag} nprobe 8 {pair}", kernel,
+                    lambda fn=fn: cluster.run(fn),
+                    lambda _: predict([e.last_search_stats for e in evs],
+                                      score, heap))
+                wall = (time.perf_counter() - t0) * 1e3
+                for r, o in enumerate(outs):
+                    same_bits(f"(k3) W={world} {tag} {pair} rank {r}", o,
+                              want)
+                edges = set(preps[0].index.slice_boundaries(
+                    preps[0].index.select(q, K_NPROBE)).tolist())
+                cuts = [(e.last_search_stats["lo"], e.last_search_stats["hi"])
+                        for e in evs]
+                if not all(lo in edges and hi in edges for lo, hi in cuts):
+                    fail(f"(k3) W={world} {tag} {pair}: cuts {cuts} not on "
+                         f"the space's cluster edges")
+                print(f"[k] (k3) W={world} {tag} nprobe {K_NPROBE} {pair} "
+                      f"on {card}: {wall:.3f} ms; shards {cuts} on cluster "
+                      f"edges; every rank bitwise equal to W=1")
+
+    # the chaos matrix's ivf half: a crash at worker 1 in round 0, W = 2
+    batches = [texts[I_Q * i: I_Q * (i + 1)] for i in range(2)]
+    for score, heap in K_PAIRS:
+        pair = f"({score}, {heap})"
+        w1_ev = trove_evaluator(dev, trove, score, heap, index=ivf(K_NPROBE))
+        want = [w1_ev.search_texts(b, pruned) for b in batches]
+        cc = ChaosCluster(dev, trove, 2, score, heap, [chaos_fault("crash")],
+                          index=ivf(K_NPROBE))
+        tag = f"(k3) W=2 crash, nprobe 8 {pair}"
+        space = pruned.round_for(query_embeddings(dev, trove, batches[0]))[0]
+        snapped = FairSharder(2).bounds(len(space),
+                                        space.partition_boundaries)
+        (outs, wall, _), stats = logged_path(
+            paths, f"{tag} round 0", score, heap,
+            lambda: cc.round(lambda r, ev: ev.search_texts(batches[0],
+                                                           pruned)))
+        check_recovered(tag, outs, want[0])
+        rescued = [r for st in stats for r in st["rescored"]]
+        if rescued != [snapped[1]] or cc.cluster.health.dead != {1}:
+            fail(f"{tag}: rescored {rescued}, not worker 1's snapped shard "
+                 f"{snapped[1]}; dead {cc.cluster.health.dead}")
+        q1 = query_embeddings(dev, trove, batches[1])
+        space = pruned.round_for(q1)[0]
+        edges = space.partition_boundaries
+        (outs, _, after_ms), stats = logged_path(
+            paths, f"{tag} round 1", score, heap,
+            lambda: cc.round(lambda r, ev: ev.search_texts(batches[1],
+                                                           pruned)))
+        check_recovered(f"{tag} round 1", outs, want[1])
+        bounds = cc.cluster.sharder.bounds(len(space), edges)
+        shards = sorted((st["lo"], st["hi"]) for st in stats)
+        if (len(stats) != 1 or bounds[1][0] != bounds[1][1]
+                or not {b for lo_hi in bounds for b in lo_hi}
+                <= set(edges.tolist())
+                or shards != [(0, len(space))]):
+            fail(f"{tag} round 1: bounds {bounds}, survivors' shards "
+                 f"{shards}")
+        print(f"[k] {tag}: worker 1's snapped shard {snapped[1]} rescored, "
+              f"every rank bitwise equal to W=1 with coverage 1 (the "
+              f"survivor's round {wall[0]:.3f} ms); round 1: rank 1 dead "
+              f"with an empty shard, cuts {bounds} on cluster edges, "
+              f"{after_ms:.3f} ms")
+
+
+def ivf_serving(dev, card, trove, cache, pruned, tmp, paths) -> None:
+    """(k4) ``ServeFrontend.from_evaluator`` over an IVF device-resident
+    corpus: at nprobe = nclusters each request held against its flat solo
+    ``search_texts``; at nprobe 8 against an exact top-k over its
+    micro-batch's selection, and above its solo pruned search; then
+    ``serve.main --index-impl ivf`` at ``--workers 1`` and ``2``."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.core import sharded_search
+    from repro_torch.core.serving import ServeFrontend
+    from repro_torch.data.synthetic import make_retrieval_dataset
+    from repro_torch.launch import serve
+
+    queries, corpus = trove["queries"], trove["corpus"]
+    texts = list(queries.values())
+    flat_ev = trove_evaluator(dev, trove)
+    flat = flat_ev.prepare_corpus(corpus, cache, device_resident=True)
+    solo = {"serial": [flat_ev.search_texts(texts[32 * r: 32 * (r + 1)],
+                                            flat)
+                       for r in range(D_SERIAL)],
+            "single": [flat_ev.search_texts([t], flat)
+                       for t in texts[:D_SINGLE]]}
+    with BuildLog() as log:
+        fe = ServeFrontend.from_evaluator(
+            trove_evaluator(dev, trove, index=ivf(K_CLUSTERS)), corpus, cache)
+    expect_builds("(k4) full-probe frontend (the index loaded)", log, 0)
+    try:
+        drive_frontend(paths, "(k4) nprobe 64", fe, texts, solo, card,
+                       phase="k")
+    finally:
+        fe.close()
+    del flat
+
+    ev = trove_evaluator(dev, trove, index=ivf(K_NPROBE))
+    fe = ServeFrontend.from_evaluator(ev, corpus, cache)
+    prepared = fe.backend.prepared
+    sel_log = SelectionLog()
+    requests = [texts[32 * r: 32 * (r + 1)] for r in range(D_SERIAL)] + [
+        [t] for t in texts[:D_SINGLE]]
+    try:
+        t0 = time.perf_counter()
+        rung = 1
+        while rung <= fe.max_batch:
+            fe.search(texts[:rung], timeout=D_RESULT_S)
+            rung *= 2
+        warm_ms = (time.perf_counter() - t0) * 1e3
+
+        def serve_all():
+            from concurrent.futures import ThreadPoolExecutor
+            with sel_log:
+                outs = [fe.search(r, timeout=D_RESULT_S)
+                        for r in requests[:D_SERIAL]]
+                with ThreadPoolExecutor(
+                        D_THREADS, thread_name_prefix="serve-client") as pool:
+                    outs += list(pool.map(
+                        lambda r: fe.submit(r).result(timeout=D_RESULT_S),
+                        requests[D_SERIAL:]))
+            return outs
+
+        t0 = time.perf_counter()
+        outs = serving_path(paths, f"(k4) nprobe 8 {D_SERIAL} x 32 + "
+                            f"{D_SINGLE} single requests (fused, kernel)",
+                            serve_all)
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        fe.close()
+    if [b[0] for b in sel_log.batches[:D_SERIAL]] != requests[:D_SERIAL]:
+        fail("(k4) a 32-query request was not a micro-batch of its own")
+    err, above, grew = 0.0, 0, 0
+    for r, (request, (ids, vals)) in enumerate(zip(requests, outs)):
+        for j, t in enumerate(request):
+            q1, sel = sel_log.batch_of(t, r if r < D_SERIAL else D_SERIAL)
+            err = max(err, check_exact_over(
+                f"(k4) nprobe 8 request {t[:20]!r}", ids[j:j + 1],
+                vals[j:j + 1], q1, fetch(dev, prepared, sel),
+                prepared.hashes[sel]))
+            own = selected_rows(prepared, q1)
+            grew += len(sel) > len(own)
+        solo_ids, solo_vals = ev.search_texts(request, prepared)
+        if not (vals >= solo_vals - TOL).all():
+            fail(f"(k4) nprobe 8: a request scored below its solo pruned "
+                 f"search")
+        above += int((vals > solo_vals + TOL).any())
+    sizes = [len(sel) for _, _, sel in sel_log.batches]
+    print(f"[k] (k4) nprobe {K_NPROBE} frontend on {card}: rung warm pass "
+          f"{warm_ms:.3f} ms; {len(requests)} requests in {wall:.3f} ms over "
+          f"{len(sel_log.batches)} micro-batches scanning "
+          f"{min(sizes)}..{max(sizes)} rows; each request vs an exact "
+          f"float64 top-k over its micro-batch's clusters {err:.3g} (tol "
+          f"{TOL}); {grew} queries scanned more than their own clusters, "
+          f"{above} requests scored above their solo pruned search, none "
+          f"below; frontend stats {json.dumps(fe.stats)}")
+
+    # the launcher, over (c)'s dataset with the warm cache copied in (its
+    # corpus is (c)'s, same seed), so it encodes no corpus row
+    rungs = (1, 2, 4, 8, 16, 32)
+    for q in rungs:
+        sharded_search.autotune_superchunk_size(q, D, C, K, "fused",
+                                                "kernel", dev.type)
+    n_tuned = len(sharded_search._AUTOTUNE_CACHE)
+    data = os.path.join(tmp, "serve-data")
+    _, k4_corpus, _ = make_retrieval_dataset(
+        data, n_queries=len(queries), n_docs=len(corpus), n_topics=64,
+        seed=SEED)
+    if list(k4_corpus) != list(corpus):
+        fail("(k4) the launcher's dataset is not (c)'s")
+    shutil.copytree(cache.path, os.path.join(data, "emb_cache"))
+    argv = ["--data-dir", data, "--device", dev.type, "--topk", str(K),
+            "--n-requests", str(D_SINGLE), "--batch", "1", "--concurrency",
+            str(D_THREADS), "--max-batch", str(rungs[-1]), "--index-impl",
+            "ivf", "--nclusters", str(K_CLUSTERS), "--nprobe", str(K_NPROBE)]
+    for workers in ("1", "2"):
+        out = io.StringIO()
+        served = ServedLog()
+
+        def run(workers=workers, out=out, served=served):
+            with contextlib.redirect_stdout(out), served:
+                return serve.main(argv + ["--workers", workers])
+
+        tag = f"(k4) serve.main --index-impl ivf --workers {workers}"
+        try:
+            with BuildLog() as log:
+                stats = serving_path(paths, f"{tag} (fused, kernel)", run)
+            held = check_served_pruned(tag, served)
+        finally:
+            served.close()
+        if len(sharded_search._AUTOTUNE_CACHE) != n_tuned:
+            fail(f"{tag}: the warm pass autotuned a new key")
+        fs = stats["frontend"]
+        if (fs["completed"] != D_SINGLE + len(rungs) or fs["failed"]
+                or not np.isfinite([stats["p50_ms"], stats["p99_ms"],
+                                    stats["qps"]]).all()):
+            fail(f"{tag}: {json.dumps(fs)}")
+        print(f"[k] {tag} ({stats['label']}, {D_SINGLE} single-query "
+              f"requests from {D_THREADS} threads) on {card}: p50 "
+              f"{stats['p50_ms']:.3f} ms, p99 {stats['p99_ms']:.3f} ms, "
+              f"{stats['qps']:.1f} queries/s; {fs['batches']} micro-batches,"
+              f" {log.builds} index build(s); {held}")
+
+
+def check_served_pruned(tag: str, served: ServedLog) -> str:
+    """(k4)'s launcher results: shapes (1, K), finite descending scores,
+    and each request's scores at least its solo pruned ``search_texts``
+    over the backend's own prepared corpus (rank 0's at W = 2), within
+    TOL: a coalesced micro-batch scans a superset of its clusters."""
+    import numpy as np
+
+    from repro_torch.core.evaluator import RetrievalEvaluator
+
+    if len(served.frontends) != 1 or len(served.requests) != D_SINGLE:
+        fail(f"{tag}: {len(served.frontends)} frontends, "
+             f"{len(served.requests)} requests recorded")
+    backend = served.frontends[0].backend
+    if hasattr(backend, "evs"):
+        rank0 = backend.evs[0]
+        ev = RetrievalEvaluator(rank0.args, rank0.retriever, rank0.collator,
+                                rank0.params, device=rank0.device,
+                                process_index=0, process_count=1)
+        prepared = backend.prepared[0]
+    else:
+        ev, prepared = backend.ev, backend.prepared
+    above = 0
+    for i, (texts, fut) in enumerate(served.requests):
+        ids, vals = fut.result(timeout=D_RESULT_S)
+        _, solo = ev.search_texts(texts, prepared)
+        if (ids.shape != (1, K) or not np.isfinite(vals).all()
+                or (np.diff(vals, axis=1) > 0).any()
+                or not (vals >= solo - TOL).all()):
+            fail(f"{tag} request {i}: ids {ids.shape}, scores below its "
+                 f"solo pruned search or not finite and descending")
+        above += int((vals > solo + TOL).any())
+    return (f"every request finite, descending and at least its solo "
+            f"pruned search ({above} above it)")
+
+
+def ivf_live(dev, card, trove, cache, paths) -> None:
+    """(k2) a live corpus through ``prepare_cache_corpus``: deletes and
+    adds, then a compaction into ``cluster_order``; each new generation
+    rebuilds the index (its digest holds the generation), a second
+    prepare at one generation loads it, and each search equals an exact
+    float64 top-k over its snapshot's selected rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.index.ivf import cluster_order
+
+    batch = list(trove["queries"].values())[:K_LIVE_Q]
+    ev = trove_evaluator(dev, trove, index=ivf(K_NPROBE))
+    q = ev._encode_texts(batch, True, device=True)
+
+    def live_search(tag: str) -> None:
+        with BuildLog() as log:
+            prepared = ev.prepare_cache_corpus(cache)
+            again = ev.prepare_cache_corpus(cache)
+            again.close()
+        try:
+            expect_builds(f"(k2) live {tag}", log, 1)
+            ids, vals = on_path(
+                paths, f"(k2) live search_texts {tag} (fused, kernel)",
+                "fused_score_topk",
+                lambda: ev.search_texts(batch, prepared),
+                lambda _: predicted(ev, "fused", "kernel"))
+            sel = selected_rows(prepared, q)
+            rows = torch.from_numpy(prepared.snapshot.get_rows(sel).astype(
+                np.float32)).to(dev)
+            err = check_exact_over(f"(k2) live {tag}", ids, vals, q, rows,
+                                   prepared.hashes[sel])
+            print(f"[k] (k2) live {tag}: generation {prepared.generation}, "
+                  f"{prepared.n_docs} live rows, one build (a second "
+                  f"prepare loaded it); {len(sel)} rows scanned, vs exact "
+                  f"float64 top-k over the snapshot's rows {err:.3g} (tol "
+                  f"{TOL})")
+        finally:
+            prepared.close()
+
+    live_search("seed")
+    rng = np.random.default_rng(SEED + 7)
+    live = cache.snapshot()
+    victims = live.ids[rng.choice(live.n_live, LIVE_DELETE, replace=False)]
+    live.close()
+    cache.delete_records(victims)
+    cache.cache_records([f"k-live-{i}" for i in range(LIVE_ADD)],
+                        unit_rows(rng, LIVE_ADD))
+    live_search(f"after {LIVE_DELETE} deletes and {LIVE_ADD} adds")
+    snap = cache.snapshot()
+    try:
+        order = cluster_order(
+            lambda lo, hi: snap.get_range(lo, hi).astype(np.float32),
+            snap.n_live, K_CLUSTERS, device=dev)
+    finally:
+        snap.close()
+    print(f"[k] (k2) compact(order=cluster_order): "
+          f"{json.dumps(cache.compact(order=order))}")
+    live_search("after compaction into cluster_order")
+
+
+def ivf_at_scale(dev, card, trove, paths) -> dict:
+    """(k5) K5_N seeded unit rows on the card around K5_TOPICS topic
+    centres, indexed twice (K5_BUILDS: the reference's k-means budget,
+    then larger batches): each build's k-means and assignment times and
+    cluster sizes, then K5_REQUESTS requests of K5_Q queries at each
+    nprobe and flat, and K5_Q single-query requests at the first nprobe;
+    the full probe held against flat as (k1) holds it.  Returns K1's
+    timing at the pruned serving round (the first build, the first
+    nprobe): one superchunk of its rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.evaluator import IVFPreparedCorpus
+    from repro_torch.index import IVFIndex
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def normed(x):
+        return x / x.norm(dim=1, keepdim=True)
+
+    t0 = time.perf_counter()
+    centers = normed(torch.randn(K5_TOPICS, D, generator=g, device=dev))
+    topic = torch.randint(0, K5_TOPICS, (K5_N,), generator=g, device=dev)
+    docs = normed(centers[topic] + 0.12 * torch.randn(
+        K5_N, D, generator=g, device=dev))
+    picks = torch.randperm(K5_N, generator=g, device=dev)[:K5_Q * K5_REQUESTS]
+    queries = normed(docs[picks] + 0.04 * torch.randn(
+        len(picks), D, generator=g, device=dev))
+    del centers, topic
+    torch.cuda.synchronize()
+    print(f"[k] (k5) {K5_N} unit rows x {D} float32 around {K5_TOPICS} "
+          f"topics drawn on {card} ({K5_N * D * 4 / 2**30:.2f} GiB) in "
+          f"{time.perf_counter() - t0:.3f} s")
+    hashes = np.arange(K5_N, dtype=np.int64)
+    ev = trove_evaluator(dev, trove)
+    requests = [queries[K5_Q * r: K5_Q * (r + 1)] for r in range(K5_REQUESTS)]
+    singles = [requests[0][i: i + 1] for i in range(K5_Q)]
+
+    def run(space_for, batches):
+        outs, ms, scanned, stats = [], [], [], []
+        for qb in batches:
+            t0 = time.perf_counter()
+            sized, load_chunk, to_ids = space_for(qb)
+            driver = ev.make_driver()
+            vals, pos = driver.search(qb, sized, load_chunk, K)
+            outs.append((to_ids(pos), vals))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            scanned.append(len(sized) if not isinstance(sized, int)
+                           else sized)
+            stats.append(driver.stats)
+        return outs, ms, scanned, stats
+
+    def flat_space(qb):
+        return K5_N, lambda lo, hi: docs[lo:hi], lambda pos: np.where(
+            pos >= 0, hashes[np.clip(pos, 0, None)], -1)
+
+    def counted(name, space_for, batches):
+        return on_path(paths, f"(k5) {name} (fused, kernel)",
+                       "fused_score_topk",
+                       lambda: run(space_for, batches),
+                       lambda r: predict(r[3], "fused", "kernel"))
+
+    flat = counted(f"{K5_REQUESTS} x {K5_Q}-query requests flat", flat_space,
+                   requests)
+    flat_ids = np.concatenate([o[0] for o in flat[0]])
+    timing = None
+    for steps, batch in K5_BUILDS:
+        knobs = f"train_steps {steps}, train_batch {batch}"
+        with BuildLog() as log:
+            t0 = time.perf_counter()
+            index = IVFIndex.build(lambda lo, hi: docs[lo:hi], K5_N,
+                                   K5_CLUSTERS, train_steps=steps,
+                                   train_batch=batch, device=dev)
+            build_s = time.perf_counter() - t0
+        sizes = index.cluster_sizes()
+        print(f"[k] (k5) IVFIndex.build, {K5_CLUSTERS} clusters, {knobs}, on "
+              f"{card}: {build_s:.3f} s (k-means {log.kmeans_s[0]:.3f} s, "
+              f"assignment {log.assign_s[0]:.3f} s); cluster sizes "
+              f"{int(sizes.min())}..{int(sizes.max())}, median "
+              f"{float(np.median(sizes)):.0f}, {int((sizes == 0).sum())} "
+              f"empty")
+
+        def space(nprobe, index=index):
+            return IVFPreparedCorpus(hashes, K5_N, lambda rows: docs[rows],
+                                     index, nprobe, rows_device=dev)
+
+        for nprobe in K5_NPROBES:
+            outs, ms, scanned, _ = counted(
+                f"{K5_REQUESTS} x {K5_Q}-query requests nprobe {nprobe}, "
+                f"{knobs}", space(nprobe).round_for, requests)
+            held = "pruned"
+            if nprobe >= K5_CLUSTERS:
+                ties = sum(same_ranking(
+                    f"(k5) nprobe {nprobe} request {r} vs flat", o[0], o[1],
+                    f[0], f[1]) for r, (o, f) in enumerate(zip(outs,
+                                                               flat[0])))
+                held = (f"scores bitwise equal to flat, ids outside {ties} "
+                        f"tied slots")
+            rec = recall(np.concatenate([o[0] for o in outs]), flat_ids)
+            print(f"[k] (k5) nprobe {nprobe}, {knobs}, on {card}: median "
+                  f"{statistics.median(ms):.3f} ms a {K5_Q}-query request "
+                  f"(flat {statistics.median(flat[1]):.3f}), rows scanned "
+                  f"mean {statistics.mean(scanned):.0f} of {K5_N}, recall@"
+                  f"{K} vs flat {rec:.4f}; {held}")
+        nprobe = K5_NPROBES[0]
+        outs, ms, scanned, _ = counted(
+            f"{K5_Q} single-query requests nprobe {nprobe}, {knobs}",
+            space(nprobe).round_for, singles)
+        rec = recall(np.concatenate([o[0] for o in outs]),
+                     flat_ids[:K5_Q])
+        print(f"[k] (k5) {K5_Q} single-query requests nprobe {nprobe}, "
+              f"{knobs}, on {card}: median {statistics.median(ms):.3f} ms, "
+              f"rows scanned mean {statistics.mean(scanned):.0f} of {K5_N},"
+              f" recall@{K} vs flat {rec:.4f}")
+        if timing is None:
+            # K1 at the pruned serving round: the first superchunk of
+            # request 0's space at the first nprobe
+            sized, load_chunk, _ = space(nprobe).round_for(requests[0])
+            n = min(len(sized), S * C)
+            rows = load_chunk(0, n)
+            n_steps = -(-n // C)
+            tile = torch.cat([rows, rows.new_zeros((n_steps * C - n, D))]
+                             ).view(n_steps, C, D)
+            start = torch.arange(n_steps, dtype=torch.int32, device=dev) * C
+            timing = k1_time(
+                dev, requests[0].contiguous(), tile, start,
+                (n - start).clamp_(max=C),
+                f"Q={K5_Q} S={n_steps} C={C} d={D} k={K}, (k5) nprobe "
+                f"{nprobe} round's first superchunk ({len(sized)} rows a "
+                f"round)", phase="k")
+    again = counted(f"{K5_REQUESTS} x {K5_Q}-query requests flat, again",
+                    flat_space, requests)
+    print(f"[k] (k5) flat on {card}: median "
+          f"{statistics.median(flat[1]):.3f} ms a {K5_Q}-query request "
+          f"before the IVF requests, {statistics.median(again[1]):.3f} ms "
+          f"after them")
+    return timing
+
+
 # -- (f) recsys scoring at full width -----------------------------------------
 
 # (arch, shapes run): AutoInt's and BST's bulk / retrieval attention
@@ -3343,6 +4300,9 @@ def main() -> int:
     paths.update(phase_workers(dev, card, trove, runs[("fused", "kernel")]))
     paths.update(phase_faults(dev, card, trove))
     paths.update(phase_data(dev, card, trove))
+    ivf_paths, ivf_timings = phase_ivf(dev, card, trove)
+    paths.update(ivf_paths)
+    kernels["fused_score_topk"]["timings"] += ivf_timings
     paths.update(phase_recsys(dev, card))
     for t, call, reset, names in PROFILED:
         t["stage_ms"] = stage_ms(call, reset, names)

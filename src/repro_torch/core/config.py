@@ -20,6 +20,8 @@ SCORE_IMPLS = ("numpy", "torch", "fused")
 # FastResultHeapq merges: "python" = heapq baseline; "torch" = the plain
 # sort-based merge; "kernel" = the streaming top-k merge kernel (K2).
 HEAP_IMPLS = ("python", "torch", "kernel")
+# Search indexes: "flat" scans every row; "ivf" the probed clusters'.
+INDEX_IMPLS = ("flat", "ivf")
 
 
 @dataclasses.dataclass
@@ -70,6 +72,20 @@ class EvaluationArguments:
     serve_max_batch: int = 32
     serve_max_wait_ms: float = 2.0
     serve_max_queue: int = 256
+    # Search index (repro_torch.index).  "flat" = exhaustive scan over
+    # every corpus row (the recall oracle); "ivf" = cluster-pruned
+    # inverted-file search: a mini-batch k-means coarse quantizer over
+    # ivf_nclusters clusters, and each query batch scans only the union
+    # of its ivf_nprobe nearest clusters.  nprobe == nclusters scans
+    # every row (through the same kernels, in cluster order).
+    index_impl: str = "flat"             # flat | ivf
+    ivf_nclusters: int = 64
+    ivf_nprobe: int = 8
+    # k-means budget: a fixed step count of contiguous mini-batch reads;
+    # deterministic under ivf_seed (every worker builds the same index).
+    ivf_train_steps: int = 40
+    ivf_train_batch: int = 1024
+    ivf_seed: int = 0
     # Fault tolerance (core.faults, resilient gathers only): how long a
     # round waits for a silent worker before reassigning its shard to a
     # survivor, how many rescore attempts an orphaned shard gets before
@@ -88,6 +104,10 @@ class EvaluationArguments:
             raise ValueError(
                 f"unknown heap_impl {self.heap_impl!r}; expected one "
                 f"of {list(HEAP_IMPLS)}")
+        if self.index_impl not in INDEX_IMPLS:
+            raise ValueError(
+                f"unknown index_impl {self.index_impl!r}; expected one "
+                f"of {list(INDEX_IMPLS)}")
         for name, floor in (("topk", 1), ("encode_batch_size", 1),
                             ("query_batch_size", 1),
                             ("superchunk_size", 0),
@@ -96,7 +116,11 @@ class EvaluationArguments:
                             ("tokenizer_workers", 0),
                             ("encode_pipeline_depth", 0),
                             ("serve_max_batch", 1),
-                            ("serve_max_queue", 1)):
+                            ("serve_max_queue", 1),
+                            ("ivf_nclusters", 1),
+                            ("ivf_nprobe", 1),
+                            ("ivf_train_steps", 1),
+                            ("ivf_train_batch", 1)):
             if getattr(self, name) < floor:
                 raise ValueError(
                     f"{name} must be >= {floor}, got {getattr(self, name)}")

@@ -1,7 +1,7 @@
 """RetrievalEvaluator: evaluation + hard-negative mining (paper §3.5).
 
-The port's counterpart of ``repro.core.evaluator`` for a flat index.
-Every search entry point is a thin instantiation of
+The port's counterpart of ``repro.core.evaluator``.  Every search entry
+point is a thin instantiation of
 :class:`~repro_torch.core.sharded_search.ShardedSearchDriver`:
 
   * :meth:`RetrievalEvaluator.search` / :meth:`evaluate` /
@@ -24,6 +24,13 @@ Every search entry point is a thin instantiation of
   * :meth:`prepare_cache_corpus` + :meth:`search_texts` — a live
     corpus: the cache's own live set at one pinned generation, while
     writers add, re-embed, delete and compact.
+
+With ``index_impl="ivf"`` every prepared corpus sits behind an
+:class:`~repro_torch.index.ivf.IVFIndex` (k-means over the corpus rows,
+persisted under ``{cache}/ivf_k{K}`` when there is a cache): each round
+selects its query batch's ``ivf_nprobe`` nearest clusters
+(:meth:`PreparedCorpus.round_for`) and the driver scans only their rows,
+with the same kernels; ``nprobe == nclusters`` scans every row.
 
 Every entry point runs unchanged on 1..W workers: with
 ``process_count > 1`` (by default the ``torch.distributed`` world, see
@@ -64,6 +71,7 @@ from repro_torch.core.sharded_search import (ProcessAllGather,
 from repro_torch.data.table import stable_id_hash, stable_id_hash_array
 from repro_torch.data.views import ConcatView, DatasetView, as_view
 from repro_torch.device import resolve_device
+from repro_torch.index.ivf import IVFIndex, corpus_digest
 
 
 def select_hard_negatives(q_ids: Sequence[str], run_ids: np.ndarray,
@@ -145,6 +153,93 @@ class PreparedCorpus:
         """Map the driver's int32 global positions to 63-bit id hashes
         on the host (-1 marks empty slots)."""
         return np.where(pos >= 0, self.hashes[np.clip(pos, 0, None)], -1)
+
+    def round_for(self, q_emb):
+        """The ``(sized, load_chunk, positions_to_ids)`` of one search
+        round against this query batch.  A flat corpus scans the same
+        ``[0, n_docs)`` every round, so its members come back as they
+        are; :class:`IVFPreparedCorpus` derives a per-batch search space
+        from the query embeddings."""
+        return self.sized, self.load_chunk, self.positions_to_ids
+
+
+class IVFSearchSpace:
+    """The sized object of one IVF round: the concatenation of the
+    selected clusters' permutation slices, positions ``[0,
+    n_selected)``.  ``partition_boundaries`` are the cluster edges inside
+    that space, so the :class:`FairSharder` cuts shards at whole
+    clusters."""
+
+    __slots__ = ("n_selected", "partition_boundaries")
+
+    def __init__(self, n_selected: int, partition_boundaries: np.ndarray):
+        self.n_selected = n_selected
+        self.partition_boundaries = partition_boundaries
+
+    def __len__(self) -> int:
+        return self.n_selected
+
+
+class IVFPreparedCorpus(PreparedCorpus):
+    """A corpus prepared behind an :class:`~repro_torch.index.ivf.
+    IVFIndex`.
+
+    ``fetch_rows(rows)`` serves arbitrary store rows (a cache snapshot's
+    rows, or an index into the encoded corpus).  Each :meth:`round_for`
+    selects the batch's ``nprobe`` nearest clusters on the host (a query
+    batch on the card comes down once) and presents their concatenated
+    permutation slices as the round's search space: the driver and the
+    kernels see an ordinary ``[0, n_selected)`` corpus.  With
+    ``rows_device`` (a store on the card) the round's row indices go to
+    that device once, and every chunk gathers from them there.  With
+    ``nprobe == n_clusters`` the space is the whole corpus in cluster
+    order.
+    """
+
+    __slots__ = ("index", "fetch_rows", "nprobe", "rows_device")
+
+    def __init__(self, hashes: np.ndarray, n_docs: int, fetch_rows,
+                 index, nprobe: int, generation=None, snapshot=None,
+                 rows_device: torch.device | None = None):
+        super().__init__(hashes, n_docs, load_chunk=None,
+                         generation=generation, snapshot=snapshot)
+        self.index = index
+        self.fetch_rows = fetch_rows
+        self.nprobe = int(nprobe)
+        self.rows_device = rows_device
+
+    def round_for(self, q_emb):
+        clusters = self.index.select(q_emb, self.nprobe)
+        sel_rows = self.index.gather_rows(clusters)
+        sized = IVFSearchSpace(len(sel_rows),
+                               self.index.slice_boundaries(clusters))
+        fetch = self.fetch_rows
+        rows = (sel_rows if self.rows_device is None else
+                torch.from_numpy(sel_rows).to(self.rows_device))
+
+        def load_chunk(lo: int, hi: int):
+            return fetch(rows[lo:hi])
+
+        def positions_to_ids(pos: np.ndarray) -> np.ndarray:
+            if len(sel_rows) == 0:
+                return np.full(np.shape(pos), -1, np.int64)
+            # sel-space position -> store row -> id hash
+            store = sel_rows[np.clip(pos, 0, None)]
+            return np.where(pos >= 0, self.hashes[store], -1)
+
+        return sized, load_chunk, positions_to_ids
+
+
+def _snapshot_readers(snap, rows_map=None):
+    """``(get_range, fetch_rows)`` reading a pinned snapshot's rows as
+    float32: live-space positions, or, with ``rows_map`` (a row plan's
+    positions), the corpus's positions mapped through it."""
+    if rows_map is None:
+        return (lambda lo, hi: snap.get_range(lo, hi).astype(np.float32),
+                lambda rows: snap.get_rows(rows).astype(np.float32))
+    return (lambda lo, hi: snap.get_rows(rows_map[lo:hi]).astype(
+                np.float32),
+            lambda rows: snap.get_rows(rows_map[rows]).astype(np.float32))
 
 
 class RetrievalEvaluator:
@@ -338,12 +433,18 @@ class RetrievalEvaluator:
         * A cache that does not cover the corpus: each chunk is looked
           up, and its missing rows encoded and cached (one generation
           per chunk that had any), as it streams.
+
+        With ``index_impl="ivf"`` the corpus is prepared behind an IVF
+        index instead (:meth:`_prepare_ivf`).
         """
         on_device = self._on_device()
         corpus_v = self._corpus_view(corpus)
         texts = corpus_v.texts()
         hashes = np.asarray(corpus_v.id_hashes)
         n_docs = len(corpus_v)
+        if self.args.index_impl == "ivf" and n_docs > 0:
+            return self._prepare_ivf(corpus_v, cache,
+                                     device_resident=device_resident)
         if device_resident:
             embs = self.encode_corpus(hashes, texts, cache,
                                       device=on_device)
@@ -392,17 +493,106 @@ class RetrievalEvaluator:
                               generation=snap.key if snap else None,
                               snapshot=snap)
 
+    def _ivf_index(self, get_range, hashes: np.ndarray, n_docs: int,
+                   dim: int, cache: EmbeddingCache | None, generation):
+        """The IVF index over ``n_docs`` rows served by ``get_range``:
+        loaded from ``{cache.path}/ivf_k{K}`` when a persisted one
+        matches the corpus digest (the id hashes, the build knobs and
+        the snapshot ``generation``), else built here on this
+        evaluator's device and, with a cache, saved there."""
+        a = self.args
+        k = int(min(a.ivf_nclusters, n_docs))
+        digest = corpus_digest(hashes, seed=a.ivf_seed,
+                               train_steps=a.ivf_train_steps,
+                               train_batch=a.ivf_train_batch,
+                               generation=generation)
+        index_dir = (os.path.join(cache.path, f"ivf_k{k}")
+                     if cache is not None else None)
+        index = None
+        if index_dir is not None:
+            index = IVFIndex.load(index_dir, expect_n=n_docs,
+                                  expect_dim=dim, expect_clusters=k,
+                                  expect_digest=digest)
+        if index is None:
+            index = IVFIndex.build(get_range, n_docs, k, seed=a.ivf_seed,
+                                   train_steps=a.ivf_train_steps,
+                                   train_batch=a.ivf_train_batch,
+                                   device=self.device)
+            if index_dir is not None:
+                index.save(index_dir, digest=digest)
+        return index
+
+    def _prepare_ivf(self, corpus_v: DatasetView,
+                     cache: EmbeddingCache | None, *,
+                     device_resident: bool = False) -> IVFPreparedCorpus:
+        """Prepare a corpus behind a cluster-pruned IVF index.
+
+        The quantizer trains off contiguous ``get_range`` reads of a
+        corpus-ordered row store: a pinned snapshot of ``cache`` when it
+        covers the corpus (and the corpus is not wanted device-resident),
+        else the embeddings encoded here (warming ``cache`` when given),
+        kept on the card with ``device_resident=True`` for the device
+        backends and on the host otherwise.  With a cache the index
+        persists under ``{cache.path}/ivf_k{K}`` (:meth:`_ivf_index`), so
+        a restart reloads it instead of retraining; any mismatch
+        rebuilds.
+        """
+        on_device = self._on_device()
+        hashes = np.asarray(corpus_v.id_hashes)
+        n_docs = len(corpus_v)
+        plan = snap = None
+        rows_device = None
+        if cache is not None and len(cache) and not device_resident:
+            snap = cache.snapshot()
+            plan = snap.row_plan(hashes)
+            if plan is None:
+                snap.close()
+                snap = None
+        if plan is not None:
+            dim = cache.dim
+            get_range, fetch_rows = _snapshot_readers(snap, plan[1])
+        else:
+            resident = device_resident and on_device
+            embs = self.encode_corpus(hashes, corpus_v.texts(), cache,
+                                      device=resident)
+            if resident:
+                store = to_tensor(embs, self.device, torch.float32)
+                rows_device = self.device
+            else:
+                store = np.asarray(embs, np.float32)
+            dim = store.shape[1]
+
+            def get_range(lo: int, hi: int):
+                return store[lo:hi]
+
+            def fetch_rows(rows):
+                return store[rows]
+        try:
+            index = self._ivf_index(get_range, hashes, n_docs, dim, cache,
+                                    snap.key if snap else None)
+        except BaseException:
+            if snap is not None:
+                snap.close()
+            raise
+        return IVFPreparedCorpus(hashes, n_docs, fetch_rows, index,
+                                 self.args.ivf_nprobe,
+                                 generation=snap.key if snap else None,
+                                 snapshot=snap, rows_device=rows_device)
+
     def prepare_cache_corpus(self, cache: EmbeddingCache,
                              generation=None) -> PreparedCorpus:
         """Prepare the cache's own live set for search: the corpus is
         whatever is live in the pinned snapshot (adds, re-embeds and
-        deletes included), in live-space order, for the flat index.
-        ``generation`` takes an int or a ``(generation, epoch)`` key to
-        pin an earlier view.  Preparation is index work over the live
-        set, no encoding, so a server can swap generations between
-        requests cheaply.  (The reference also builds an IVF index over
-        the snapshot; the port has no IVF index yet.)"""
+        deletes included), in live-space order.  ``generation`` takes an
+        int or a ``(generation, epoch)`` key to pin an earlier view.
+        For the flat index preparation is no work at all, so a server
+        can swap generations between requests cheaply; with
+        ``index_impl="ivf"`` it loads the snapshot's persisted index or
+        builds one (the digest holds the generation, so a new generation
+        rebuilds: :meth:`_prepare_ivf_snapshot`)."""
         snap = cache.snapshot(generation)
+        if self.args.index_impl == "ivf" and snap.n_live > 0:
+            return self._prepare_ivf_snapshot(cache, snap)
 
         def load_chunk(lo: int, hi: int):
             return snap.get_range(lo, hi).astype(np.float32)
@@ -410,14 +600,34 @@ class RetrievalEvaluator:
         return PreparedCorpus(snap.ids, snap.n_live, load_chunk,
                               generation=snap.key, snapshot=snap)
 
+    def _prepare_ivf_snapshot(self, cache: EmbeddingCache,
+                              snap) -> IVFPreparedCorpus:
+        """IVF preparation over a pinned snapshot's live rows (the live
+        counterpart of :meth:`_prepare_ivf`): rows are read off the
+        snapshot, as its flat preparation reads them."""
+        get_range, fetch_rows = _snapshot_readers(snap)
+        try:
+            index = self._ivf_index(get_range, snap.ids, snap.n_live,
+                                    cache.dim, cache, snap.key)
+        except BaseException:
+            snap.close()
+            raise
+        return IVFPreparedCorpus(snap.ids, snap.n_live, fetch_rows, index,
+                                 self.args.ivf_nprobe, generation=snap.key,
+                                 snapshot=snap)
+
     def _search_embedded(self, q_emb, prepared: PreparedCorpus,
                          topk: int, deadline_s: float | None = None):
+        """One round against ``prepared``: its search space for this
+        query batch (:meth:`PreparedCorpus.round_for`), the driver's
+        search -> (outcome, positions_to_ids)."""
+        sized, load_chunk, to_ids = prepared.round_for(q_emb)
         driver = self.make_driver()
-        out = driver.search(q_emb, prepared.sized, prepared.load_chunk,
-                            topk, deadline_s=deadline_s,
+        out = driver.search(q_emb, sized, load_chunk, topk,
+                            deadline_s=deadline_s,
                             generation=prepared.generation)
         self.last_search_stats = driver.stats
-        return out
+        return out, to_ids
 
     def search_prepared(self, queries, prepared: PreparedCorpus,
                         topk: int | None = None,
@@ -430,10 +640,11 @@ class RetrievalEvaluator:
         q_view = self._corpus_view(queries)
         q_emb = self._encode_texts(q_view.texts(), True,
                                    device=self._on_device())
-        out = self._search_embedded(q_emb, prepared, topk, deadline_s)
+        out, to_ids = self._search_embedded(q_emb, prepared, topk,
+                                            deadline_s)
         vals, pos = out
         return SearchOutcome((np.asarray(q_view.id_hashes),
-                              prepared.positions_to_ids(pos), vals),
+                              to_ids(pos), vals),
                              coverage=out.coverage, degraded=out.degraded)
 
     def search_texts(self, texts: Sequence[str], prepared: PreparedCorpus,
@@ -447,9 +658,10 @@ class RetrievalEvaluator:
         q_emb = self._encode_texts(list(texts), True,
                                    device=self._on_device(),
                                    min_batch_dim=min_batch_dim)
-        out = self._search_embedded(q_emb, prepared, topk, deadline_s)
+        out, to_ids = self._search_embedded(q_emb, prepared, topk,
+                                            deadline_s)
         vals, pos = out
-        return SearchOutcome((prepared.positions_to_ids(pos), vals),
+        return SearchOutcome((to_ids(pos), vals),
                              coverage=out.coverage, degraded=out.degraded)
 
     def search(self, queries, corpus, topk: int | None = None,

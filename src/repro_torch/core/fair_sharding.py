@@ -1,12 +1,12 @@
 """Fair sharding: throughput-weighted shard sizes (paper §3.5).
 
-The port's own copy of ``repro.core.fair_sharding`` for a flat index:
-shares, bounds, round-versioned and generation-agreed
+The port's own copy of ``repro.core.fair_sharding``: shares, bounds
+(snapped to cluster edges for an IVF search space: ``bounds(total,
+boundaries=)``), round-versioned and generation-agreed
 :meth:`FairSharder.acquire`, round aborts, round-tagged reports, and dead
 workers (:meth:`FairSharder.mark_dead` gives them exact-zero shares,
 :meth:`FairSharder.absolve` counts a recovered worker's round as
-reported).  Cluster-edge snapping (``bounds(boundaries=)``) comes with
-IVF (ROADMAP queue 1 item 6).
+reported).
 
 Mixing devices with different throughput (or pods with stragglers) stalls
 the fast ones under equal sharding.  ``FairSharder`` keeps an EMA of
@@ -90,9 +90,9 @@ class FairSharder:
         self._issued = [0] * n_workers       # rounds begun, per worker
         # round -> agreed corpus generation key (first acquirer wins)
         self._round_gen: dict[int, object] = {}
-        # round -> (total_items, bounds): the partition its first acquirer
-        # computed, handed to every later acquirer of that round
-        self._round_bounds: dict[int, tuple[int, list]] = {}
+        # round -> (total_items, boundaries, bounds): the partition its
+        # first acquirer computed, handed to every later acquirer of it
+        self._round_bounds: dict[int, tuple[int, tuple | None, list]] = {}
         self._abort_exc: BaseException | None = None
         self._dead: set[int] = set()
 
@@ -135,14 +135,34 @@ class FairSharder:
             sizes[order[i % len(order)]] += 1
         return sizes.tolist()
 
-    def bounds(self, total_items: int) -> list[tuple[int, int]]:
+    def bounds(self, total_items: int,
+               boundaries=None) -> list[tuple[int, int]]:
         """Contiguous ``[lo, hi)`` per worker covering ``total_items``
-        (dead workers' bounds are empty)."""
-        with self._lock:
-            return self._bounds_locked(total_items)
+        (dead workers' bounds are empty).
 
-    def _bounds_locked(self, total_items: int) -> list[tuple[int, int]]:
+        ``boundaries`` (optional, sorted, from 0 to ``total_items``)
+        restricts where cuts may land: each proportional cut snaps to
+        the nearest boundary (the lower one on a tie), and the snapped
+        cuts are made monotone, so the shards still partition
+        ``[0, total_items)`` exactly.  The IVF search space passes its
+        cluster edges, so every shard is a run of whole clusters; a
+        worker whose share is finer than a cluster may get an empty
+        shard, and a dead worker's stays empty.
+        """
+        with self._lock:
+            return self._bounds_locked(total_items, boundaries)
+
+    def _bounds_locked(self, total_items: int,
+                       boundaries=None) -> list[tuple[int, int]]:
         ends = np.cumsum(self._shares_locked(total_items))
+        if boundaries is not None and total_items > 0:
+            bnd = np.asarray(boundaries, np.int64)
+            idx = np.clip(np.searchsorted(bnd, ends[:-1]), 1, len(bnd) - 1)
+            below, above = bnd[idx - 1], bnd[idx]
+            snapped = np.where(ends[:-1] - below <= above - ends[:-1],
+                               below, above)
+            ends = np.concatenate([np.maximum.accumulate(snapped),
+                                   ends[-1:]])
         starts = np.concatenate([[0], ends[:-1]])
         return list(zip(starts.tolist(), ends.tolist()))
 
@@ -160,7 +180,7 @@ class FairSharder:
             parts.append(f"dead workers: {sorted(self._dead)}")
         return "; ".join(parts)
 
-    def acquire(self, worker: int, total_items: int,
+    def acquire(self, worker: int, total_items: int, boundaries=None,
                 generation=None) -> tuple[int, list[tuple[int, int]]]:
         """Round-versioned partition: ``(round_no, bounds)``.
 
@@ -181,10 +201,12 @@ class FairSharder:
         first: a worker pinned to another generation may be sizing
         another corpus.
 
-        The round's bounds are frozen at its first acquire (computed
-        under the lock), and every later acquirer of the round gets the
-        same list, whatever :meth:`mark_dead` did in between; one that
-        passes another ``total_items`` than the round's raises
+        ``boundaries`` snaps the cuts as :meth:`bounds` does.  The
+        round's bounds are frozen at its first acquire (computed under
+        the lock), and every later acquirer of the round gets the same
+        list, whatever :meth:`mark_dead` did in between; one that passes
+        another ``total_items`` or other ``boundaries`` than the round's
+        (a rank that selected another IVF search space) raises
         ``ValueError`` without consuming the round.
         """
         with self._cv:
@@ -210,18 +232,23 @@ class FairSharder:
                     # roll the issue back: the round was not consumed
                     self._issued[worker] -= 1
                     raise GenerationMismatch(r, agreed, generation)
+            edges = (None if boundaries is None else
+                     tuple(np.asarray(boundaries, np.int64).tolist()))
             frozen = self._round_bounds.get(r)
             if frozen is None:
-                bounds = self._bounds_locked(total_items)
-                self._round_bounds[r] = (total_items, bounds)
-            elif frozen[0] != total_items:
+                bounds = self._bounds_locked(total_items, boundaries)
+                self._round_bounds[r] = (total_items, edges, bounds)
+            elif frozen[:2] != (total_items, edges):
                 self._issued[worker] -= 1
+                what = (f"{total_items} items" if frozen[0] != total_items
+                        else "other cut boundaries")
                 raise ValueError(
-                    f"worker {worker} acquired round {r} for {total_items} "
-                    f"items, but the round was partitioned over "
-                    f"{frozen[0]}")
+                    f"worker {worker} acquired round {r} for {what}, but "
+                    f"the round was partitioned over {frozen[0]} items"
+                    + ("" if frozen[1] is None else
+                       f" cut at {len(frozen[1]) - 1} cluster edges"))
             else:
-                bounds = frozen[1]
+                bounds = frozen[2]
             return r, list(bounds)
 
     def abort(self, exc: BaseException | None = None) -> None:

@@ -46,7 +46,11 @@ or one rank of a ``torch.distributed`` group — with a persistent driver
 and a prepared corpus) and :class:`ClusterServeBackend` (W evaluators
 through ``SimulatedCluster``, the ``launch.serve --workers N`` path).
 Each returns per query what a solo ``RetrievalEvaluator.search_texts``
-of that query returns.
+of that query returns — except on an IVF corpus probed below its
+cluster count, where a micro-batch scans the union of its queries'
+probed clusters: a superset of each query's own, so a coalesced query's
+top-k is an exact top-k over that union and scores at least its solo
+search's.
 
 Both backends take ``deadline_s``; any backend whose ``begin`` / ``run``
 accepts it gets the micro-batch's tightest remaining budget.  Rounds that
@@ -205,9 +209,12 @@ class EvaluatorServeBackend:
             q_emb = self.ev._encode_texts(list(texts), True,
                                           device=self.on_device,
                                           min_batch_dim=1)
+            # this micro-batch's search space: the prepared corpus as it
+            # is (flat), or the union of the batch's probed clusters (IVF)
+            sized, load_chunk, to_ids = prepared.round_for(q_emb)
             inner = self.driver.search_async(
-                q_emb, prepared.sized, prepared.load_chunk, topk,
-                deadline_s=deadline_s, generation=prepared.generation)
+                q_emb, sized, load_chunk, topk, deadline_s=deadline_s,
+                generation=prepared.generation)
         except BaseException:
             self._release(prepared)
             raise
@@ -218,7 +225,7 @@ class EvaluatorServeBackend:
                 out = f.result()
                 vals, pos = out
                 outer.set_result(SearchOutcome(
-                    (prepared.positions_to_ids(pos), vals),
+                    (to_ids(pos), vals),
                     coverage=out.coverage, degraded=out.degraded))
             except BaseException as exc:   # noqa: BLE001 — routed to caller
                 outer.set_exception(exc)

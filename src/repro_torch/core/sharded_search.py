@@ -8,7 +8,8 @@ and W > 1:
     splits ``[0, n_docs)`` across workers (throughput EMA; at W > 1 a
     round-versioned, generation-agreed :meth:`~repro_torch.core.
     fair_sharding.FairSharder.acquire`), with the round's throughput
-    reported back;
+    reported back; an IVF search space's cuts snap to its cluster
+    edges;
   * **stream**    — each worker pulls its slice through a caller-supplied
     ``load_chunk(lo, hi)`` with double-buffered prefetch (in
     ``chunk_size`` chunks, or a superchunk at a time), or from a chunk
@@ -367,10 +368,14 @@ class ShardedSearchDriver:
 
     def partition(self, n_docs) -> list[tuple[int, int]]:
         """All workers' ``[lo, hi)`` bounds for this round (a count or a
-        sized corpus)."""
+        sized corpus).  A sized object may expose
+        ``partition_boundaries`` (sorted cut points covering ``[0,
+        len)``: the IVF search space's cluster edges); the cuts then
+        snap to them, so every shard is a run of whole clusters."""
+        boundaries = getattr(n_docs, "partition_boundaries", None)
         if not isinstance(n_docs, (int, np.integer)):
             n_docs = len(n_docs)
-        return self.sharder.bounds(int(n_docs))
+        return self.sharder.bounds(int(n_docs), boundaries)
 
     # -- chunk stream -----------------------------------------------------
     def _pipelined_chunks(self, lo: int, hi: int, load_chunk: ChunkLoader,
@@ -579,16 +584,21 @@ class ShardedSearchDriver:
         into that round's own stats dict (at W = 1 the round's
         ``seconds``, which end after the finalize, as its untagged report
         does), and ``ctx`` is what a resilient gather needs — the round's
-        whole partition, the request deadline and the rescore callback."""
+        whole partition, the request deadline and the rescore callback.
+        The cuts snap to the sized object's ``partition_boundaries`` as
+        in :meth:`partition`, so a rescore works on the round's snapped
+        bounds too."""
+        boundaries = getattr(n_docs, "partition_boundaries", None)
         if not isinstance(n_docs, (int, np.integer)):
             n_docs = len(n_docs)
         if self.n_workers > 1:
             round_no, bounds = self.sharder.acquire(
-                self.worker_index, int(n_docs), generation=generation)
+                self.worker_index, int(n_docs), boundaries,
+                generation=generation)
         else:
             round_no = self._local_round
             self._local_round += 1
-            bounds = self.sharder.bounds(int(n_docs))
+            bounds = self.sharder.bounds(int(n_docs), boundaries)
         lo, hi = bounds[self.worker_index]
         self._chunk_devices: set[str] = set()
         t0 = time.monotonic()

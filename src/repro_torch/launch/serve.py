@@ -18,9 +18,14 @@ The port of ``repro.launch.serve``, with the port's backend names
     through ``ProcessAllGather``), else one worker;
   * ``--workers 1``: one worker, even inside a process group;
   * ``--workers N``: N workers in this process (``SimulatedCluster``);
+  * ``--index-impl ivf --nclusters K --nprobe P``: the corpus behind an
+    IVF index of K clusters (built on the device at startup, persisted
+    beside the embedding cache and reloaded on the next start), each
+    micro-batch scanning the union of its queries' P nearest clusters;
   * ``--mutate``: serve the embedding cache's live set while a writer
     thread adds, re-embeds and deletes documents and runs one online
-    compaction; each micro-batch pins the newest committed generation;
+    compaction; each micro-batch pins the newest committed generation
+    (under ``--index-impl ivf`` a new generation rebuilds the index);
   * ``--workers N --resilient``: the simulated cluster's gather is the
     fault-tolerant one — a dead, stalled or dropped worker's shard is
     rescored by a survivor within ``--round-deadline-s`` — and
@@ -110,7 +115,13 @@ def main(argv=None):
                     choices=("numpy", "torch", "fused"))
     ap.add_argument("--index-impl", default="flat",
                     choices=("flat", "ivf"),
-                    help="flat = exhaustive scan; ivf is not ported yet")
+                    help="flat = exhaustive scan (recall oracle); ivf = "
+                         "cluster-pruned search (repro_torch.index)")
+    ap.add_argument("--nclusters", type=int, default=64,
+                    help="IVF coarse-quantizer cluster count")
+    ap.add_argument("--nprobe", type=int, default=8,
+                    help="clusters scanned per query batch (nprobe == "
+                         "nclusters scans every row)")
     ap.add_argument("--max-batch", type=int,
                     default=defaults.serve_max_batch,
                     help="micro-batch flush size (coalesced queries)")
@@ -153,8 +164,6 @@ def main(argv=None):
                           "trove-base)")
     if args.ckpt_dir:
         raise _not_ported("--ckpt-dir", 7, "training/checkpoint.py")
-    if args.index_impl == "ivf":
-        raise _not_ported("--index-impl ivf", 6, "the IVF index")
     dist = torch.distributed
     world = (dist.get_world_size()
              if dist.is_available() and dist.is_initialized() else 1)
@@ -203,6 +212,9 @@ def main(argv=None):
         torch.Generator(device=device).manual_seed(0), device=device)
     eval_args = EvaluationArguments(topk=args.topk,
                                     score_impl=args.score_impl,
+                                    index_impl=args.index_impl,
+                                    ivf_nclusters=args.nclusters,
+                                    ivf_nprobe=args.nprobe,
                                     serve_max_batch=args.max_batch,
                                     serve_max_wait_ms=args.max_wait_ms,
                                     serve_max_queue=args.max_queue,

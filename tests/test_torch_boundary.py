@@ -52,7 +52,9 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.data.table", "repro_torch.data.views",
             "repro_torch.data.loaders", "repro_torch.core.materialized_qrel",
             "repro_torch.core.datasets",
-            "repro_torch.launch.evalsuite"} <= set(out["imported"])
+            "repro_torch.launch.evalsuite", "repro_torch.index",
+            "repro_torch.index.kmeans",
+            "repro_torch.index.ivf"} <= set(out["imported"])
     leaked = [m for m in out["loaded"]
               if m in ("jax", "repro") or m.startswith(("jax.", "repro."))]
     assert leaked == []

@@ -27,6 +27,7 @@ from repro_torch.core.embedding_cache import EmbeddingCache
 from repro_torch.core.faults import Fault, FaultInjector, InjectedCrash
 from repro_torch.core.sharded_search import ShardedSearchDriver
 from repro_torch.data.table import stable_id_hash
+from repro_torch.index.ivf import cluster_order as port_cluster_order
 
 DIM = 8
 
@@ -252,6 +253,31 @@ def test_compact_into_cluster_order(tmp_path):
         twin, lambda c: c.compact(order=np.zeros(c.n_live, np.int64)),
         ValueError)
     assert "permutation" in msg
+
+
+def test_compact_into_port_cluster_order(tmp_path):
+    """The port's own ``cluster_order`` (k-means on the CPU) gives the
+    reference's permutation on the same snapshot, and both caches
+    compacted into it hold identical layouts in that order."""
+    twin = Twin(tmp_path)
+    twin.fill(32)
+    twin.both(lambda c: c.delete_records(["d3"]))
+    snap = twin.port.snapshot()
+    get = lambda lo, hi: snap.get_range(lo, hi).astype(np.float32)  # noqa
+    kw = dict(seed=0, train_steps=8, train_batch=16)
+    order = port_cluster_order(get, snap.n_live, 4, device="cpu", **kw)
+    np.testing.assert_array_equal(order,
+                                  cluster_order(get, snap.n_live, 4, **kw))
+    want_ids = snap.ids[order].copy()
+    want = snap.get_rows(order).copy()
+    snap.close()
+    assert not np.array_equal(order, np.arange(len(order)))
+    ref_stats, port_stats = twin.both(lambda c: c.compact(order=order))
+    assert port_stats == ref_stats
+    twin.check()
+    _, ids, rows = _snapshot_view(twin.port)
+    np.testing.assert_array_equal(ids, want_ids)
+    np.testing.assert_array_equal(rows, want)
 
 
 @pytest.mark.parametrize("case", ("length", "width", "nan", "inf",

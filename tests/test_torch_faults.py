@@ -5,8 +5,9 @@
 dead workers (``mark_dead`` / ``absolve`` / exact-zero shares) and frozen
 round partitions, the driver's shard rescoring and request deadlines,
 ``SimulatedCluster(resilient=True)`` and ``repro_torch.training.
-fault_tolerance``: the cases of the reference's ``tests/test_faults.py``
-this slice makes possible, with the flat index.
+fault_tolerance``: the cases of the reference's ``tests/test_faults.py``,
+its chaos matrix over a flat corpus and over an IVF search space (cuts
+snapped to cluster edges) alike.
 
 The chaos matrix — a crash, a stall past the round deadline or a
 dropped gather send at worker 1, W in {2, 4}, three backend pairs —
@@ -247,6 +248,94 @@ def test_round_after_crash_repartitions_over_survivors(synth, ref_oracle,
     for out in outs:
         _assert_bitwise(out, want)
         _assert_matches_reference(out, ref_oracle)
+        np.testing.assert_array_equal(out.coverage, full_coverage(N_Q))
+
+
+# -- the chaos matrix's ivf half: the same faults over an IVF search space -----
+
+# the IVF-shaped search space of the reference's chaos matrix: cuts snap to
+# these cluster edges
+IVF_EDGES = np.array([0, 40, 80, 120, 160, 200], np.int64)
+
+
+def _ivf_space(pkg=None):
+    from repro.core.evaluator import IVFSearchSpace as RefSpace
+    from repro_torch.core.evaluator import IVFSearchSpace
+    return (RefSpace if pkg == "reference" else IVFSearchSpace)(
+        N_DOCS, IVF_EDGES)
+
+
+def _run_ivf_cluster(synth, score, heap, w, injector, searches=1):
+    q, docs = synth
+    cluster = SimulatedCluster(w, resilient=True)
+    drivers = [_driver(score, heap, w, rank, cluster, injector,
+                       round_deadline_s=ROUND_DEADLINE_S,
+                       retry_backoff_s=0.01)
+               for rank in range(w)]
+    outs = None
+    for _ in range(searches):
+        outs = cluster.run(lambda rank: drivers[rank].search(
+            q, _ivf_space(), _load_from(docs), K))
+    return outs, cluster, drivers
+
+
+@pytest.fixture(scope="module")
+def ref_ivf_oracle(synth):
+    """The reference's no-fault W = 1 search over its IVF space."""
+    q, docs = synth
+    return RefDriver(score_impl="numpy", chunk_size=16).search(
+        q, _ivf_space("reference"), _load_from(docs), K)
+
+
+@pytest.mark.parametrize("score,heap", PAIRS)
+@pytest.mark.parametrize("w", (2, 4))
+@pytest.mark.parametrize("kind", ("crash", "stall", "drop"))
+def test_ivf_recovery_is_bitwise_equal_to_no_fault_run(
+        synth, ref_ivf_oracle, kind, w, score, heap):
+    """The chaos matrix over an IVF search space: worker 1's shard, a
+    run of whole clusters, is rescored once on its snapped bounds, and
+    every rank returns the port's no-fault W = 1 result bitwise (the
+    reference's within TOL, ids equal), with full coverage."""
+    q, docs = synth
+    want = _driver(score, heap).search(q, _ivf_space(), _load_from(docs), K)
+    inj = FaultInjector([_fault_for(kind)])
+    outs, cluster, drivers = _run_ivf_cluster(synth, score, heap, w, inj)
+    assert inj.fired == [(kind, 1, 0, "gather" if kind == "drop"
+                          else "load")]
+    for out in outs:
+        _assert_bitwise(out, want)
+        _assert_matches_reference(out, ref_ivf_oracle)
+        np.testing.assert_array_equal(out.coverage, full_coverage(N_Q))
+    rescored = [r for d in drivers if d.stats for r in d.stats["rescored"]]
+    snapped = FairSharder(w).bounds(N_DOCS, IVF_EDGES)
+    assert snapped == ref_sharding.FairSharder(w).bounds(N_DOCS, IVF_EDGES)
+    assert rescored == [snapped[1]]
+    assert set(snapped[1]) <= set(IVF_EDGES.tolist())
+    assert cluster.health.is_dead(1) == (kind == "crash")
+
+
+@pytest.mark.parametrize("score,heap", PAIRS)
+def test_ivf_round_after_crash_repartitions_over_survivors(
+        synth, ref_ivf_oracle, score, heap):
+    """The round after a crash over an IVF space: the dead rank's shard
+    is empty, every cut re-snapped to a cluster edge, nobody rescores,
+    and every rank still holds the no-fault result."""
+    q, docs = synth
+    want = _driver(score, heap).search(q, _ivf_space(), _load_from(docs), K)
+    inj = FaultInjector([Fault(kind="crash", worker=1, round=0)])
+    outs, cluster, drivers = _run_ivf_cluster(synth, score, heap, 4, inj,
+                                              searches=2)
+    assert cluster.health.is_dead(1)
+    bounds = cluster.sharder.bounds(N_DOCS, IVF_EDGES)
+    assert bounds[1][0] == bounds[1][1]
+    assert {b for lo_hi in bounds for b in lo_hi} <= set(IVF_EDGES.tolist())
+    live = [d.stats for r, d in enumerate(drivers) if r != 1]
+    assert all(st["round"] == 1 and not st["rescored"] for st in live)
+    assert [(st["lo"], st["hi"]) for st in live] == [
+        b for r, b in enumerate(bounds) if r != 1]
+    for out in outs:
+        _assert_bitwise(out, want)
+        _assert_matches_reference(out, ref_ivf_oracle)
         np.testing.assert_array_equal(out.coverage, full_coverage(N_Q))
 
 

@@ -10,14 +10,15 @@ requests of 5 queries plus the rung ladder 1 + 2 + 4 + 8 (45 queries in
 ``--concurrency 1`` return, request by request, results bitwise equal to
 one worker; at ``--concurrency 2``, with ``--deadline-ms`` or with
 ``--resilient`` each raises before any collective.
-Flags whose modules are not ported yet raise and name their ROADMAP
-item.  Every wait on a child process has a timeout.  (The resilient
+``--index-impl ivf`` serves at one and two workers.  Flags whose modules
+are not ported yet raise and name their ROADMAP item.  Every wait on a child process has a timeout.  (The resilient
 modes, ``--workers N --resilient --chaos``, are in
 ``tests/test_torch_resilient_serving.py``.)
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -110,11 +111,37 @@ def test_deadline_ms_bounds_the_queue_wait(tmp_path_factory):
     assert stats["frontend"]["completed"] == 6 + 4
 
 
-# --resilient / --chaos / --round-deadline-s (item 4) are ported now and
-# left this list; the other cases keep their ids
+@pytest.mark.parametrize("mode", (["--workers", "1"], ["--workers", "2"],
+                                  ["--mutate"]))
+def test_serve_main_ivf_resolves_every_request(tmp_path_factory, mode):
+    """``--index-impl ivf --nclusters 8 --nprobe 2``: the index is built
+    at startup and persisted beside the cache (``ivf_k8``), and every
+    request resolves with full-shape results; under ``--mutate`` each new
+    generation's index is rebuilt over the live set."""
+    data_dir = str(tmp_path_factory.mktemp("ivf"))
+    stats = serve.main(SMOKE + ["--data-dir", data_dir, "--index-impl",
+                                "ivf", "--nclusters", "8", "--nprobe", "2",
+                                "--concurrency", "3", *mode])
+    fs = stats["frontend"]
+    assert fs["completed"] == 6 + 4 and fs["failed"] == 0
+    assert fs["queries"] == 6 * 5 + 15
+    meta = os.path.join(data_dir, "emb_cache", "ivf_k8", "meta.json")
+    with open(meta) as f:
+        meta = json.load(f)
+    assert meta["n_clusters"] == 8
+    if "--mutate" in mode:
+        # a live set's index is keyed by the generation it was built
+        # over, so each new generation a micro-batch pins rebuilds it
+        built = re.search(r"-g(\d+)e(\d+)$", meta["digest"])
+        assert built is not None, meta["digest"]
+        assert (int(built[1]), int(built[2])) <= tuple(stats["generation"])
+        assert stats["mutation"]["compactions"] == 1
+
+
+# --resilient / --chaos / --round-deadline-s (item 4) and --index-impl ivf
+# (item 6) are ported now and left this list; the other cases keep their ids
 @pytest.mark.parametrize("extra,match", (
     pytest.param(["--ckpt-dir", "ckpt"], "item 7", id="extra0-item 7"),
-    pytest.param(["--index-impl", "ivf"], "item 6", id="extra1-item 6"),
     pytest.param(["--arch", "deepfm"], "item 8", id="extra5-item 8"),
 ))
 def test_unported_flags_raise_naming_their_item(tmp_path, extra, match):

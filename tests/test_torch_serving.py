@@ -13,6 +13,10 @@ port, and within ``TOL = 1e-5`` of the reference's own frontend (ids equal
 wherever neighbouring scores are more than ``TOL`` apart); both packages
 read one warm cache directory, so they score the same float16 rows.
 ``search_async`` is bitwise equal to ``search`` at W = 1, 2 and 4.
+Over an IVF corpus a full probe returns the flat solo search's scores
+bitwise at W = 1 and 2, and a pruned one returns for each coalesced
+request an exact top-k over the union of its micro-batch's probed
+clusters, recorded by wrapping ``round_for``.
 Every wait has a timeout; barrier and acquire waits are lowered to
 seconds, so a deadlock fails instead of hanging the run.
 """
@@ -39,7 +43,8 @@ from repro_torch.core import fair_sharding, sharded_search
 from repro_torch.core.collator import RetrievalCollator
 from repro_torch.core.config import DataArguments, EvaluationArguments
 from repro_torch.core.embedding_cache import EmbeddingCache
-from repro_torch.core.evaluator import PreparedCorpus, RetrievalEvaluator
+from repro_torch.core.evaluator import (IVFPreparedCorpus, PreparedCorpus,
+                                        RetrievalEvaluator)
 from repro_torch.core.result_heap import FastResultHeapq
 from repro_torch.core.serving import (ClusterServeBackend,
                                       EvaluatorServeBackend,
@@ -721,6 +726,137 @@ def test_evaluator_backend_builds_its_driver_through_make_driver(
         assert backend.driver.score_impl == "torch"
     finally:
         backend.close()
+
+
+# -- an IVF corpus behind the frontend ------------------------------------------
+
+
+IVF6 = dict(index_impl="ivf", ivf_nclusters=6, ivf_train_steps=8)
+
+
+def _ivf_frontend(port, env, nprobe, world, score_impl="numpy"):
+    if world == 1:
+        return ServeFrontend.from_evaluator(
+            port(score_impl, ivf_nprobe=nprobe, **IVF6), env["corpus"],
+            env["cache"])
+    cluster = SimulatedCluster(world)
+    evs = [port(score_impl, rank, world, cluster, ivf_nprobe=nprobe, **IVF6)
+           for rank in range(world)]
+    return ServeFrontend.from_cluster(evs, cluster, env["corpus"],
+                                      [env["cache"]] * world)
+
+
+def _same_ranking(got, want, name):
+    """Scores bitwise; ids equal outside runs of exactly equal scores
+    (a full probe scans the rows in cluster order, so a tie may resolve
+    to another member of its run)."""
+    (gi, gv), (wi, wv) = got, want
+    np.testing.assert_array_equal(gv, wv, err_msg=name)
+    ties = np.zeros(len(wv), bool)
+    ties[1:] |= wv[1:] == wv[:-1]
+    ties[:-1] |= wv[:-1] == wv[1:]
+    np.testing.assert_array_equal(gi[~ties], wi[~ties], err_msg=name)
+
+
+class _MicroBatchLog:
+    """Records, per micro-batch, its texts and the store rows its IVF
+    round selected (``begin`` and ``round_for`` both run on the
+    dispatcher thread)."""
+
+    def __init__(self, monkeypatch):
+        self.batches = []
+        self._texts = None
+        begin = EvaluatorServeBackend.begin
+        round_for = IVFPreparedCorpus.round_for
+
+        def logged_begin(backend, texts, *a, **kw):
+            self._texts = list(texts)
+            return begin(backend, texts, *a, **kw)
+
+        def logged_round_for(prepared, q_emb):
+            out = round_for(prepared, q_emb)
+            if self._texts is not None:      # a frontend round, not a solo
+                sel = prepared.index.gather_rows(
+                    prepared.index.select(q_emb, prepared.nprobe))
+                self.batches.append((self._texts, sel))
+                self._texts = None
+            return out
+
+        monkeypatch.setattr(EvaluatorServeBackend, "begin", logged_begin)
+        monkeypatch.setattr(IVFPreparedCorpus, "round_for",
+                            logged_round_for)
+
+    def rows_of(self, text):
+        return [sel for texts, sel in self.batches if text in texts]
+
+
+@pytest.mark.parametrize("world", (1, 2))
+def test_ivf_full_probe_frontend_matches_flat_solo(port, serve_env, world):
+    """nprobe == nclusters: 6 racing submitters get, per query, the flat
+    solo search's scores bitwise (ids outside exact ties)."""
+    fe = _ivf_frontend(port, serve_env, 6, world)
+    out, lock = {}, threading.Lock()
+
+    def client(item):
+        qid, text = item
+        ids, vals = fe.submit(text).result(timeout=RESULT_S)
+        with lock:
+            out[qid] = (ids[0], vals[0])
+
+    try:
+        with ThreadPoolExecutor(6) as pool:
+            list(pool.map(client, list(serve_env["queries"].items())))
+    finally:
+        fe.close()
+    for qid, want in serve_env["solo"].items():
+        _same_ranking(out[qid], want, qid)
+
+
+def test_ivf_pruned_frontend_is_exact_over_its_micro_batch(
+        port, serve_env, monkeypatch):
+    """nprobe 1: a request coalesced into a micro-batch scans the union
+    of the batch's probed clusters, so its result is an exact float64
+    top-k over those rows (not its solo search), and its sorted scores
+    are at least its solo pruned search's (the union is a superset)."""
+    log = _MicroBatchLog(monkeypatch)
+    ev = port("fused", ivf_nprobe=1, **IVF6)
+    fe = ServeFrontend.from_evaluator(ev, serve_env["corpus"],
+                                      serve_env["cache"])
+    prepared = fe.backend.prepared
+    texts = list(serve_env["queries"].values())
+    out = {}
+    try:
+        batch = fe.submit(texts[:3])
+        with ThreadPoolExecutor(6) as pool:
+            futs = {t: pool.submit(
+                lambda t=t: fe.submit(t).result(timeout=RESULT_S))
+                for t in texts[3:]}
+            for t, f in futs.items():
+                ids, vals = f.result(timeout=RESULT_S)
+                out[t] = (ids[0], vals[0])
+        ids, vals = batch.result(timeout=RESULT_S)
+        for j, t in enumerate(texts[:3]):
+            out[t] = (ids[j], vals[j])
+    finally:
+        fe.close()
+    assert len(log.batches) < len(texts)          # requests coalesced
+    coalesced = 0
+    for t, (ids, vals) in out.items():
+        q = ev._encode_texts([t], True).astype(np.float64)
+        (sel,) = log.rows_of(t)
+        rows = torch.as_tensor(prepared.fetch_rows(sel)).double().numpy()
+        exact = (q @ rows.T)[0]
+        order = np.argsort(-exact, kind="stable")[:5]
+        _assert_close_row((ids, vals), (prepared.hashes[sel][order],
+                                        exact[order]), t)
+        solo_ids, solo_vals = ev.search_texts([t], prepared, 5,
+                                              min_batch_dim=1)
+        assert (vals >= solo_vals[0] - TOL).all(), t
+        own = prepared.index.gather_rows(prepared.index.select(
+            ev._encode_texts([t], True), 1))
+        assert set(own) <= set(sel)
+        coalesced += len(sel) > len(own)
+    assert coalesced > 0
 
 
 # -- a live corpus (tests/test_mutation.py) ------------------------------------
