@@ -51,8 +51,8 @@ Phases, each printing its own lines:
       each evaluate / search / mine_hard_negatives call of (c), each
       serving path of (d), each recsys cell of (f), each cached path of
       (g), each W > 1 path of (h), each fault path of (i), each data
-      path of (j) and each IVF path of (k), and read
-      just after; each kernel of that path must have launched exactly as
+      path of (j), each IVF path of (k) and each training path of
+      (l), and read just after; each kernel of that path must have launched exactly as
       often as predicted (``ShardedSearchDriver.stats`` on (c) / (g) /
       (h), summed over ranks, and on (d) and (i) over every round of the
       path, rescores included, recorded by
@@ -183,7 +183,30 @@ Phases, each printing its own lines:
       and flat (ms, rows scanned, recall@100; nprobe 512 held as (k1)
       holds a full probe), and K1 timed on the nprobe-8 round's first
       superchunk.  Launches on every (k) path: the sum over its driver
-      rounds and ranks.
+      rounds and ranks;
+  (l) retrieval training on the card: (l1) ``repro_torch.launch.train``
+      at trove-base's full width (bf16, seeded weights) on its own
+      synthetic dataset (256 queries, 2048 docs), 20 steps of 8 queries
+      x 2 passages (32 / 128 tokens at most) at a learning rate of 1e-4,
+      async checkpoints every 10 steps: every logged loss and grad_norm
+      finite, the loss falling, every weight matrix changed, ``step_00000010`` / ``step_00000020`` in the reference's
+      layout with the last one's bf16 leaves decoded bit-exact straight
+      from the npz; the median step ms split into forward / backward /
+      clip + optimizer (CUDA events), tokens/s and peak memory; (l2) the
+      same run with a failure injected at step 15 (step 10 restored)
+      against an uninterrupted one, both under
+      ``torch.use_deterministic_algorithms``: final parameters bitwise
+      equal; (l3) ``serve.main --ckpt-dir`` on (l1)'s checkpoint: the
+      restored params bitwise equal to the trainer's, 8 requests of 32
+      queries each within TOL of a solo ``search_texts``; (l4) the
+      paper's round trip: ``mine_hard_negatives`` with the trained
+      params on (fused, kernel) and (torch, kernel), the two TSVs equal
+      line for line in their documents where scores are separated and in
+      their scores within TOL, a retrain of 5 steps from (l1)'s last
+      checkpoint on a ``BinaryDataset`` of the mined negatives, then
+      ``evaluate`` on (fused, kernel) of the seeded, the trained and the
+      retrained params.  Launches: 0 on every training path, the driver's
+      prediction on the serving, mining and evaluation paths.
 The second-to-last line is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and the script
 exits non-zero without that line.  It imports nothing of JAX and nothing
@@ -1345,8 +1368,10 @@ class ServedLog:
             self._orig[1](fe)
 
 
-def check_served(tag: str, served: ServedLog, corpus_ids) -> str:
-    """(d3)'s results: at ``--workers 1`` and ``2`` each request within
+def check_served(tag: str, served: ServedLog, corpus_ids,
+                 n_requests: int = D_SINGLE) -> str:
+    """(d3)'s and (l3)'s results: at ``--workers 1`` and ``2`` each
+    request within
     TOL of a solo W = 1 ``search_texts`` over the backend's own prepared
     corpus (rank 0's at W = 2), ids equal where separated; on the live
     set (``--mutate``) shapes (1, K), finite descending scores and every
@@ -1356,7 +1381,7 @@ def check_served(tag: str, served: ServedLog, corpus_ids) -> str:
     from repro_torch.core.evaluator import RetrievalEvaluator
     from repro_torch.data.table import stable_id_hash_array
 
-    if len(served.frontends) != 1 or len(served.requests) != D_SINGLE:
+    if len(served.frontends) != 1 or len(served.requests) != n_requests:
         fail(f"{tag}: {len(served.frontends)} frontends, "
              f"{len(served.requests)} requests recorded")
     backend = served.frontends[0].backend
@@ -4104,6 +4129,522 @@ def ivf_at_scale(dev, card, trove, paths) -> dict:
     return timing
 
 
+# -- (l) retrieval training on the card ---------------------------------------
+
+# (l1) / (l2): launch/train.py over make_retrieval_dataset(256, 2048, 64)
+# (its own default data), batches of L_BATCH queries x L_GROUP passages,
+# L_QLEN / L_PLEN token budgets, a checkpoint every L_EVERY steps, a
+# failure injected at L_FAIL_AT; (l4) mines L_DEPTH deep and retrains to
+# L_RETRAIN steps from (l1)'s last checkpoint; (l3) serves L_REQUESTS
+# requests of L_REQ_Q queries.  The learning rate is L_LR, not the
+# default 1e-3: AdamW moves every weight by about the rate a step, and
+# 20 steps of 1e-3 on weights drawn at 0.02 collapse the embeddings (the
+# in-batch loss settles at ln(16), every score equal, on an H100).
+L_STEPS, L_BATCH, L_GROUP, L_QLEN, L_PLEN, L_LR = 20, 8, 2, 32, 128, 1e-4
+L_EVERY, L_FAIL_AT, L_RETRAIN, L_DEPTH = 10, 15, 25, 20
+L_REQUESTS, L_REQ_Q = 8, 32
+L_DATA = dict(n_queries=256, n_docs=2048, n_topics=64)
+
+
+class TrainLog:
+    """What a training run did, recorded here by wrapping, in the script:
+    ``RetrievalTrainer.init_state`` (a copy of the initial params) and
+    ``RetrievalCollator.__call__`` (each batch's padded and real token
+    counts); ``fail_at`` makes ``RetrievalTrainer.train`` inject a
+    failure at that step."""
+
+    def __init__(self, fail_at: int | None = None):
+        self.fail_at = fail_at
+        self.initial = None
+        self.tokens: list = []
+
+    def __enter__(self):
+        from repro_torch.core.collator import RetrievalCollator
+        from repro_torch.training.trainer import RetrievalTrainer
+
+        self._orig = (RetrievalTrainer.init_state, RetrievalTrainer.train,
+                      RetrievalCollator.__call__)
+        init_state, train, collate = self._orig
+
+        def recorded_init(trainer, params=None):
+            state = init_state(trainer, params)
+            self.initial = {k: (v.clone() if not isinstance(v, dict) else
+                                {n: t.clone() for n, t in v.items()})
+                            for k, v in state["params"].items()}
+            return state
+
+        def failing_train(trainer, state=None, inject_failure_at=None):
+            return train(trainer, state, self.fail_at)
+
+        def recorded_collate(coll, features):
+            batch = collate(coll, features)
+            if "query" in batch:
+                self.tokens.append(tuple(
+                    (int(batch[s]["mask"].size), int(batch[s]["mask"].sum()))
+                    for s in ("query", "passage")))
+            return batch
+
+        RetrievalTrainer.init_state = recorded_init
+        if self.fail_at is not None:
+            RetrievalTrainer.train = failing_train
+        RetrievalCollator.__call__ = recorded_collate
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.collator import RetrievalCollator
+        from repro_torch.training.trainer import RetrievalTrainer
+        (RetrievalTrainer.init_state, RetrievalTrainer.train,
+         RetrievalCollator.__call__) = self._orig
+
+
+# Training steps traced by torch.profiler after the last phase, as
+# PROFILED is (its CUDA tracing may cost every later launch): callables.
+STEP_TRACES = []
+L_TRACE_STEPS = 5
+
+
+def trace_steps(trainer, state, batch, card: str) -> None:
+    """L_TRACE_STEPS more training steps on a copy of (l1)'s state, under
+    torch.profiler's CUDA activity: the step's synchronised wall ms
+    against the device's busy ms (kernels, copies and fills summed), so
+    the idle share; kernels and host-to-device copies a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer._step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(L_TRACE_STEPS):
+            trainer._step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / L_TRACE_STEPS * 1e3
+    busy = kernels = htod = 0
+    for e in prof.key_averages():
+        if e.device_time_total <= 0:
+            continue
+        busy += e.self_device_time_total
+        if "HtoD" in e.key:
+            htod += e.count
+        elif not e.key.startswith(("Memcpy", "Memset")):
+            kernels += e.count
+    if busy <= 0:
+        print(f"[l] (l1) traced step on {card}: {wall:.3f} ms, device "
+              f"time not measured (the profiler recorded none)")
+        return
+    busy_ms = busy / L_TRACE_STEPS / 1e3
+    print(f"[l] (l1) traced step (torch.profiler, {L_TRACE_STEPS} steps) on "
+          f"{card}: {wall:.3f} ms wall, device busy {busy_ms:.3f} ms "
+          f"(idle share {1 - busy_ms / wall:.3f}); "
+          f"{kernels / L_TRACE_STEPS:.0f} kernels and "
+          f"{htod / L_TRACE_STEPS:.0f} host-to-device copies a step")
+
+
+def no_launches(_) -> dict:
+    """The training paths run no kernel: every count stays 0."""
+    return {"fused_score_topk": 0, "topk_update": 0, "embedding_bag": 0}
+
+
+def train_argv(data_dir: str, out_dir: str, dev) -> list:
+    return ["--data-dir", data_dir, "--output_dir", out_dir, "--device",
+            dev.type, "--max_steps", str(L_STEPS), "--per_device_batch_size",
+            str(L_BATCH), "--group_size", str(L_GROUP), "--query_max_len",
+            str(L_QLEN), "--passage_max_len", str(L_PLEN),
+            "--checkpoint_every", str(L_EVERY), "--async_checkpoint", "true",
+            "--log_every", "1", "--learning_rate", str(L_LR)]
+
+
+def same_params(name: str, got, want) -> None:
+    import torch
+
+    from repro_torch.training.tree import flatten
+    for (key, a), (_, b) in zip(flatten(got), flatten(want)):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            fail(f"{name}: params/{key} differs")
+
+
+def max_param_diff(got, want) -> float:
+    from repro_torch.training.tree import flatten
+    return max(float((a.float() - b.float()).abs().max())
+               for (_, a), (_, b) in zip(flatten(got), flatten(want)))
+
+
+def check_checkpoints(ckpt_dir: str, state) -> str:
+    """(l1)'s checkpoints in the reference's layout: the kept step
+    directories, each with its manifest and npz, every leaf of the state
+    under its ``/``-joined path, and the last one's parameters decoded
+    straight from the npz bit for bit (bf16 as raw uint16 words)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.training.tree import flatten
+
+    want_dirs = [f"step_{s:08d}" for s in (L_EVERY, L_STEPS)]
+    if sorted(os.listdir(ckpt_dir)) != want_dirs:
+        fail(f"(l1) checkpoints {sorted(os.listdir(ckpt_dir))}, expected "
+             f"{want_dirs}")
+    keys = {k for k, _ in flatten(state)}
+    for d in want_dirs:
+        if sorted(os.listdir(os.path.join(ckpt_dir, d))) != [
+                "arrays.npz", "manifest.json"]:
+            fail(f"(l1) {d}: {os.listdir(os.path.join(ckpt_dir, d))}")
+        with open(os.path.join(ckpt_dir, d, "manifest.json")) as f:
+            manifest = json.load(f)
+        if set(manifest["leaves"]) != keys:
+            fail(f"(l1) {d}: leaves {sorted(manifest['leaves'])[:6]}...")
+    leaves = manifest["leaves"]
+    n_bf16 = 0
+    with np.load(os.path.join(ckpt_dir, want_dirs[-1], "arrays.npz")) as z:
+        for key, t in flatten(state["params"]):
+            key = f"params/{key}"
+            arr = z[key]
+            if t.dtype == torch.bfloat16:
+                n_bf16 += 1
+                if leaves[key]["dtype"] != "bfloat16" or arr.dtype.str != \
+                        "|V2":
+                    fail(f"(l1) {key}: stored {arr.dtype.str}, manifest "
+                         f"{leaves[key]['dtype']}")
+                bits = t.detach().cpu().view(torch.int16).numpy()
+                same = np.array_equal(arr.view(np.uint16),
+                                      bits.view(np.uint16))
+            else:
+                same = np.array_equal(arr, t.detach().cpu().numpy())
+            if not same:
+                fail(f"(l1) {key}: the npz differs from the final params")
+        if int(z["step"]) != L_STEPS:
+            fail(f"(l1) the last checkpoint's step leaf {z['step']}")
+    return (f"{', '.join(want_dirs)} in the reference's layout "
+            f"({len(keys)} leaves), {n_bf16} bf16 param leaves decoded "
+            f"bit-exact from the npz")
+
+
+def load_dataset(data_dir: str):
+    """(queries, corpus, qrels) dicts of the launcher's data files."""
+    queries, corpus, qrels = {}, {}, {}
+    for name, out in (("queries.jsonl", queries), ("corpus.jsonl", corpus)):
+        with open(os.path.join(data_dir, name)) as f:
+            for line in f:
+                rec = json.loads(line)
+                out[rec["_id"]] = rec["text"]
+    with open(os.path.join(data_dir, "qrels", "train.tsv")) as f:
+        for line in f:
+            q, d, s = line.rstrip("\n").split("\t")
+            qrels.setdefault(q, {})[d] = float(s)
+    return queries, corpus, qrels
+
+
+def mined_triplets(path: str) -> dict:
+    out: dict = {}
+    with open(path) as f:
+        for line in f:
+            q, d, s = line.rstrip("\n").split("\t")
+            out.setdefault(q, []).append((d, float(s)))
+    return out
+
+
+def check_mined(fused: str, torch_path: str) -> str:
+    """The TSVs mined on (fused, kernel) and (torch, kernel): the same
+    queries and per query the same number of lines; scores within TOL
+    (K1 sums each score in another order than cuBLAS); documents equal
+    wherever the (torch, kernel) score is more than TOL from its
+    neighbours (a query's last line excepted: its neighbour past the
+    depth is not in the file).  Returns the counts of byte-identical
+    lines and of lines with the same document."""
+    import numpy as np
+    import torch
+
+    a, b = mined_triplets(fused), mined_triplets(torch_path)
+    if list(a) != list(b):
+        fail("(l4) the two mined TSVs name other queries")
+    lines = open(fused).read().splitlines()
+    same = sum(x == y for x, y in zip(lines,
+                                      open(torch_path).read().splitlines()))
+    for q in a:
+        if len(a[q]) != len(b[q]):
+            fail(f"(l4) query {q}: {len(a[q])} vs {len(b[q])} negatives")
+        va = np.array([s for _, s in a[q]], np.float32)
+        vb = np.array([s for _, s in b[q]], np.float32)
+        if np.abs(va - vb).max() > TOL:
+            fail(f"(l4) query {q}: scores differ by "
+                 f"{np.abs(va - vb).max()}")
+        sep = separated(torch.from_numpy(vb[None]))[0].numpy()
+        # the last line's lower neighbour is the first candidate past the
+        # depth, which neither file shows: a near-tie there may swap it
+        sep[-1] = False
+        da = np.array([d for d, _ in a[q]])[sep]
+        db = np.array([d for d, _ in b[q]])[sep]
+        if not np.array_equal(da, db):
+            fail(f"(l4) query {q}: documents differ where separated: "
+                 f"fused {a[q]}, torch {b[q]}")
+    same_doc = sum(x[0] == y[0] for q in a for x, y in zip(a[q], b[q]))
+    return (f"{same_doc} of {len(lines)} lines the same document, {same} "
+            f"byte-identical")
+
+
+def phase_training(dev, card: str) -> dict:
+    """(l): (l1) ``launch/train.py`` at trove-base's full width, (l2) the
+    same run with an injected failure against an uninterrupted one under
+    deterministic algorithms, (l3) ``serve.main --ckpt-dir`` on (l1)'s
+    checkpoint, (l4) the paper's round trip: mine on K1 and K2, retrain
+    on the mined negatives from (l1)'s checkpoint, evaluate."""
+    import contextlib
+    import functools
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import sharded_search
+    from repro_torch.core.collator import RetrievalCollator
+    from repro_torch.core.config import (DataArguments, MaterializedQRelConfig,
+                                         RetrievalTrainingArguments)
+    from repro_torch.core.datasets import BinaryDataset
+    from repro_torch.data.synthetic import make_retrieval_dataset
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.launch import serve, train
+    from repro_torch.models.encoder import DefaultEncoder
+    from repro_torch.models.retriever import BiEncoderRetriever
+    from repro_torch.training import checkpoint
+    from repro_torch.training.trainer import RetrievalTrainer
+    from repro_torch.training.tree import flatten, tree_map
+
+    paths: dict = {}
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "data")
+        queries, corpus, qrels = make_retrieval_dataset(data_dir, **L_DATA)
+        out1 = os.path.join(tmp, "l1")
+
+        # (l1) the launcher at full width
+        log = TrainLog()
+        out = io.StringIO()
+        if cuda:
+            torch.empty(0, device=dev)        # the allocator exists
+            torch.cuda.reset_peak_memory_stats(dev)
+
+        def run_l1():
+            with contextlib.redirect_stdout(out), log:
+                return train.main(train_argv(data_dir, out1, dev))
+
+        t0 = time.perf_counter()
+        trainer, state = on_path(paths, "(l1) launch.train", None, run_l1,
+                                 no_launches)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+        cfg = trainer.retriever.encoder.cfg
+        n_params = sum(t.numel() for t in state["params"]["blocks"].values()
+                       ) + sum(t.numel() for n, t in state["params"].items()
+                               if n != "blocks")
+        logs = trainer.logs
+        if [r["step"] for r in logs] != list(range(L_STEPS)) or not all(
+                np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                for r in logs):
+            fail(f"(l1) logs {[(r['step'], r['loss']) for r in logs]}")
+        if int(state["step"]) != L_STEPS or not logs[-1]["loss"] < \
+                logs[0]["loss"]:
+            fail(f"(l1) ended at step {int(state['step'])}, loss "
+                 f"{logs[0]['loss']} -> {logs[-1]['loss']}")
+        # every weight matrix must move; a norm scale at 1.0 may not: in
+        # bf16 (no float32 master copy, as in the reference) an update
+        # below half its ulp (2^-9) rounds back to 1.0
+        unchanged = [k for k, t in flatten(state["params"])
+                     if torch.equal(t, dict(flatten(log.initial))[k])]
+        if any(not k.split("/")[-1].startswith(("ln", "final_ln"))
+               for k in unchanged):
+            fail(f"(l1) params unchanged by training: {unchanged}")
+        held = check_checkpoints(os.path.join(out1, "checkpoints"), state)
+        times = trainer.step_ms()
+        med = {p: statistics.median(t[p] for t in times)
+               for p in ("total", "forward", "backward", "update")}
+        toks = log.tokens[:L_STEPS]
+        padded = statistics.median(q[0] + p[0] for q, p in toks)
+        real = statistics.median(q[1] + p[1] for q, p in toks)
+        print(f"[l] (l1) launch.train {cfg.name} {cfg.n_layers} x "
+              f"{cfg.d_model}, {n_params / 1e6:.1f} M params, {cfg.dtype}, "
+              f"{L_STEPS} steps of {L_BATCH} queries x {L_GROUP} passages "
+              f"({L_QLEN} / {L_PLEN} tokens at most) on {card}: "
+              f"{wall:.2f} s of launcher")
+        print(f"[l] (l1) step ms (median of {len(times)}, "
+              f"{'CUDA events' if cuda else 'host clock'}): "
+              f"{med['total']:.3f} = forward {med['forward']:.3f} + "
+              f"backward {med['backward']:.3f} + clip + optimizer "
+              f"{med['update']:.3f}; first step {times[0]['total']:.3f}; "
+              f"{padded:.0f} padded ({real:.0f} real) query + passage "
+              f"tokens a step: {padded / med['total'] * 1e3:.0f} padded "
+              f"({real / med['total'] * 1e3:.0f} real) tokens/s; peak "
+              f"memory {peak / 2**30:.3f} GiB")
+        if cuda:
+            traced = {k: v for k, v in state.items() if k != "rng"}
+            STEP_TRACES.append(functools.partial(
+                trace_steps, trainer,
+                tree_map(lambda t: t.clone(), traced),
+                next(trainer._batches(0)), card))
+        print(f"[l] (l1) loss {logs[0]['loss']:.4f} -> {logs[-1]['loss']:.4f}"
+              f" (falling), grad_norm {logs[0]['grad_norm']:.3f} -> "
+              f"{logs[-1]['grad_norm']:.3f}, every logged loss "
+              f"and grad_norm finite, every weight matrix changed, "
+              f"{len(unchanged)} norm leaves bitwise unchanged "
+              f"{unchanged}; {held}")
+
+        # (l2) an injected failure resumed, both runs deterministic
+        runs = {}
+        torch.use_deterministic_algorithms(True)
+        try:
+            for name, fail_at in (("whole", None), ("resumed", L_FAIL_AT)):
+                rlog = TrainLog(fail_at)
+
+                def run_l2(rlog=rlog, name=name):
+                    with contextlib.redirect_stdout(io.StringIO()), rlog:
+                        return train.main(train_argv(
+                            data_dir, os.path.join(tmp, f"l2-{name}"), dev))
+
+                runs[name] = on_path(paths, f"(l2) launch.train {name}",
+                                     None, run_l2, no_launches)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        (_, whole), (resumed_tr, resumed) = runs["whole"], runs["resumed"]
+        steps = [r["step"] for r in resumed_tr.logs]
+        want_steps = list(range(L_FAIL_AT)) + list(range(L_EVERY + 1,
+                                                         L_STEPS))
+        if steps != want_steps:
+            fail(f"(l2) logged steps {steps}, expected {want_steps}")
+        same_params("(l2) resumed vs uninterrupted", resumed["params"],
+                    whole["params"])
+        print(f"[l] (l2) failure injected at step {L_FAIL_AT}, step_"
+              f"{L_EVERY:08d} restored, steps {L_EVERY + 1}-{L_STEPS - 1} "
+              f"rerun: final params bitwise equal to an uninterrupted run "
+              f"(both under torch.use_deterministic_algorithms); the "
+              f"deterministic run vs (l1)'s max abs param difference "
+              f"{max_param_diff(whole['params'], state['params']):.3g}")
+        del runs, whole, resumed, resumed_tr
+
+        # (l3) serve.main --ckpt-dir on (l1)'s checkpoint
+        for q in (1, 2, 4, 8, 16, 32):
+            sharded_search.autotune_superchunk_size(
+                q, cfg.d_model, C, K, "fused", "kernel", dev.type)
+        restored = []
+        restore = checkpoint.restore_checkpoint
+
+        def recording(path, template):
+            restored.append(restore(path, template))
+            return restored[-1]
+
+        served = ServedLog()
+        sout = io.StringIO()
+
+        def run_l3():
+            checkpoint.restore_checkpoint = recording
+            try:
+                with contextlib.redirect_stdout(sout), served:
+                    return serve.main([
+                        "--data-dir", data_dir, "--device", dev.type,
+                        "--ckpt-dir", os.path.join(out1, "checkpoints"),
+                        "--topk", str(K), "--n-requests", str(L_REQUESTS),
+                        "--batch", str(L_REQ_Q), "--max-batch",
+                        str(L_REQ_Q), "--workers", "1"])
+            finally:
+                checkpoint.restore_checkpoint = restore
+
+        try:
+            stats = serving_path(paths, "(l3) serve.main --ckpt-dir (fused, "
+                                 "kernel)", run_l3)
+            if len(restored) != 1:
+                fail(f"(l3) {len(restored)} restores")
+            same_params("(l3) restored vs trained", restored[0]["params"],
+                        state["params"])
+            held = check_served("(l3) serve.main --ckpt-dir", served,
+                                list(corpus), L_REQUESTS)
+        finally:
+            served.close()
+        print(f"[l] (l3) serve.main --ckpt-dir on {card}: restored params "
+              f"bitwise equal to the trainer's; {L_REQUESTS} requests of "
+              f"{L_REQ_Q} queries p50 {stats['p50_ms']:.3f} ms; {held}")
+
+        # (l4) mine on K1 and K2, retrain on the mined negatives, evaluate
+        retriever = trainer.retriever
+        collator = RetrievalCollator(
+            DataArguments(vocab_size=cfg.vocab_size, group_size=L_GROUP,
+                          query_max_len=L_QLEN, passage_max_len=L_PLEN),
+            HashTokenizer(cfg.vocab_size))
+        trove = {"retriever": retriever, "collator": collator,
+                 "params": state["params"]}
+        mined = {}
+        for score, heap in (("fused", "kernel"), ("torch", "kernel")):
+            ev = trove_evaluator(dev, trove, score, heap)
+            path = os.path.join(tmp, f"mined-{score}.tsv")
+            mined[score] = path
+            negs = on_path(
+                paths, f"(l4) mine_hard_negatives ({score}, {heap})",
+                path_kernel(score, heap),
+                lambda ev=ev, path=path: ev.mine_hard_negatives(
+                    queries, corpus, qrels, depth=L_DEPTH,
+                    output_path=path),
+                lambda _, ev=ev, score=score, heap=heap: predicted(
+                    ev, score, heap))
+            if not negs:
+                fail(f"(l4) ({score}, {heap}) mined nothing")
+        held = check_mined(mined["fused"], mined["torch"])
+        print(f"[l] (l4) mine_hard_negatives depth {L_DEPTH} on (fused, "
+              f"kernel) and (torch, kernel): {len(negs)} triplets each, "
+              f"scores within {TOL}, documents equal where separated; "
+              f"{held}")
+
+        out4 = os.path.join(tmp, "l4")
+        os.makedirs(os.path.join(out4, "checkpoints"))
+        shutil.copytree(os.path.join(out1, "checkpoints",
+                                     f"step_{L_STEPS:08d}"),
+                        os.path.join(out4, "checkpoints",
+                                     f"step_{L_STEPS:08d}"))
+        paths_cfg = dict(query_path=os.path.join(data_dir, "queries.jsonl"),
+                         corpus_path=os.path.join(data_dir, "corpus.jsonl"))
+        dataset = BinaryDataset(
+            collator.args, retriever.format_query, retriever.format_passage,
+            MaterializedQRelConfig(
+                min_score=1, qrel_path=os.path.join(data_dir, "qrels",
+                                                    "train.tsv"), **paths_cfg),
+            MaterializedQRelConfig(group_random_k=2,
+                                   qrel_path=mined["fused"], **paths_cfg),
+            cache_root=os.path.join(tmp, "cache"))
+        retrainer = RetrievalTrainer(
+            retriever, RetrievalTrainingArguments(
+                output_dir=out4, max_steps=L_RETRAIN, learning_rate=L_LR,
+                per_device_batch_size=L_BATCH, checkpoint_every=L_EVERY,
+                log_every=1), collator, dataset, device=dev)
+        state4 = on_path(paths, "(l4) retrain on mined negatives", None,
+                         retrainer.train, no_launches)
+        steps = [r["step"] for r in retrainer.logs]
+        if steps != list(range(L_STEPS, L_RETRAIN)) or int(
+                state4["step"]) != L_RETRAIN or not all(
+                np.isfinite(r["loss"]) for r in retrainer.logs):
+            fail(f"(l4) retrain logged {steps}, step {int(state4['step'])}")
+        metrics = {}
+        for name, params in (("seeded", log.initial),
+                             ("trained", state["params"]),
+                             ("retrained", state4["params"])):
+            ev = trove_evaluator(dev, {**trove, "params": params})
+            metrics[name] = on_path(
+                paths, f"(l4) evaluate {name} (fused, kernel)",
+                "fused_score_topk",
+                lambda ev=ev: ev.evaluate(queries, corpus, qrels),
+                lambda _, ev=ev: predicted(ev, "fused", "kernel"))
+            if not all(0.0 <= m <= 1.0 for m in metrics[name].values()):
+                fail(f"(l4) {name} metrics {metrics[name]}")
+        print(f"[l] (l4) retrained steps {L_STEPS}-{L_RETRAIN - 1} from "
+              f"(l1)'s step_{L_STEPS:08d} on the mined negatives: loss "
+              f"{retrainer.logs[0]['loss']:.4f} -> "
+              f"{retrainer.logs[-1]['loss']:.4f}; evaluate (fused, kernel) "
+              f"seeded {rounded(metrics['seeded'])}, trained "
+              f"{rounded(metrics['trained'])}, retrained "
+              f"{rounded(metrics['retrained'])}")
+        del trainer, state, retrainer, state4, trove
+    if cuda:
+        torch.cuda.empty_cache()
+    print(f"[l] phase (l): {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 # -- (f) recsys scoring at full width -----------------------------------------
 
 # (arch, shapes run): AutoInt's and BST's bulk / retrieval attention
@@ -4266,6 +4807,9 @@ def main() -> int:
               "run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, src)
+    # cuBLAS's setting for deterministic products, read when phase (l2)
+    # turns deterministic algorithms on; set before the first product
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is false; this "
@@ -4303,11 +4847,14 @@ def main() -> int:
     ivf_paths, ivf_timings = phase_ivf(dev, card, trove)
     paths.update(ivf_paths)
     kernels["fused_score_topk"]["timings"] += ivf_timings
+    paths.update(phase_training(dev, card))
     paths.update(phase_recsys(dev, card))
     for t, call, reset, names in PROFILED:
         t["stage_ms"] = stage_ms(call, reset, names)
         print(f"[b] {names} at {t['shape']}: device ms per kernel "
               f"{t['stage_ms']}")
+    for trace in STEP_TRACES:
+        trace()
     for name, info in kernels.items():
         info["launches_by_path"] = {p: c[name] for p, c in paths.items()}
         info["launches"] = sum(info["launches_by_path"].values())

@@ -18,11 +18,16 @@ _EXPORTS = {
     "EvaluationArguments": "repro_torch.core.config",
     "ModelArguments": "repro_torch.core.config",
     "MaterializedQRelConfig": "repro_torch.core.config",
+    "RetrievalTrainingArguments": "repro_torch.core.config",
+    "parse_cli": "repro_torch.core.config",
     "MaterializedQRel": "repro_torch.core.materialized_qrel",
     "EncodingDataset": "repro_torch.core.datasets",
+    "BinaryDataset": "repro_torch.core.datasets",
+    "MultiLevelDataset": "repro_torch.core.datasets",
     "RetrievalEvaluator": "repro_torch.core.evaluator",
     "EmbeddingCache": "repro_torch.core.embedding_cache",
     "compute_metrics": "repro_torch.core.metrics",
+    "IRMetrics": "repro_torch.core.metrics",
     "FastResultHeapq": "repro_torch.core.result_heap",
     "FairSharder": "repro_torch.core.fair_sharding",
     "ShardedSearchDriver": "repro_torch.core.sharded_search",
@@ -42,8 +47,12 @@ _EXPORTS = {
     "DefaultEncoder": "repro_torch.models.encoder",
     "PretrainedEncoder": "repro_torch.models.encoder",
     "get_encoder": "repro_torch.models.encoder",
+    "RetrievalLoss": "repro_torch.models.losses",
+    "get_loss": "repro_torch.models.losses",
     "BiEncoderRetriever": "repro_torch.models.retriever",
+    "GradedBiEncoderRetriever": "repro_torch.models.retriever",
     "PretrainedRetriever": "repro_torch.models.retriever",
+    "RetrievalTrainer": "repro_torch.training.trainer",
     "params_from_jax": "repro_torch.models.convert",
     "recsys_params_from_jax": "repro_torch.models.convert",
     "RecSysArch": "repro_torch.configs.recsys_arch",

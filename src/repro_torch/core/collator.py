@@ -1,11 +1,13 @@
-"""RetrievalCollator: tokenize texts for encoding (paper §3.2.2).
+"""RetrievalCollator: tokenize + batch (paper §3.2.2).
 
-The inference half of ``repro.core.collator``; training batches
-(``__call__``) come with the training slice.  Outputs are numpy int32
-arrays: the encoder moves them to its device.
+The port of ``repro.core.collator``.  Outputs are numpy int32 arrays
+(labels as the dataset gave them): the encoder or the trainer moves them
+to its device.
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 from repro_torch.core.config import DataArguments
 from repro_torch.data.tokenizer import HashTokenizer
@@ -19,6 +21,26 @@ class RetrievalCollator:
         self.append_eos = (args.append_eos if append_eos is None
                            else append_eos)
 
+    def _encode(self, texts, max_len):
+        return self.tokenizer.batch_encode(
+            texts, max_len, self.append_eos, self.args.pad_to_multiple)
+
+    def __call__(self, features: list[dict]) -> dict:
+        """Training batch of dataset items: queries, then each item's
+        passages in order, and ``labels`` stacked when items carry
+        them."""
+        queries = [f["query"] for f in features]
+        passages = [p for f in features for p in f["passages"]]
+        q_tok, q_mask = self._encode(queries, self.args.query_max_len)
+        p_tok, p_mask = self._encode(passages, self.args.passage_max_len)
+        batch = {
+            "query": {"tokens": q_tok, "mask": q_mask},
+            "passage": {"tokens": p_tok, "mask": p_mask},
+        }
+        if "labels" in features[0]:
+            batch["labels"] = np.stack([f["labels"] for f in features])
+        return batch
+
     def max_len_for(self, is_query: bool) -> int:
         """The side's own token budget (queries do not inherit the
         passage budget)."""
@@ -31,6 +53,5 @@ class RetrievalCollator:
         ``max_len`` defaults to the side's own budget."""
         if max_len is None:
             max_len = self.max_len_for(is_query)
-        toks, mask = self.tokenizer.batch_encode(
-            texts, max_len, self.append_eos, self.args.pad_to_multiple)
+        toks, mask = self._encode(texts, max_len)
         return {"tokens": toks, "mask": mask}

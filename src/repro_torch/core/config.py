@@ -1,7 +1,9 @@
 """Configuration objects of the port (paper §3.1).
 
 The port's own ``DataArguments`` / ``ModelArguments`` /
-``EvaluationArguments`` / ``MaterializedQRelConfig``.
+``RetrievalTrainingArguments`` / ``EvaluationArguments`` /
+``MaterializedQRelConfig``, and ``parse_cli`` to build them from
+``--field value`` pairs.
 ``EvaluationArguments`` validates the port's backend names in
 ``__post_init__`` without importing anything: the
 reference class imports the JAX heap and driver to validate, and its
@@ -11,7 +13,10 @@ names (``jax``, ``pallas``, ``pallas_fused``) are not the port's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+import os
+import sys
+import tempfile
+from typing import Any, Callable, Sequence
 
 # Scoring backends of ShardedSearchDriver: "numpy" = host q @ d.T
 # baseline; "torch" = device matmul then the heap merge; "fused" = the
@@ -28,6 +33,7 @@ INDEX_IMPLS = ("flat", "ivf")
 class DataArguments:
     query_max_len: int = 32
     passage_max_len: int = 128
+    group_size: int = 2                  # 1 positive + (group_size-1) negatives
     append_eos: bool = False
     vocab_size: int = 50304              # hashing-tokenizer vocab
     pad_to_multiple: int = 8
@@ -35,9 +41,32 @@ class DataArguments:
 
 @dataclasses.dataclass
 class ModelArguments:
-    # the inference fields; loss, LoRA and dtype come with training
     encoder_class: str = "lm"            # encoder registry alias
     temperature: float = 0.02
+    loss: str = "infonce"                # loss registry alias or callable
+
+
+@dataclasses.dataclass
+class RetrievalTrainingArguments:
+    """The reference's fields and defaults; ``output_dir`` is under the
+    temporary directory."""
+
+    output_dir: str = os.path.join(tempfile.gettempdir(), "trove_run")
+    learning_rate: float = 1e-3
+    weight_decay: float = 0.01
+    warmup_steps: int = 10
+    max_steps: int = 100
+    per_device_batch_size: int = 8
+    grad_accum_steps: int = 1
+    optimizer: str = "adamw"             # adamw | adafactor
+    grad_clip: float = 1.0
+    checkpoint_every: int = 50
+    keep_checkpoints: int = 2
+    async_checkpoint: bool = True
+    grad_compression: str = "none"       # none | bf16 | int8
+    seed: int = 0
+    log_every: int = 10
+    aux_loss_weight: float = 0.01        # MoE load-balance loss
 
 
 @dataclasses.dataclass
@@ -136,6 +165,48 @@ class EvaluationArguments:
         if self.shard_retry_backoff_s < 0:
             raise ValueError(f"shard_retry_backoff_s must be >= 0, got "
                              f"{self.shard_retry_backoff_s}")
+
+
+def parse_cli(*arg_classes, argv: Sequence[str] | None = None):
+    """Minimal HfArgumentParser equivalent: ``--field value`` pairs (or
+    ``--field=value``; a trailing ``--flag`` is "true").  Each of
+    ``arg_classes`` takes the keys that name its fields, other keys are
+    ignored; one instance per class, a tuple for several."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    kv: dict[str, str] = {}
+    i = 0
+    while i < len(argv):
+        tok = argv[i]
+        if tok.startswith("--"):
+            if "=" in tok:
+                k, v = tok[2:].split("=", 1)
+                kv[k] = v
+                i += 1
+            else:
+                kv[tok[2:]] = argv[i + 1] if i + 1 < len(argv) else "true"
+                i += 2
+        else:
+            i += 1
+    out = []
+    for cls in arg_classes:
+        fields = {f.name: f for f in dataclasses.fields(cls)}
+        kwargs: dict[str, Any] = {}
+        for name, field in fields.items():
+            if name not in kv:
+                continue
+            raw = kv[name]
+            typ = field.type if isinstance(field.type, type) else type(
+                field.default)
+            if typ is bool:
+                kwargs[name] = raw.lower() in ("1", "true", "yes")
+            elif typ in (int, float):
+                kwargs[name] = typ(raw)
+            elif typ is tuple or isinstance(field.default, tuple):
+                kwargs[name] = tuple(x.strip() for x in raw.split(","))
+            else:
+                kwargs[name] = raw
+        out.append(cls(**kwargs))
+    return tuple(out) if len(out) > 1 else out[0]
 
 
 @dataclasses.dataclass

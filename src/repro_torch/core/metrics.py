@@ -1,7 +1,6 @@
-"""IR metrics: nDCG@k, MRR@k, Recall@k, MAP.
+"""IR metrics: nDCG@k, MRR@k, Recall@k, MAP (+ training-time IRMetrics).
 
-A copy of ``repro.core.metrics.compute_metrics`` (numpy only); the
-training-time ``IRMetrics`` comes with the training slice.
+A copy of ``repro.core.metrics`` (numpy only).
 """
 
 from __future__ import annotations
@@ -67,3 +66,39 @@ def compute_metrics(metric_names, run_ids, qid_hashes, qrels) -> dict:
             raise ValueError(name)
         out[name] = float(val.mean())
     return out
+
+
+class IRMetrics:
+    """Training-time approximate IR metrics (paper §3.4).
+
+    Ranks each dev query's own annotated group (a reranking task) — cheap
+    enough to run inside the train loop as ``compute_metrics``.
+    Call with (scores (Q, G), labels (Q, G); label -1 == padding).
+    """
+
+    def __init__(self, metric_names=("ndcg@10", "mrr@10")):
+        self.metric_names = metric_names
+
+    def __call__(self, scores: np.ndarray, labels: np.ndarray) -> dict:
+        scores = np.asarray(scores, np.float32)
+        labels = np.asarray(labels, np.float32)
+        mask = labels >= 0
+        scores = np.where(mask, scores, -np.inf)
+        order = np.argsort(-scores, axis=1)
+        ranked = np.take_along_axis(np.where(mask, labels, 0.0), order, 1)
+        out = {}
+        for name in self.metric_names:
+            base, k = _parse(name)
+            rk = ranked[:, :k]
+            if base == "ndcg":
+                ideal = -np.sort(-np.where(mask, labels, 0.0), axis=1)[:, :k]
+                idcg = dcg(ideal)
+                val = np.where(idcg > 0, dcg(rk) / np.maximum(idcg, 1e-9), 0.0)
+            elif base == "mrr":
+                hit = rk > 0
+                first = np.argmax(hit, 1)
+                val = np.where(hit.any(1), 1.0 / (first + 1.0), 0.0)
+            else:
+                raise ValueError(f"IRMetrics supports ndcg/mrr, got {name}")
+            out[name] = float(val.mean())
+        return out

@@ -69,3 +69,27 @@ def make_retrieval_dataset(out_dir: str, n_queries: int = 64,
                 qrels[qid][f"{id_prefix}doc{d}"] = float(grade)
                 qf.write(f"{qid}\t{id_prefix}doc{d}\t{grade}\n")
     return queries, corpus, qrels
+
+
+def make_synthetic_multilevel(out_dir: str, queries: dict, corpus_size: int,
+                              n_topics: int = 32, seed: int = 1):
+    """Extra synthetic passages with graded labels (SyCL-style source):
+    per query four passages of levels 3..0 carrying its topic token
+    level + 1 times.  Writes ``synthetic.jsonl`` and
+    ``qrels/synthetic.tsv``; returns their paths."""
+    rng = np.random.default_rng(seed)
+    path = os.path.join(out_dir, "synthetic.jsonl")
+    qrel_path = os.path.join(out_dir, "qrels", "synthetic.tsv")
+    with open(path, "w") as f, open(qrel_path, "w") as qf:
+        for qi, (qid, qtext) in enumerate(queries.items()):
+            topic = next((t for t in qtext.split() if t.startswith("topic")),
+                         "topic0")
+            for level in (3, 2, 1, 0):
+                did = f"syn_{qid}_{level}"
+                words = [topic] * (level + 1) + list(
+                    rng.choice(_WORDS, size=20 - level))
+                rng.shuffle(words)
+                f.write(json.dumps(
+                    {"_id": did, "text": " ".join(words)}) + "\n")
+                qf.write(f"{qid}\t{did}\t{level}\n")
+    return path, qrel_path

@@ -9,7 +9,10 @@ admission control, per-request demux).
 The port of ``repro.launch.serve``, with the port's backend names
 (``--score-impl numpy | torch | fused``, default ``fused``) and
 ``--device`` (``cuda`` by default; without a card it raises unless
-``--device cpu`` is given).  Modes:
+``--device cpu`` is given).  The weights are seeded, or with
+``--ckpt-dir DIR`` the ``params`` of the latest checkpoint in ``DIR`` (a
+trainer's ``OUTPUT_DIR/checkpoints``, written by either package).
+Modes:
 
   * ``--workers 0`` (default): the ``torch.distributed`` world when a
     process group is initialised (call
@@ -95,7 +98,10 @@ def main(argv=None):
     ap.add_argument("--data-dir",
                     default=os.path.join(tempfile.gettempdir(),
                                          "trove_data"))
-    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the params of the latest step_* checkpoint "
+                         "in this directory (a trainer's "
+                         "OUTPUT_DIR/checkpoints)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--topk", type=int, default=10)
@@ -162,8 +168,6 @@ def main(argv=None):
         raise _not_ported(f"--arch {args.arch}", 8,
                           "the other LM configs (the port serves "
                           "trove-base)")
-    if args.ckpt_dir:
-        raise _not_ported("--ckpt-dir", 7, "training/checkpoint.py")
     dist = torch.distributed
     world = (dist.get_world_size()
              if dist.is_available() and dist.is_initialized() else 1)
@@ -210,6 +214,19 @@ def main(argv=None):
                                  HashTokenizer(cfg.vocab_size))
     params = retriever.init_params(
         torch.Generator(device=device).manual_seed(0), device=device)
+    if args.ckpt_dir:
+        # the latest checkpoint's params, in the reference's layout
+        # (written by either package's trainer)
+        from repro_torch.training.checkpoint import (latest_checkpoint,
+                                                     restore_checkpoint)
+        path = latest_checkpoint(args.ckpt_dir)
+        if path:
+            state = restore_checkpoint(
+                path, {"step": torch.zeros((), dtype=torch.int32),
+                       "params": params, "opt": {},
+                       "rng": np.zeros(2, np.uint32)})
+            params = state["params"]
+            print(f"restored {path}")
     eval_args = EvaluationArguments(topk=args.topk,
                                     score_impl=args.score_impl,
                                     index_impl=args.index_impl,

@@ -10,8 +10,8 @@ The port's own copy of ``repro.training.fault_tolerance`` (no JAX in it):
   * :func:`resilient_loop` — transient step failures restore the last
     checkpoint and continue, up to a bound of consecutive failures.
 
-The trainer that calls them comes with the training slice (ROADMAP
-queue 1 item 7).
+``repro_torch.training.trainer.RetrievalTrainer`` runs its loop
+through all three.
 """
 
 from __future__ import annotations

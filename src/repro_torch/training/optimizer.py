@@ -1,0 +1,165 @@
+"""Optimizers in plain torch: AdamW + Adafactor (factored second moment).
+
+The port of ``repro.training.optimizer``, with the same functional API
+over nested-dict parameter trees: ``init(params) -> state`` and
+``update(grads, state, params, step) -> (params, state)``.  ``update``
+runs under ``torch.no_grad()`` and writes the parameters and the state
+in place (the returned trees are the ones passed in).
+
+Numerics follow the reference op for op: the schedule and the bias
+corrections are float32 tensors computed from an int32 ``step`` tensor
+(``(step + 1)`` as float32, ``b1 ** t``), not Python doubles; each update
+is computed in float32 and cast back to the parameter's dtype; and
+:func:`clip_by_global_norm` casts the clipped gradient back to the
+gradient's dtype (bf16 at trove-base) before the update, as the
+reference does.  The schedule and corrections are 0-d CPU tensors, which
+torch applies to tensors on any device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.training.tree import flatten, leaves, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"
+    learning_rate: float = 1e-3
+    weight_decay: float = 0.01
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    warmup_steps: int = 0
+    total_steps: int = 0            # >0: cosine decay to 10%
+    grad_clip: float = 1.0
+    # adafactor
+    min_dim_size_to_factor: int = 128
+
+
+def _step_tensor(step) -> torch.Tensor:
+    return torch.as_tensor(step, dtype=torch.int32).cpu()
+
+
+def schedule(cfg: OptimizerConfig, step) -> torch.Tensor:
+    """Learning rate at ``step`` (int32): linear warmup, then cosine
+    decay to 10 % over ``total_steps``; a float32 0-d tensor."""
+    step = _step_tensor(step)
+    lr = torch.tensor(cfg.learning_rate, dtype=torch.float32)
+    if cfg.warmup_steps > 0:
+        lr = lr * torch.minimum(torch.tensor(1.0),
+                                (step + 1) / cfg.warmup_steps)
+    if cfg.total_steps > 0:
+        frac = torch.clamp((step - cfg.warmup_steps)
+                           / max(1, cfg.total_steps - cfg.warmup_steps), 0, 1)
+        lr = lr * (0.55 + 0.45 * torch.cos(math.pi * frac))
+    return lr
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled to global norm <= ``max_norm``, each cast back to its
+    dtype; the float32 global norm before clipping)."""
+    gs = leaves(grads)
+    gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in gs))
+    scale = torch.minimum(torch.tensor(1.0, device=gn.device),
+                          max_norm / torch.clamp_min(gn, 1e-9))
+    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+
+def adamw_init(cfg: OptimizerConfig, params) -> dict:
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
+
+
+@torch.no_grad()
+def adamw_update(cfg: OptimizerConfig, grads, state, params, step):
+    step = _step_tensor(step)
+    lr = schedule(cfg, step)
+    t = (step + 1).float()
+    c1 = 1.0 - cfg.b1 ** t
+    c2 = 1.0 - cfg.b2 ** t
+    for g, mu, nu, p in zip(leaves(grads), leaves(state["mu"]),
+                            leaves(state["nu"]), leaves(params)):
+        g = g.float()
+        mu.copy_(cfg.b1 * mu + (1 - cfg.b1) * g)
+        nu.copy_(cfg.b2 * nu + (1 - cfg.b2) * g * g)
+        u = (mu / c1) / (torch.sqrt(nu / c2) + cfg.eps)
+        u = u + cfg.weight_decay * p.float()
+        p.copy_((p.float() - lr * u).to(p.dtype))
+    return params, state
+
+
+# ---------------------------------------------------------------------------
+# Adafactor (Shazeer & Stern) — factored second moment, no momentum:
+# O(n + m) state for an (n, m) matrix.
+# ---------------------------------------------------------------------------
+
+def _factored(cfg: OptimizerConfig, shape) -> bool:
+    return (len(shape) >= 2 and shape[-1] >= cfg.min_dim_size_to_factor
+            and shape[-2] >= cfg.min_dim_size_to_factor)
+
+
+def adafactor_init(cfg: OptimizerConfig, params) -> dict:
+    def make(p):
+        def zeros(shape):
+            return torch.zeros(shape, dtype=torch.float32, device=p.device)
+        if _factored(cfg, p.shape):
+            return {"vr": zeros(p.shape[:-1]),
+                    "vc": zeros(p.shape[:-2] + p.shape[-1:])}
+        return {"v": zeros(p.shape)}
+
+    return {"v": tree_map(make, params)}
+
+
+def _state_at(tree: dict, path: str) -> dict:
+    for key in path.split("/"):
+        tree = tree[key]
+    return tree
+
+
+@torch.no_grad()
+def adafactor_update(cfg: OptimizerConfig, grads, state, params, step):
+    step = _step_tensor(step)
+    lr = schedule(cfg, step)
+    b2 = 1.0 - (step + 1.0) ** -0.8          # decaying beta2 (paper)
+    eps = 1e-30
+    for (path, p), g in zip(flatten(params), leaves(grads)):
+        v = _state_at(state["v"], path)
+        g = g.float()
+        g2 = g * g + eps
+        if "vr" in v:
+            v["vr"].copy_(b2 * v["vr"] + (1 - b2) * g2.mean(-1))
+            v["vc"].copy_(b2 * v["vc"] + (1 - b2) * g2.mean(-2))
+            vr, vc = v["vr"], v["vc"]
+            denom = torch.sqrt(vr[..., None] / vr.mean(-1, keepdim=True
+                                                       )[..., None]
+                               * vc[..., None, :])
+        else:
+            v["v"].copy_(b2 * v["v"] + (1 - b2) * g2)
+            denom = torch.sqrt(v["v"])
+        u = g / torch.clamp_min(denom, 1e-30)
+        # update clipping (RMS(u) <= 1)
+        rms_u = torch.sqrt((u * u).mean() + 1e-30)
+        u = u / torch.clamp_min(rms_u, 1.0)
+        u = u + cfg.weight_decay * p.float()
+        p.copy_((p.float() - lr * u).to(p.dtype))
+    return params, state
+
+
+def make_optimizer(cfg: OptimizerConfig):
+    if cfg.name == "adamw":
+        return (lambda p: adamw_init(cfg, p),
+                lambda g, s, p, t: adamw_update(cfg, g, s, p, t))
+    if cfg.name == "adafactor":
+        return (lambda p: adafactor_init(cfg, p),
+                lambda g, s, p, t: adafactor_update(cfg, g, s, p, t))
+    raise ValueError(cfg.name)

@@ -10,8 +10,8 @@ callback digests.  Each is also built by the reference's
 cache root of its own: the grouped arrays are equal and the table and
 group-cache directories have the same names.  Then one package opens
 what the other built without a rebuild.  The three training-dataset
-cases (``BinaryDataset`` / ``MultiLevelDataset``) come with the
-training slice (ROADMAP queue 1 item 7).
+cases (``BinaryDataset`` / ``MultiLevelDataset``) are in
+``tests/test_torch_datasets.py``.
 """
 
 import json

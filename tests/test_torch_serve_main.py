@@ -10,7 +10,8 @@ requests of 5 queries plus the rung ladder 1 + 2 + 4 + 8 (45 queries in
 ``--concurrency 1`` return, request by request, results bitwise equal to
 one worker; at ``--concurrency 2``, with ``--deadline-ms`` or with
 ``--resilient`` each raises before any collective.
-``--index-impl ivf`` serves at one and two workers.  Flags whose modules
+``--index-impl ivf`` serves at one and two workers.  ``--ckpt-dir``
+serves a ``launch.train`` checkpoint's params.  Flags whose modules
 are not ported yet raise and name their ROADMAP item.  Every wait on a child process has a timeout.  (The resilient
 modes, ``--workers N --resilient --chaos``, are in
 ``tests/test_torch_resilient_serving.py``.)
@@ -27,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import trove_base
 from repro_torch.core import serving
 from repro_torch.launch import serve
 
@@ -138,16 +140,86 @@ def test_serve_main_ivf_resolves_every_request(tmp_path_factory, mode):
         assert stats["mutation"]["compactions"] == 1
 
 
-# --resilient / --chaos / --round-deadline-s (item 4) and --index-impl ivf
-# (item 6) are ported now and left this list; the other cases keep their ids
+# --resilient / --chaos / --round-deadline-s (item 4), --index-impl ivf
+# (item 6) and --ckpt-dir (item 7, test_serve_main_ckpt_dir_serves_the_
+# trained_params) are ported now and left this list; the other cases keep
+# their ids
 @pytest.mark.parametrize("extra,match", (
-    pytest.param(["--ckpt-dir", "ckpt"], "item 7", id="extra0-item 7"),
     pytest.param(["--arch", "deepfm"], "item 8", id="extra5-item 8"),
 ))
 def test_unported_flags_raise_naming_their_item(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         serve.main(SMOKE + ["--data-dir", str(tmp_path), *extra])
     assert not os.listdir(tmp_path)          # raised before any work
+
+
+def test_serve_main_ckpt_dir_serves_the_trained_params(tmp_path,
+                                                       monkeypatch):
+    """``--ckpt-dir``: the latest checkpoint of a ``launch.train --smoke``
+    run is restored (its params bitwise the trainer's final ones, not
+    the seeded weights), and every request's ids and scores are bitwise
+    those of a frontend over an evaluator holding the trainer's
+    params."""
+    from repro_torch.core.collator import RetrievalCollator
+    from repro_torch.core.config import DataArguments, EvaluationArguments
+    from repro_torch.core.embedding_cache import EmbeddingCache
+    from repro_torch.core.evaluator import RetrievalEvaluator
+    from repro_torch.data.synthetic import make_retrieval_dataset
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.launch import train
+    from repro_torch.models.encoder import DefaultEncoder
+    from repro_torch.models.retriever import BiEncoderRetriever
+    from repro_torch.training import checkpoint
+    from repro_torch.training.tree import flatten
+
+    data_dir, out = str(tmp_path / "data"), str(tmp_path / "run")
+    queries, corpus, _ = make_retrieval_dataset(data_dir, n_queries=64,
+                                                n_docs=512, n_topics=32)
+    trainer, state = train.main([
+        "--smoke", "--device", "cpu", "--data-dir", data_dir,
+        "--output_dir", out, "--max_steps", "4", "--checkpoint_every", "2",
+        "--per_device_batch_size", "4", "--log_every", "1"])
+    restored = []
+    restore = checkpoint.restore_checkpoint
+
+    def recording(path, template):
+        restored.append((path, restore(path, template)))
+        return restored[-1][1]
+
+    monkeypatch.setattr(checkpoint, "restore_checkpoint", recording)
+    ckpt_dir = os.path.join(out, "checkpoints")
+    argv = SMOKE + ["--data-dir", data_dir, "--ckpt-dir", ckpt_dir,
+                    "--workers", "1"]
+    got_ids, got_vals = _serve_recording(monkeypatch, argv)
+    (path, state_back), = restored
+    assert path.endswith("step_00000004")
+    seeded = BiEncoderRetriever(DefaultEncoder(trove_base.reduced())
+                                ).init_params(torch.Generator().manual_seed(
+                                    0), "cpu")
+    for (key, a), (_, b), (_, c) in zip(flatten(state_back["params"]),
+                                        flatten(state["params"]),
+                                        flatten(seeded)):
+        assert torch.equal(a, b), key
+        assert not torch.equal(a, c), key
+
+    # the same requests through a frontend over the trainer's params
+    cfg = trove_base.reduced()
+    ev = RetrievalEvaluator(
+        EvaluationArguments(topk=7, serve_max_batch=8, serve_max_wait_ms=2),
+        BiEncoderRetriever(DefaultEncoder(cfg)),
+        RetrievalCollator(DataArguments(vocab_size=cfg.vocab_size),
+                          HashTokenizer(cfg.vocab_size)),
+        state["params"], device="cpu")
+    # a cold cache of its own, as the launcher's was: both score fresh
+    # float32 encodings (a warm cache's rows are float16)
+    cache = EmbeddingCache(str(tmp_path / "emb_cache"), dim=cfg.d_model)
+    texts = list(queries.values())
+    with serving.ServeFrontend.from_evaluator(ev, corpus, cache) as fe:
+        for i in range(6):
+            req = [texts[(i * 5 + j) % len(texts)] for j in range(5)]
+            ids, vals = fe.search(req)
+            np.testing.assert_array_equal(ids, got_ids[i])
+            np.testing.assert_array_equal(vals, got_vals[i])
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")
@@ -168,6 +240,7 @@ import numpy as np
 import torch
 
 torch.set_num_threads(1)
+from repro_torch.configs import trove_base
 from repro_torch.core import serving
 from repro_torch.launch import serve
 from repro_torch.launch.distributed import init_distributed
