@@ -10,20 +10,30 @@ Phases, each printing its own lines:
   (a) the card (``nvidia-smi`` name and power limit), torch / CUDA
       versions, and the build of the CUDA kernels from the sources in the
       checkout (one ``nvcc`` per source, all started together);
-  (b) each kernel (K1, K2 streaming top-k; K4 EmbeddingBag) against its
-      plain PyTorch version on the card, at the main-path shapes and at
-      edge shapes: bitwise on integer-valued inputs, within TOL on random
+  (b) each kernel (K1, K2 streaming top-k; K4 EmbeddingBag and its
+      backward K4T) against its plain PyTorch version on the card, at
+      the main-path shapes (K4's at serve_p99, serve_bulk,
+      retrieval_cand and train_batch) and at edge shapes: bitwise on integer-valued inputs, within TOL on random
       floats for K1 (K2 only compares and copies, and K4 adds the slots in
       the plain version's order: both bitwise on every input, float and
       bf16 included); K1 also bitwise equal to itself on float inputs
       across row-range counts (one, an odd count, its wrapper's plan) and
       across superchunk sizes (one launch over S = 64, eight over S = 8),
       and K4 across forced plans (tiles of 1, 7 and the most bags shared
-      memory holds, crossed with slot passes of 1, 7 and L); then each
-      kernel's time, its plain version's, one library call's for the same
-      function, and its bound (K1 and K2 at three shapes each, K4 at
-      serve_p99, serve_bulk and retrieval_cand for D = 10 and 1, with the
-      plan each wrapper chose; K2, where it splits, at half, one and two
+      memory holds, crossed with slot passes of 1, 7 and L); K4T, which
+      adds each row's contributions in its plain version's order, bitwise
+      on every input (tolerance 0, float and bf16 included) at
+      train_batch's shapes (DeepFM's ids at D = 10 and 1, Wide&Deep's at
+      D = 1; DeepFM's with 5 % of each field on one hot row) and at the
+      edges (padding, ids repeated in a bag, all padded, L = 0, B = 0,
+      ids >= V, non-finite gradients and weights under padding), on two
+      launches and at block sizes of 32, 96 and 1024;
+      then each kernel's time, its plain version's, one library call's
+      for the same function, and its bound (K1 and K2 at three shapes
+      each, K4 at serve_p99, serve_bulk and retrieval_cand for D = 10 and
+      1, with the plan each wrapper chose, K4T at train_batch, uniform
+      and skewed, with its zero fill, sort and kernel timed apart and its
+      longest run of equal ids; K2, where it splits, at half, one and two
       blocks per SM; each two-stage kernel's stages' device time from
       torch.profiler comes after phase (f));
   (c) trove-base at full width (12 x 768, bf16, seeded random weights) on
@@ -51,16 +61,18 @@ Phases, each printing its own lines:
       each evaluate / search / mine_hard_negatives call of (c), each
       serving path of (d), each recsys cell of (f), each cached path of
       (g), each W > 1 path of (h), each fault path of (i), each data
-      path of (j), each IVF path of (k) and each training path of
-      (l), and read just after; each kernel of that path must have launched exactly as
+      path of (j), each IVF path of (k), each training path of (l) and
+      each recsys training path of (m), and read just after; each kernel
+      of that path must have launched exactly as
       often as predicted (``ShardedSearchDriver.stats`` on (c) / (g) /
       (h), summed over ranks, and on (d) and (i) over every round of the
       path, rescores included, recorded by
       wrapping the driver's ``search`` / ``search_async`` in this script:
       one K1 launch per superchunk call, one K2 launch per scored chunk;
       the model on (f): K4 twice per DeepFM forward, once per Wide&Deep
-      forward, K2 once per retrieval), and a kernel off the path not at
-      all;
+      forward, K2 once per retrieval; on (m) K4 and K4T twice a DeepFM
+      step, once a Wide&Deep step, K4 alone on a serve forward), and a
+      kernel off the path not at all;
   (f) recsys scoring at the full published widths (seeded random weights
       drawn on the card): DeepFM serve_p99 / serve_bulk / retrieval_cand,
       Wide&Deep serve_p99 / retrieval_cand, AutoInt and BST serve_p99;
@@ -206,7 +218,31 @@ Phases, each printing its own lines:
       checkpoint on a ``BinaryDataset`` of the mined negatives, then
       ``evaluate`` on (fused, kernel) of the seeded, the trained and the
       retrained params.  Launches: 0 on every training path, the driver's
-      prediction on the serving, mining and evaluation paths.
+      prediction on the serving, mining and evaluation paths;
+  (m) recsys training at the full published widths (seeded random
+      weights drawn on the card), the ``train_batch`` cell (B = 65,536;
+      BCE, backward, clip, AdamW): (m1) DeepFM, Wide&Deep, AutoInt and BST
+      10 steps each on one seeded batch, every loss and grad_norm finite
+      and the loss falling (a smoke check: the lowest of the second half
+      below the first, as AdamW's first steps may overshoot), the step
+      median in CUDA
+      events split into forward / loss and backward / clip and AdamW,
+      examples/s and peak memory against the parameters' bytes; (m3)
+      DeepFM's and Wide&Deep's gradients of ``table``, the bag table
+      (``linear_table`` / ``wide_table``, on the rows 512 examples touch)
+      and ``mlp_w0`` against a float64 host recomputation of the
+      reference's formula, within 1e-4 of each tensor's largest
+      |gradient|, and one step of the cell on those examples from a fresh
+      AdamW state against AdamW's first step computed on the host in
+      float64 from those gradients (dense parameters and touched rows,
+      with the stated per-element tolerance; untouched rows moved by
+      weight decay alone); (m4) the
+      trained DeepFM through the serve_p99 cell, probabilities in (0, 1);
+      (m2) DeepFM and Wide&Deep 3 steps twice from one seed under
+      ``torch.use_deterministic_algorithms``, final parameters bitwise
+      equal.
+Each phase's wall seconds follow it (``[a] (x) ...: N s``), all of them
+on one ``[a] seconds by phase`` line at the end.
 The second-to-last line is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and the script
 exits non-zero without that line.  It imports nothing of JAX and nothing
@@ -239,6 +275,9 @@ Q, D, K, S, C, C2 = 256, 768, 100, 64, 32, 4096
 # of them), and K4's batches (serve_p99, serve_bulk, retrieval_cand)
 NC = 1_000_000
 BAG_BATCHES = (512, 262144, NC)
+# the recsys training shape (B = 65,536): DeepFM's 39 fields and
+# Wide&Deep's 40 at train_batch, where K4 runs forward and K4T backward
+TRAIN_SHAPE = "train_batch"
 # Cycles the card spins before each timed call (~0.2 ms at 1.98 GHz:
 # longer than a wrapper takes to enqueue one launch).
 SPIN_CYCLES = 400_000
@@ -780,19 +819,19 @@ def k2_timing(dev, unit, q: int, c: int) -> dict:
     return t
 
 
-def bag_compare(name, got, want) -> None:
-    """Check a K4 output against its plain version: NaN in the same
-    places, the value bits equal everywhere else."""
+def bag_compare(name, got, want, kernel: str = "K4") -> None:
+    """Check a K4 (or K4T) output against its plain version: NaN in the
+    same places, the value bits equal everywhere else."""
     import torch
     if got.dtype != want.dtype or got.shape != want.shape:
-        fail(f"K4 {name}: {got.dtype} {tuple(got.shape)} != "
+        fail(f"{kernel} {name}: {got.dtype} {tuple(got.shape)} != "
              f"{want.dtype} {tuple(want.shape)}")
     nan_g, nan_w = torch.isnan(got), torch.isnan(want)
     if not torch.equal(nan_g, nan_w):
-        fail(f"K4 {name}: NaN in other places than the plain version's")
+        fail(f"{kernel} {name}: NaN in other places than the plain version's")
     if not torch.equal(bits(got)[~nan_g], bits(want)[~nan_w]):
         bad = ((bits(got) != bits(want)) & ~nan_w).any(1).nonzero()
-        fail(f"K4 {name}: not bitwise equal to the plain version (rows "
+        fail(f"{kernel} {name}: not bitwise equal to the plain version (rows "
              f"{bad.flatten()[:8].tolist()})")
 
 
@@ -804,9 +843,10 @@ def bits(t):
 
 def phase_bag(dev) -> dict:
     """(b) for K4: the kernel against its plain version at the recsys
-    path's shapes and at the edges, bitwise on every input, and against
-    itself under forced plans; then its times at the path's three
-    shapes."""
+    path's shapes (train_batch's included) and at the edges, bitwise on
+    every input, and against itself under forced plans; then its times at
+    the serving path's three shapes."""
+    import numpy as np
     import torch
 
     from repro_torch.configs import get_arch
@@ -871,12 +911,21 @@ def phase_bag(dev) -> dict:
             case(f"path float D={d}", t_norm, idx, None)
             case(f"path float weighted D={d}", t_norm, idx,
                  normal(*idx.shape))
+        # the training path's own ids (smoke_inputs' train_batch)
+        idx = deepfm_ids(deepfm, TRAIN_SHAPE, dev)
+        case(f"{TRAIN_SHAPE} int D={d}", t_int, idx, None)
+        case(f"{TRAIN_SHAPE} float D={d}", t_norm, idx, None)
         del t_int, t_norm
     t_wide = ints(wide.cfg.total_vocab, 1)
     for b in (BAG_BATCHES[0], BAG_BATCHES[-1]):
         case("path int (Wide&Deep)", t_wide, ids(b, wide.cfg.vocab_sizes),
              None)
+    widx = wide.smoke_inputs(TRAIN_SHAPE, np.random.default_rng(SEED),
+                             dev)["sparse_idx"]
+    case(f"{TRAIN_SHAPE} int (Wide&Deep)", t_wide, widx, None)
     del t_wide
+    case(f"{TRAIN_SHAPE} float (Wide&Deep)", normal(wide.cfg.total_vocab, 1),
+         widx, None)
     # edges, on 1000-row tables
     small = ints(1000, 10)
     case("B=1", small, uni(1, 39), None)
@@ -975,9 +1024,9 @@ def deepfm_ids(deepfm, shape: str, dev):
 
 def k4_self_consistent(dev, deepfm, normal, uni) -> None:
     """K4 gives the same bits under every plan: each column adds its
-    slots in order whatever the tile or the pass.  At the serve_p99 and
-    serve_bulk shapes (DeepFM's ids, float tables of D = 10 and 1; one
-    weighted) and at one bf16 shape: tiles of one bag, an odd count and
+    slots in order whatever the tile or the pass.  At the serve_p99,
+    serve_bulk and train_batch shapes (DeepFM's ids, float tables of D =
+    10 and 1; one weighted) and at one bf16 shape: tiles of one bag, an odd count and
     the largest that shared memory holds, crossed with passes of 1, 7 and
     L slots, each against the wrapper's own plan."""
     import torch
@@ -986,7 +1035,8 @@ def k4_self_consistent(dev, deepfm, normal, uni) -> None:
     from repro_torch.kernels import ops, topk
     sms = topk.sm_count(dev)
     v = deepfm.cfg.total_vocab
-    shapes = [(shape, d, None) for shape in ("serve_p99", "serve_bulk")
+    shapes = [(shape, d, None)
+              for shape in ("serve_p99", "serve_bulk", TRAIN_SHAPE)
               for d in (10, 1)] + [("serve_p99", 10, "weighted"),
                                    ("bf16", 10, "weighted")]
     for shape, d, weighted in shapes:
@@ -1070,6 +1120,239 @@ def k4_timings(dev, deepfm, normal) -> list:
     return timings
 
 
+# -- (b) K4T, K4's backward ---------------------------------------------------
+
+# K4T's forced plans (block sizes through the C entry point), and the
+# share of each field's ids that its skewed draw sends to one hot row.
+K4T_PLANS = (32, 96, 1024)
+HOT_SHARE = 0.05
+
+
+def hot_ids(arch, idx, g):
+    """``idx`` with a share HOT_SHARE of each field's ids set to the
+    field's first row, as one hashed value (a "missing" one) takes a large
+    share of a CTR field: a run of ~B * HOT_SHARE equal ids a field, where
+    smoke_inputs' uniform draw gives runs of ~16 at most."""
+    import torch
+
+    from repro_torch.models import recsys
+    offs = torch.as_tensor(recsys.field_offsets(arch.cfg.vocab_sizes),
+                           dtype=torch.int32, device=idx.device)
+    hot = torch.rand(idx.shape, generator=g, device=idx.device) < HOT_SHARE
+    return torch.where(hot, offs.expand_as(idx), idx).contiguous()
+
+
+def k4t_at_plan(dev, out, grad, idx, weights, threads: int) -> None:
+    """K4T through its C entry point at block size ``threads``, into
+    ``out`` (filled with zeros first, as the wrapper does); the wrapper
+    always takes BACKWARD_THREADS, so this is how phase (b) reaches other
+    plans.  Counts no launch."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import embedding_bag as bag
+    out.zero_()
+    keys, order = bag.backward_keys(idx)
+    b, n_slots = idx.shape
+    code = _build.load_library().repro_embedding_bag_backward(
+        grad.data_ptr(), int(grad.dtype == torch.bfloat16), idx.data_ptr(),
+        None if weights is None else weights.data_ptr(), keys.data_ptr(),
+        order.data_ptr(), b * n_slots, n_slots, out.shape[0], out.shape[1],
+        threads, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if code != 0:
+        fail(f"repro_embedding_bag_backward at {threads} threads: CUDA "
+             f"error {code}")
+
+
+def phase_bag_backward(dev) -> dict:
+    """(b) for K4T: the kernel against its plain version at the training
+    shape and at the edges, bitwise on every input (it adds each row's
+    contributions in the plain version's order: the stated tolerance on
+    random floats is 0), bitwise equal to itself across two launches and
+    across block sizes; then its time at the training shape beside the
+    sort and fill the wrapper runs before it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import embedding_bag as bag
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    deepfm, wide = get_arch("deepfm"), get_arch("wide-deep")
+
+    def ints(*shape, lo=-3, hi=4):
+        return torch.randint(lo, hi, shape, generator=g, device=dev).float()
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    def uni(b, n_slots, pad=0.0, rows=1000):
+        out = torch.randint(0, rows, (b, n_slots), generator=g, device=dev,
+                            dtype=torch.int32)
+        if pad:
+            out[torch.rand(b, n_slots, generator=g, device=dev) < pad] = -1
+        return out
+
+    def case(name, grad, idx, w, n_rows=1000):
+        """The wrapper against the plain version, bitwise, twice, and at
+        every forced block size."""
+        want = ref.embedding_bag_backward_ref(grad, idx, n_rows, w)
+        out = torch.full((n_rows, grad.shape[1]), float("nan"),
+                         dtype=grad.dtype, device=dev)
+        for rep in range(2):
+            bag.embedding_bag_backward_(out, grad, idx, w)
+            torch.cuda.synchronize()
+            bag_compare(f"{name} (launch {rep + 1})", out, want, "K4T")
+        first = out.clone()
+        for threads in K4T_PLANS:
+            out.fill_(float("nan"))
+            k4t_at_plan(dev, out, grad, idx, w, threads)
+            torch.cuda.synchronize()
+            if not torch.equal(bits(out), bits(first)):
+                fail(f"K4T {name} at {threads} threads is not bitwise "
+                     f"equal to {bag.BACKWARD_THREADS}")
+        print(f"[b] K4T {name}: B={idx.shape[0]} L={idx.shape[1]} "
+              f"V={n_rows} D={grad.shape[1]} {str(grad.dtype)[6:]} "
+              f"{'weighted' if w is not None else 'unweighted'}: bitwise "
+              f"equal to the plain version on two launches and at "
+              f"{list(K4T_PLANS)} threads a block")
+
+    # the path's shapes: DeepFM's train_batch ids over its 34.3 M rows
+    # (FM sum D = 10, linear term D = 1), and Wide&Deep's (wide term)
+    v = deepfm.cfg.total_vocab
+    idx = deepfm_ids(deepfm, TRAIN_SHAPE, dev)
+    b = idx.shape[0]
+    for d in (10, 1):
+        case(f"path int D={d}", ints(b, d), idx, None, v)
+        case(f"path int weighted D={d}", ints(b, d), idx,
+             ints(*idx.shape, lo=-2, hi=3), v)
+        case(f"path float D={d}", normal(b, d), idx, None, v)
+    widx = wide.smoke_inputs(TRAIN_SHAPE, np.random.default_rng(SEED),
+                             dev)["sparse_idx"]
+    case("path float (Wide&Deep) D=1", normal(b, 1), widx, None,
+         wide.cfg.total_vocab)
+    case(f"train_batch, {HOT_SHARE:.0%} of each field on one hot row, D=10",
+         normal(b, 10), hot_ids(deepfm, idx, g), None, v)
+    # edges, on 1000-row tables: padding, ids repeated in one bag (8 rows
+    # for 39 slots), all padded, L = 0, B = 0, bf16, ids >= V, non-finite
+    # gradients and weights under padding, other widths, long bags
+    case("padding", ints(4099, 10), uni(4099, 39, 0.1), ints(4099, 39))
+    case("ids repeated in one bag", ints(513, 10), uni(513, 39, 0.05, 8),
+         None)
+    case("all slots padded", normal(300, 10),
+         torch.full((300, 39), -1, dtype=torch.int32, device=dev), None)
+    case("L=0", normal(5, 10), uni(5, 0), None)
+    case("B=0", normal(0, 10), uni(0, 39), None)
+    case("bf16", ints(4099, 10).bfloat16(), uni(4099, 39, 0.1),
+         ints(4099, 39))
+    case("bf16 float", normal(4099, 10).bfloat16(), uni(4099, 39, 0.1),
+         None)
+    past = uni(64, 39)
+    past[3, 5], past[17, 0] = 1000, 123_456_789
+    case("id >= V", normal(64, 10), past, None)
+    pad_idx = uni(64, 39, 0.1)
+    g_inf = ints(64, 10)
+    g_inf[pad_idx.lt(0).any(1)] = float("inf")
+    case("inf gradient under padding", g_inf, pad_idx, None)
+    w_inf = ints(64, 39)
+    w_inf[pad_idx < 0] = float("inf")
+    case("inf weight under padding", ints(64, 10), pad_idx, w_inf)
+    case("D=7", normal(3001, 7), uni(3001, 39, 0.1), normal(3001, 39))
+    case("D=32", normal(3001, 32), uni(3001, 39, 0.1), None)
+    case("L=200", normal(700, 10), uni(700, 200, 0.1), normal(700, 200))
+
+    timings = k4t_timings(dev, deepfm, wide, normal, g)
+    head = timings[0]                        # train_batch, D = 10 (FM sum)
+    return {"name": "embedding_bag_backward", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/embedding_bag_backward.cu",
+            "replaces": "src/repro/models/recsys.py:240", "launches": 0,
+            "max_abs_err": 0.0, "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "timings": timings}
+
+
+def k4t_timings(dev, deepfm, wide, normal, g) -> list:
+    """K4T's time at the training shape (DeepFM's train_batch ids, D = 10
+    and 1; Wide&Deep's wide term, D = 1; and DeepFM's at D = 10 with a hot
+    row a field, ``hot_ids``: one thread a column walks each run, so the
+    longest run sets the kernel's time): the wrapper's whole call (ms),
+    and apart its zero fill of the (V, D) gradient, its stable sort of
+    the ids and the kernel alone; beside the plain version, the backward
+    of one F.embedding_bag(mode="sum") on the same ids (autograd.grad of
+    its output, the graph kept), and the bound (bytes: the ids, the
+    gradient and the dense (V, D) output written once, over the memory
+    rate; operations: 2 B L D over the float32 rate)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import embedding_bag as bag
+    from repro_torch.kernels import ref
+
+    def nothing():
+        pass
+
+    cases = [("DeepFM", deepfm, 10, False), ("DeepFM", deepfm, 1, False),
+             ("Wide&Deep", wide, 1, False),
+             (f"DeepFM, {HOT_SHARE:.0%} hot,", deepfm, 10, True)]
+    timings = []
+    for label, arch, d, skewed in cases:
+        idx = arch.smoke_inputs(TRAIN_SHAPE, np.random.default_rng(SEED),
+                                dev)["sparse_idx"]
+        if skewed:
+            idx = hot_ids(arch, idx, g)
+        b, n_slots = idx.shape
+        v = arch.cfg.total_vocab
+        grad = normal(b, d).mul_(1e-3)
+        out = torch.empty((v, d), device=dev)
+        keys, order = bag.backward_keys(idx)
+        lib_table = torch.zeros((v, d), device=dev, requires_grad=True)
+        lib_out = F.embedding_bag(idx.long(), lib_table, mode="sum")
+        nbytes = 4 * (idx.numel() + b * d + v * d)
+        t_bytes = nbytes / HBM_BYTES_S * 1e3
+        t_ops = 2 * b * n_slots * d / F32_FLOPS * 1e3
+        lib = _build.load_library()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def kernel_only():
+            lib.repro_embedding_bag_backward(
+                grad.data_ptr(), 0, idx.data_ptr(), None, keys.data_ptr(),
+                order.data_ptr(), b * n_slots, n_slots, v, d,
+                bag.BACKWARD_THREADS, out.data_ptr(), stream)
+
+        runs = torch.unique_consecutive(keys, return_counts=True)[1]
+        t = {"shape": f"{label} {TRAIN_SHAPE} B={b} L={n_slots} V={v} "
+                      f"D={d}",
+             "distinct_rows": int(runs.numel()),
+             "longest_run": int(runs.max()),
+             "ms": median_ms(lambda: bag.embedding_bag_backward_(
+                 out, grad, idx), nothing),
+             "fill_ms": median_ms(out.zero_, nothing),
+             "sort_ms": median_ms(lambda: bag.backward_keys(idx), nothing),
+             "kernel_ms": median_ms(kernel_only, out.zero_),
+             "plain_ms": median_ms(lambda: ref.embedding_bag_backward_ref(
+                 grad, idx, v), nothing, n=5),
+             "library_ms": median_ms(lambda: torch.autograd.grad(
+                 lib_out, lib_table, grad, retain_graph=True), nothing),
+             "bound_ms": max(t_bytes, t_ops), "bound_bytes": nbytes,
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        timings.append(t)
+        print(f"[b] embedding_bag_backward at {t['shape']} "
+              f"({t['distinct_rows']} distinct rows, longest run "
+              f"{t['longest_run']}): whole call "
+              f"{t['ms']:.4f} ms = fill {t['fill_ms']:.4f} + sort "
+              f"{t['sort_ms']:.4f} + kernel {t['kernel_ms']:.4f} (each "
+              f"timed apart), plain {t['plain_ms']:.4f} ms, library "
+              f"(F.embedding_bag backward) {t['library_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {nbytes} bytes)")
+        del out, lib_table, lib_out, keys, order, grad
+        torch.cuda.empty_cache()
+    return timings
+
+
 # -- (c) + (d) the main path --------------------------------------------------
 
 
@@ -1115,7 +1398,7 @@ def predict(stats: list, score: str, heap: str) -> dict:
             "topk_update": (sum(st["chunks"] + st["retry_chunks"]
                                 for st in stats)
                             if (score, heap) == ("torch", "kernel") else 0),
-            "embedding_bag": 0}
+            "embedding_bag": 0, "embedding_bag_backward": 0}
 
 
 def path_kernel(score: str, heap: str) -> str | None:
@@ -4242,7 +4525,8 @@ def trace_steps(trainer, state, batch, card: str) -> None:
 
 def no_launches(_) -> dict:
     """The training paths run no kernel: every count stays 0."""
-    return {"fused_score_topk": 0, "topk_update": 0, "embedding_bag": 0}
+    return {"fused_score_topk": 0, "topk_update": 0, "embedding_bag": 0,
+            "embedding_bag_backward": 0}
 
 
 def train_argv(data_dir: str, out_dir: str, dev) -> list:
@@ -4714,7 +4998,7 @@ def phase_recsys(dev, card: str) -> dict:
             batch = arch.smoke_inputs(shape, rng, dev)
             retrieval = spec["kind"] == "retrieval"
             want = {"fused_score_topk": 0, "topk_update": int(retrieval),
-                    "embedding_bag": bags}
+                    "embedding_bag": bags, "embedding_bag_backward": 0}
             kernel = "topk_update" if retrieval else (
                 "embedding_bag" if bags else None)
             path = f"recsys {name} {shape}"
@@ -4800,6 +5084,438 @@ def check_retrieval(path, cfg, params, batch, out, k) -> None:
           f"by more than {TOL}")
 
 
+# -- (m) recsys training at full width ----------------------------------------
+
+# (m1) steps of each ranker's train_batch cell on one seeded batch; (m2)
+# steps of each of two seeded runs held bitwise; (m3) examples whose
+# gradients are held against a float64 recomputation; its tolerance, a
+# share of the largest |gradient| of each tensor: float32 sums of <= 512
+# terms carry ~1e-6 of it, and 1e-4 leaves two decades.
+M_STEPS, M2_STEPS, M3_BATCH, M3_RTOL = 10, 3, 512, 1e-4
+# (m3)'s AdamW step: the share of elements it may hold loosely (a
+# gradient within 2 M3_RTOL of its tensor's largest, not 0), so that a
+# sign flipped or a row missed cannot hide there
+M3_LOOSE = 0.1
+# AdamW as the train_batch cell runs it: make_train_cell's learning rate
+# and the reference OptimizerConfig's defaults (repro/training/
+# optimizer.py), restated here for (m3)'s host step
+ADAM_LR, ADAM_WD, ADAM_EPS, ADAM_CLIP = 1e-3, 0.01, 1e-8, 1.0
+M2_ARCHS = ("deepfm", "wide-deep")
+
+
+def bag_launches(kind: str, forwards: int, backwards: int) -> dict:
+    """Each kernel's launches on a recsys training path: K4 per forward and
+    K4T per backward, BAGS_PER_FORWARD times each; K1 and K2 never."""
+    bags = BAGS_PER_FORWARD[kind]
+    return {"fused_score_topk": 0, "topk_update": 0,
+            "embedding_bag": bags * forwards,
+            "embedding_bag_backward": bags * backwards}
+
+
+class StepMarks:
+    """CUDA events inside a train cell's step, recorded by wrapping
+    ``recsys.forward`` (its end) and ``configs.base.clip_by_global_norm``
+    (its start), so a step splits into forward, loss + backward, and clip
+    + AdamW without a change to the cell."""
+
+    def __init__(self):
+        from repro_torch.configs import base
+        from repro_torch.models import recsys
+        self.marks: list = []
+        self.splits: list = []          # per step: its four events
+        self._saved = [(recsys, "forward"), (base, "clip_by_global_norm")]
+        self._orig = [getattr(m, n) for m, n in self._saved]
+
+    def _mark(self):
+        import torch
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        self.marks.append(e)
+
+    def __enter__(self):
+        fwd, clip = self._orig
+
+        def forward(*a, **kw):
+            out = fwd(*a, **kw)
+            self._mark()
+            return out
+
+        def clip_by_global_norm(*a, **kw):
+            self._mark()
+            return clip(*a, **kw)
+
+        for (mod, name), fn in zip(self._saved, (forward,
+                                                 clip_by_global_norm)):
+            setattr(mod, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self._saved, self._orig):
+            setattr(mod, name, fn)
+
+    def step(self, fn):
+        """Run ``fn`` (one step) between a start and an end event; returns
+        its output."""
+        self.marks = []
+        self._mark()
+        out = fn()
+        self._mark()
+        self.splits.append(self.marks)
+        return out
+
+
+def train_steps(cell, state, batch, steps: int, marks=None) -> list:
+    """``steps`` steps of ``cell`` on one batch; each step's metrics."""
+    metrics = []
+    for _ in range(steps):
+        if marks is None:
+            state, m = cell.fn(state, batch)
+        else:
+            state, m = marks.step(lambda: cell.fn(state, batch))
+        metrics.append(m)
+    return metrics
+
+
+def train_state(arch, dev):
+    import torch
+
+    from repro_torch.configs.base import init_train_state
+    from repro_torch.models import recsys
+    params = recsys.init_params(
+        arch.cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    cell = arch.build_cell(TRAIN_SHAPE, dev)
+    return cell, init_train_state(cell, params)
+
+
+def phase_recsys_training(dev, card: str) -> dict:
+    """(m) the recsys train_batch cell at full published width, seeded
+    random weights drawn on the card; returns each path's launch
+    counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    paths: dict = {}
+    t_phase = time.perf_counter()
+    for name in ("deepfm", "wide-deep", "autoint", "bst"):
+        arch = get_arch(name)
+        cfg = arch.cfg
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cell, state = train_state(arch, dev)
+        batch = arch.smoke_inputs(TRAIN_SHAPE, np.random.default_rng(SEED),
+                                  dev)
+        b = batch["labels"].shape[0]
+        held = sum(p.numel() * p.element_size()
+                   for p in state["params"].values())
+        marks = StepMarks()
+        bags = BAGS_PER_FORWARD[cfg.kind]
+
+        def run(cell=cell, state=state, batch=batch, marks=marks):
+            with marks:
+                out = train_steps(cell, state, batch, M_STEPS, marks)
+            torch.cuda.synchronize()
+            return out
+
+        path = f"(m1) recsys train {name} {TRAIN_SHAPE} x {M_STEPS}"
+        metrics = on_path(paths, path,
+                          "embedding_bag_backward" if bags else None, run,
+                          lambda _, k=cfg.kind: bag_launches(k, M_STEPS,
+                                                             M_STEPS))
+        loss = [float(m["loss"]) for m in metrics]
+        gnorm = [float(m["grad_norm"]) for m in metrics]
+        if not (np.isfinite(loss).all() and np.isfinite(gnorm).all()):
+            fail(f"{path}: loss {loss} / grad_norm {gnorm} not finite")
+        # a smoke check, not evidence that the update is right ((m3) holds
+        # one step against a host AdamW): AdamW's first steps at the
+        # cell's fixed rate (1e-3) move every weight by about the rate and
+        # may overshoot, so the loss must come back below its start within
+        # the run's second half
+        if not min(loss[M_STEPS // 2:]) < loss[0]:
+            fail(f"{path}: the loss did not fall on the repeated batch: "
+                 f"{loss}")
+        split = {"forward": [], "backward": [], "update": [], "total": []}
+        for s0, f, c, s1 in marks.splits:
+            split["forward"].append(s0.elapsed_time(f))
+            split["backward"].append(f.elapsed_time(c))
+            split["update"].append(c.elapsed_time(s1))
+            split["total"].append(s0.elapsed_time(s1))
+        med = {k: statistics.median(v) for k, v in split.items()}
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[m] (m1) {name} {TRAIN_SHAPE} B={b} on {card}: losses "
+              f"{[round(x, 6) for x in loss]} over {M_STEPS} steps on one "
+              f"batch (lowest of the second half "
+              f"{min(loss[M_STEPS // 2:]):.6f} < first {loss[0]:.6f}), "
+              f"grad_norms "
+              f"{[round(x, 6) for x in gnorm]}, all finite")
+        print(f"[m] (m1) {name} step median {med['total']:.3f} ms (CUDA "
+              f"events; forward {med['forward']:.3f} + loss and backward "
+              f"{med['backward']:.3f} + clip and AdamW {med['update']:.3f}), "
+              f"steps ms {[round(x, 3) for x in split['total']]}, "
+              f"{b / med['total'] * 1e3:.0f} examples/s, peak device memory "
+              f"{peak / 2 ** 30:.2f} GiB against params "
+              f"{held / 2 ** 30:.2f} GiB")
+        del state["opt"]                   # (m3) and (m4) need the params
+        torch.cuda.empty_cache()
+        if bags:
+            recsys_grad_check(dev, arch, state["params"], paths)
+        if cfg.kind == "deepfm":
+            serve_trained(dev, arch, state["params"], paths)
+        del cell, state, batch, marks, metrics
+    recsys_deterministic(dev, paths)
+    torch.cuda.empty_cache()
+    print(f"[m] phase (m): {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
+def recsys_grad_check(dev, arch, params, paths: dict) -> None:
+    """(m3) the gradients of DeepFM's (or Wide&Deep's) loss on M3_BATCH
+    examples at full width — ``table`` and the bag table
+    (``linear_table`` / ``wide_table``, through K4T alone) on the rows
+    the batch touches, and ``mlp_w0`` — against the reference's formula
+    (repro/models/recsys.py:238-248) recomputed on the host in float64
+    from the same parameter rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import recsys
+    from repro_torch.models.losses import BCELoss
+    cfg = arch.cfg
+    rng = np.random.default_rng(SEED + 3)
+    batch = arch.smoke_inputs("serve_p99", rng, dev)
+    idx = batch["sparse_idx"][:M3_BATCH]
+    labels = torch.from_numpy(
+        rng.integers(0, 2, idx.shape[0]).astype(np.float32)).to(dev)
+    deepfm = cfg.kind == "deepfm"
+    bag_table = "linear_table" if deepfm else "wide_table"
+    names = ("table", bag_table, "mlp_w0")
+
+    def grads():
+        leaves = {k: p.detach().requires_grad_(k in names)
+                  for k, p in params.items()}
+        loss = BCELoss()(recsys.forward(cfg, leaves, {"sparse_idx": idx}),
+                         labels)
+        out = torch.autograd.grad(loss, [leaves[k] for k in names])
+        torch.cuda.synchronize()
+        return out
+
+    got = on_path(paths, f"(m3) {arch.name} gradients B={idx.shape[0]}",
+                  "embedding_bag_backward", grads,
+                  lambda _: bag_launches(cfg.kind, 1, 1))
+    rows, inv = torch.unique(idx.long(), return_inverse=True)
+    host = {k: params[k][rows] for k in names[:2]}
+    host.update({k: p for k, p in params.items() if k not in names[:2]})
+    host = {k: p.detach().double().cpu().requires_grad_(True)
+            for k, p in host.items()}
+    inv, y = inv.cpu(), labels.double().cpu()
+    emb = host["table"][inv]                               # (B, F, D)
+    lin = host[bag_table][inv][..., 0].sum(-1)
+    fm = 0.0
+    if deepfm:
+        sum_v = emb.sum(1)
+        fm = 0.5 * ((sum_v * sum_v) - (emb * emb).sum(1)).sum(-1)
+    x = emb.reshape(emb.shape[0], -1)
+    n_mlp = len(cfg.mlp_dims) + 1
+    for i in range(n_mlp):
+        x = x @ host[f"mlp_w{i}"] + host[f"mlp_b{i}"]
+        if i < n_mlp - 1:
+            x = torch.relu(x)
+    logits = lin + fm + x[:, 0] + host["bias"][0]
+    loss = (torch.clamp_min(logits, 0) - logits * y
+            + torch.log1p(torch.exp(-logits.abs()))).mean()
+    loss.backward()
+    report = []
+    for name, g in zip(names, got):
+        want = host[name].grad
+        g = g[rows] if name != "mlp_w0" else g
+        err = float((g.double().cpu() - want).abs().max())
+        scale = float(want.abs().max())
+        if not (scale > 0 and err <= M3_RTOL * scale):
+            fail(f"(m3) d{name}: max abs error {err} against a largest "
+                 f"|gradient| of {scale} (tolerance {M3_RTOL} of it)")
+        report.append(f"d{name} {err:.3g} of {scale:.3g}")
+    # rows no id touches get no gradient
+    for name, g in zip(names[:2], got[:2]):
+        live = int(g.abs().sum(1).count_nonzero())
+        if live > rows.numel():
+            fail(f"(m3) d{name}: {live} rows nonzero, {rows.numel()} "
+                 f"touched")
+    print(f"[m] (m3) {arch.name} full width, {idx.shape[0]} examples, "
+          f"{rows.numel()} rows touched: gradients against a float64 host "
+          f"recomputation of the reference formula, max abs error "
+          f"{'; '.join(report)} (tolerance {M3_RTOL} of the largest "
+          f"|gradient|); no untouched row nonzero")
+    recsys_update_check(dev, arch, params,
+                        {"sparse_idx": idx, "labels": labels}, host, rows,
+                        names[:2], paths)
+
+
+def recsys_update_check(dev, arch, params, batch, host, rows, tables,
+                        paths: dict) -> None:
+    """(m3) one step of the train_batch cell on the same examples, from a
+    fresh AdamW state on a copy of ``params``, against AdamW's first step
+    (repro/training/optimizer.py adamw_update after clip_by_global_norm)
+    computed on the host in float64 from (m3)'s float64 gradients
+    ``host[k].grad``: every element of the dense parameters and of the
+    ``tables``' touched rows, and on the card every untouched row, which
+    weight decay alone moves.
+
+    AdamW's first step moves an element by lr (g / (|g| + eps) + wd p)
+    with g clipped (its moments are g and g g once bias-corrected), so
+    about lr sign(g): a sign flipped or a row missed is off by lr or 2 lr.
+    An element whose host gradient exceeds twice (m3)'s gradient
+    tolerance delta (M3_RTOL of its tensor's largest |gradient|) is held
+    to lr times 2 eps delta / (|g| + eps)^2, how far delta can move g /
+    (|g| + eps), plus 1e-4 for float32's bias corrections (1 - 0.999
+    rounds 1.3e-5 off) and moments; one whose host gradient is exactly 0
+    (a unit no example activates) to that 1e-4, as weight decay alone
+    moves it; any other (within 2 delta of 0) may take either sign and
+    is held to 2 lr, and at most M3_LOOSE of the elements may be such.
+    Each also gets 2^-22 |p| for the rounding of its float32 result.  An
+    untouched row must be within 2^-21 |p| of p (1 - lr wd)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import init_train_state
+    cfg = arch.cfg
+    b = batch["labels"].shape[0]
+    copy = {k: p.detach().clone() for k, p in params.items()}
+    cell = arch.build_cell(TRAIN_SHAPE, dev)
+    state = init_train_state(cell, copy)
+
+    def run():
+        out = cell.fn(state, batch)
+        torch.cuda.synchronize()
+        return out
+
+    _, metrics = on_path(paths, f"(m3) {arch.name} one AdamW step B={b}",
+                         "embedding_bag_backward", run,
+                         lambda _: bag_launches(cfg.kind, 1, 1))
+    del state, cell
+    torch.cuda.empty_cache()
+    lr = float(np.float32(ADAM_LR))         # schedule() gives a float32 rate
+    grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
+             for k, p in host.items()}
+    gn = float(torch.sqrt(sum((g * g).sum() for g in grads.values())))
+    scale = min(1.0, ADAM_CLIP / max(gn, 1e-9))
+    card_gn = float(metrics["grad_norm"])
+    if not abs(card_gn - gn) <= M3_RTOL * gn:
+        fail(f"(m3) {arch.name} step: grad_norm {card_gn} against the "
+             f"host's {gn}")
+    n_all = n_clear = n_zero = 0
+    worst = 0.0
+    for k, p0 in host.items():
+        p0 = p0.detach()
+        g = grads[k] * scale
+        delta = M3_RTOL * float(g.abs().max())
+        want = p0 - lr * (g / (g.abs() + ADAM_EPS) + ADAM_WD * p0)
+        got = (copy[k][rows] if k in tables else copy[k]).double().cpu()
+        clear, zero = g.abs() > 2 * delta, g == 0
+        tol_u = torch.where(
+            clear, 2 * ADAM_EPS * delta / (g.abs() + ADAM_EPS) ** 2,
+            torch.where(zero, 0.0, 2.0)) + 1e-4
+        tol = lr * tol_u + 2.0 ** -22 * p0.abs()
+        ratio = float(((got - want).abs() / tol).max())
+        if not ratio <= 1.0:
+            fail(f"(m3) {arch.name} step: {k} off the host AdamW step by "
+                 f"{ratio:.3g} times its tolerance")
+        worst = max(worst, ratio)
+        n_all += g.numel()
+        n_clear += int(clear.sum())
+        n_zero += int(zero.sum())
+    loose = n_all - n_clear - n_zero
+    if loose > M3_LOOSE * n_all:
+        fail(f"(m3) {arch.name} step: {loose} of {n_all} elements have a "
+             f"gradient within 2 delta of 0 and not 0 (at most {M3_LOOSE} "
+             f"of them)")
+    untouched = 0
+    for k in tables:
+        p0, p1 = params[k], copy[k]
+        off = (p1 - p0 * (1 - lr * ADAM_WD)).abs() > 2.0 ** -21 * p0.abs()
+        off[rows] = False
+        if bool(off.any()):
+            fail(f"(m3) {arch.name} step: {int(off.any(1).sum())} untouched "
+                 f"rows of {k} moved by more than weight decay")
+        untouched += p0.shape[0] - rows.numel()
+        del off
+    del copy
+    torch.cuda.empty_cache()
+    print(f"[m] (m3) {arch.name} one AdamW step on the same {b} examples "
+          f"against a float64 host step from the host gradients (grad_norm "
+          f"{card_gn:.6g}, host {gn:.6g}, clip scale {scale:.6g}): "
+          f"{n_all} elements (dense and touched rows): {n_clear} with a "
+          f"gradient clear of 2 delta, {n_zero} with a gradient of 0, "
+          f"{loose} held to 2 lr; the largest error "
+          f"{worst:.3g} of its tolerance; {untouched} untouched rows of "
+          f"{' and '.join(tables)} within 2^-21 |p| of p (1 - lr wd)")
+
+
+def serve_trained(dev, arch, params, paths: dict) -> None:
+    """(m4) the trained DeepFM through the serve_p99 cell."""
+    import numpy as np
+    import torch
+    batch = arch.smoke_inputs("serve_p99", np.random.default_rng(SEED + 4),
+                              dev)
+    cell = arch.build_cell("serve_p99", dev)
+
+    def run():
+        out = cell.fn(params, batch)
+        torch.cuda.synchronize()
+        return out
+
+    out = on_path(paths, "(m4) trained DeepFM serve_p99", "embedding_bag",
+                  run, lambda _: bag_launches(arch.cfg.kind, 1, 0))
+    b = arch.shapes["serve_p99"]["batch"]
+    if out.shape != (b,) or not bool(((out > 0) & (out < 1)).all()):
+        fail(f"(m4): probabilities not in (0, 1) / shape {tuple(out.shape)}")
+    print(f"[m] (m4) trained DeepFM serve_p99: {b} probabilities in (0, 1), "
+          f"mean {float(out.mean()):.6f}")
+
+
+def recsys_deterministic(dev, paths: dict) -> None:
+    """(m2) DeepFM and Wide&Deep: M2_STEPS steps twice from one seed
+    under deterministic algorithms; the final parameters bitwise
+    equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name in M2_ARCHS:
+            arch = get_arch(name)
+            finals = []
+            for run_no in (1, 2):
+                torch.cuda.empty_cache()
+                cell, state = train_state(arch, dev)
+                batch = arch.smoke_inputs(
+                    TRAIN_SHAPE, np.random.default_rng(SEED), dev)
+
+                def run(cell=cell, state=state, batch=batch):
+                    out = train_steps(cell, state, batch, M2_STEPS)
+                    torch.cuda.synchronize()
+                    return out
+
+                on_path(paths, f"(m2) {name} deterministic run {run_no}",
+                        "embedding_bag_backward", run,
+                        lambda _, k=arch.cfg.kind: bag_launches(
+                            k, M2_STEPS, M2_STEPS))
+                finals.append(state["params"])
+                del cell, state, batch
+            differ = [k for k in finals[0]
+                      if not torch.equal(finals[0][k], finals[1][k])]
+            if differ:
+                fail(f"(m2) {name}: parameters differ between two seeded "
+                     f"runs: {differ}")
+            print(f"[m] (m2) {name}: {M2_STEPS} steps twice from seed "
+                  f"{SEED} under deterministic algorithms: all "
+                  f"{len(finals[0])} parameters bitwise equal")
+            del finals
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
 def main() -> int:
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
@@ -4807,8 +5523,9 @@ def main() -> int:
               "run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, src)
-    # cuBLAS's setting for deterministic products, read when phase (l2)
-    # turns deterministic algorithms on; set before the first product
+    # cuBLAS's setting for deterministic products, read when phases (l2)
+    # and (m2) turn deterministic algorithms on; set before the first
+    # product
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
@@ -4832,29 +5549,48 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"[a] ptxas: {line.strip()}")
 
-    kernels = phase_kernels(dev)
+    seconds = {"(a) build": time.perf_counter() - t0}
 
-    kernels["embedding_bag"] = phase_bag(dev)
+    def timed(label, fn, *args):
+        """``fn(*args)``, its wall seconds kept under ``label``."""
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[label] = time.perf_counter() - t
+        print(f"[a] {label}: {seconds[label]:.1f} s")
+        return out
 
-    trove = build_trove(dev)
-    paths, runs = phase_main_path(dev, card, trove)
-    paths.update(phase_serving(dev, card, trove))
-    paths.update(phase_cache(dev, card, trove,
-                             kernels["fused_score_topk"]["timings"][0]["ms"]))
-    paths.update(phase_workers(dev, card, trove, runs[("fused", "kernel")]))
-    paths.update(phase_faults(dev, card, trove))
-    paths.update(phase_data(dev, card, trove))
-    ivf_paths, ivf_timings = phase_ivf(dev, card, trove)
+    kernels = timed("(b) K1 and K2", phase_kernels, dev)
+    kernels["embedding_bag"] = timed("(b) K4", phase_bag, dev)
+    kernels["embedding_bag_backward"] = timed("(b) K4T", phase_bag_backward,
+                                              dev)
+
+    trove = timed("(c) trove-base", build_trove, dev)
+    paths, runs = timed("(c) evaluate", phase_main_path, dev, card, trove)
+    paths.update(timed("(d) serving", phase_serving, dev, card, trove))
+    paths.update(timed("(g) cache", phase_cache, dev, card, trove,
+                       kernels["fused_score_topk"]["timings"][0]["ms"]))
+    paths.update(timed("(h) workers", phase_workers, dev, card, trove,
+                       runs[("fused", "kernel")]))
+    paths.update(timed("(i) faults", phase_faults, dev, card, trove))
+    paths.update(timed("(j) data", phase_data, dev, card, trove))
+    ivf_paths, ivf_timings = timed("(k) IVF", phase_ivf, dev, card, trove)
     paths.update(ivf_paths)
     kernels["fused_score_topk"]["timings"] += ivf_timings
-    paths.update(phase_training(dev, card))
-    paths.update(phase_recsys(dev, card))
-    for t, call, reset, names in PROFILED:
-        t["stage_ms"] = stage_ms(call, reset, names)
-        print(f"[b] {names} at {t['shape']}: device ms per kernel "
-              f"{t['stage_ms']}")
-    for trace in STEP_TRACES:
-        trace()
+    paths.update(timed("(l) training", phase_training, dev, card))
+    paths.update(timed("(f) recsys", phase_recsys, dev, card))
+    paths.update(timed("(m) recsys training", phase_recsys_training, dev,
+                       card))
+
+    def profile():
+        for t, call, reset, names in PROFILED:
+            t["stage_ms"] = stage_ms(call, reset, names)
+            print(f"[b] {names} at {t['shape']}: device ms per kernel "
+                  f"{t['stage_ms']}")
+        for trace in STEP_TRACES:
+            trace()
+
+    timed("profiles", profile)
+    print(f"[a] seconds by phase: {json.dumps(seconds)}")
     for name, info in kernels.items():
         info["launches_by_path"] = {p: c[name] for p, c in paths.items()}
         info["launches"] = sum(info["launches_by_path"].values())

@@ -1,25 +1,27 @@
 """RecSys cells: (architecture x input shape) -> a step the card runs.
 
-The counterpart of ``repro.configs.base.RecSysArch`` for the ``serve``
-kind (``sigmoid(forward)`` over a batch) and the ``retrieval`` kind (one
-user against N candidates, top-k).  Training (BCE + AdamW on the
-``train_batch`` shape) is not ported yet (ROADMAP.md queue 7):
-``build_cell`` raises for it.  :meth:`RecSysArch.smoke_inputs` draws the
-same numpy values in the same order as the reference's, so one seed
-gives both packages identical inputs.
+The counterpart of ``repro.configs.base.RecSysArch`` for its three
+kinds: ``train`` (the CTR step on ``train_batch``: BCE of ``forward``,
+backward — K4's bag sums through K4T — clip and AdamW, from
+``configs.base.make_train_cell``), ``serve`` (``sigmoid(forward)`` over a
+batch) and ``retrieval`` (one user against N candidates, top-k).
+:meth:`RecSysArch.smoke_inputs` draws the same numpy values in the same
+order as the reference's, so one seed gives both packages identical
+inputs.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import Cell, make_train_cell
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import recsys
+from repro_torch.models.losses import BCELoss
 
 RECSYS_SHAPES = {
     "train_batch": dict(kind="train", batch=65536),
@@ -28,14 +30,6 @@ RECSYS_SHAPES = {
     "retrieval_cand": dict(kind="retrieval", batch=1,
                            n_candidates=1_000_000, topk=100),
 }
-
-
-@dataclasses.dataclass(frozen=True)
-class Cell:
-    arch: str
-    shape: str
-    kind: str                       # serve | retrieval
-    fn: Callable                    # fn(params, batch)
 
 
 class RecSysArch:
@@ -76,15 +70,22 @@ class RecSysArch:
 
     def build_cell(self, shape_name: str,
                    device: str | torch.device = "cuda") -> Cell:
-        """The step of one shape; ``fn(params, batch)`` runs on the
-        device of its inputs (``device`` is checked here, and must hold a
-        card unless it is ``"cpu"``)."""
+        """The step of one shape; ``fn(params, batch)`` (``fn(state,
+        batch)`` for ``train``, the state from
+        ``configs.base.init_train_state``) runs on the device of its
+        inputs (``device`` is checked here, and must hold a card unless it
+        is ``"cpu"``)."""
         resolve_device(device)
         spec = self.shapes[shape_name]
         cfg = self.cfg
         if spec["kind"] == "train":
-            raise NotImplementedError(
-                "recsys training (BCE + AdamW) is not ported yet")
+            bce = BCELoss()
+
+            def loss_fn(params, b):
+                return bce(recsys.forward(cfg, params, b), b["labels"])
+
+            return make_train_cell(self.name, shape_name, loss_fn=loss_fn,
+                                   optimizer="adamw")
         if spec["kind"] == "serve":
             def serve_fn(params, b):
                 return torch.sigmoid(recsys.forward(cfg, params, b))

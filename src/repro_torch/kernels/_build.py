@@ -41,6 +41,9 @@ _SIGNATURES = {
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
     "repro_embedding_bag": ([_P, _I, _P, _P, _I, _I, ctypes.c_longlong, _I,
                              _I, _I, _P, _P], _I),
+    "repro_embedding_bag_backward": ([_P, _I, _P, _P, _P, _P, _I, _I,
+                                      ctypes.c_longlong, _I, _I, _P, _P],
+                                     _I),
 }
 
 

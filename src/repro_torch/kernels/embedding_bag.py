@@ -1,18 +1,21 @@
-"""Wrapper of the EmbeddingBag kernel (CUDA C++, ``csrc/embedding_bag.cu``).
+"""Wrappers of the EmbeddingBag kernels (CUDA C++, ``csrc/embedding_bag.cu``
+and ``csrc/embedding_bag_backward.cu``).
 
 K4 :func:`embedding_bag_` replaces the TPU kernel
 ``src/repro/kernels/embedding_bag.py::embedding_bag_pallas``: bag sums
 ``out[b] = sum_l table[idx[b, l]] * weights[b, l]`` with ``idx < 0`` as
-padding, accumulated in float32 and written in the table's dtype.  The
-source note in ``csrc/embedding_bag.cu`` says what bounds the kernel on
+padding, accumulated in float32 and written in the table's dtype.  K4T
+:func:`embedding_bag_backward_` is its backward, the table's gradient,
+which the reference leaves to XLA's scatter-add (it has no Pallas
+backward).  The source notes in ``csrc/`` say what bounds each kernel on
 an H100 and what its design does about it.
 
-The wrapper checks device, dtype, shape and contiguity and raises on
+Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else.  For CPU tensors it runs the plain version
 (``kernels/ref.py``); for CUDA tensors it launches the kernel on the
-current stream, in the tiles and slot passes of :func:`bag_plan`, or
-raises — there is no fallback.  Each launch adds one to
-:data:`LAUNCHES`.
+current stream (K4 in the tiles and slot passes of :func:`bag_plan`), or
+raises — there is no fallback.  Each launch adds one to its kernel's
+entry of :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -37,13 +40,18 @@ TILE_BAGS = 24
 # Shared memory a tile's ids and weights may take (long bags).
 TILE_SMEM = 48 * 1024
 
-# Kernel launches since the last reset_launch_counts().
-LAUNCHES = {"embedding_bag": 0}
+# K4T's block size (csrc/embedding_bag_backward.cu: one thread per sorted
+# id and column; any multiple of 32 gives the same bits).
+BACKWARD_THREADS = 256
+
+# Kernel launches since the last reset_launch_counts(), by kernel name.
+LAUNCHES = {"embedding_bag": 0, "embedding_bag_backward": 0}
 
 
 def reset_launch_counts() -> None:
     with LAUNCH_LOCK:
-        LAUNCHES["embedding_bag"] = 0
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def vector_bytes(dim: int, elt_bytes: int) -> int:
@@ -132,3 +140,72 @@ def embedding_bag_(out: torch.Tensor, table: torch.Tensor, idx: torch.Tensor,
                 v, d, bags, n_pass, out.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     count_launch(LAUNCHES, "embedding_bag")
+
+
+def backward_keys(idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4T's index preparation: the (B, L) ids' rows, padding read as row
+    0, sorted stably, and each sorted entry's flat position ``b * L + l``
+    (both (B*L,) int32).  The stable sort keeps every row's contributions
+    in ascending flat position, the order K4T adds them in."""
+    keys, order = torch.sort(idx.reshape(-1).clamp(min=0), stable=True)
+    return keys, order.to(torch.int32)
+
+
+def embedding_bag_backward_(out: torch.Tensor, grad_out: torch.Tensor,
+                            idx: torch.Tensor,
+                            weights: torch.Tensor | None = None) -> None:
+    """K4T, into ``out``: the gradient of :func:`embedding_bag_` with
+    respect to its table, ``out[r] = sum over idx[b, l] = r of
+    grad_out[b] * weights[b, l]``.
+
+    grad_out (B, D) float32 or bfloat16; idx (B, L) int32, -1 = padding;
+    weights (B, L) float32 or None (all ones); out (V, D) in grad_out's
+    dtype, V >= 1, written whole (rows no id touches are 0).  Edge
+    semantics and the order of each row's sum are the plain version's
+    (:func:`repro_torch.kernels.ref.embedding_bag_backward_ref`).  On the
+    card the wrapper fills ``out`` with zeros and sorts the ids
+    (:func:`backward_keys`) before the launch.
+    """
+    if not isinstance(grad_out, torch.Tensor) or (
+            grad_out.dtype not in TABLE_DTYPES):
+        got = getattr(grad_out, "dtype", type(grad_out).__name__)
+        raise ValueError(f"grad_out must be a float32 or bfloat16 tensor, "
+                         f"got {got}")
+    dev = grad_out.device
+    _check(grad_out, "grad_out", grad_out.dtype, 2, dev)
+    _check(idx, "idx", torch.int32, 2, dev)
+    _check(out, "out", grad_out.dtype, 2, dev)
+    (b, d), (v, n_slots) = grad_out.shape, (out.shape[0], idx.shape[1])
+    if v < 1:
+        raise ValueError("out has no rows")
+    if out.shape[1] != d or idx.shape[0] != b:
+        raise ValueError(f"out {tuple(out.shape)}, grad_out "
+                         f"{tuple(grad_out.shape)} and idx "
+                         f"{tuple(idx.shape)} do not agree")
+    if weights is not None:
+        _check(weights, "weights", torch.float32, 2, dev)
+        if weights.shape != idx.shape:
+            raise ValueError(f"weights {tuple(weights.shape)} != idx "
+                             f"{tuple(idx.shape)}")
+    if dev.type == "cpu":
+        out.copy_(ref.embedding_bag_backward_ref(grad_out, idx, v, weights))
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"the kernels take CUDA or CPU tensors, got {dev}")
+    n = b * n_slots
+    if n >= 2 ** 31:
+        raise ValueError(f"B*L = {n} ids: flat positions pass int32")
+    out.zero_()
+    if n * d == 0:
+        return
+    keys, order = backward_keys(idx)
+    from repro_torch.kernels._build import load_library
+    lib = load_library()
+    with torch.cuda.device(dev):
+        _launch(lib.repro_embedding_bag_backward, grad_out.data_ptr(),
+                int(grad_out.dtype == torch.bfloat16), idx.data_ptr(),
+                None if weights is None else weights.data_ptr(),
+                keys.data_ptr(), order.data_ptr(), n, n_slots, v, d,
+                BACKWARD_THREADS, out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    count_launch(LAUNCHES, "embedding_bag_backward")

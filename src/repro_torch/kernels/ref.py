@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the port's kernels.
 
-These compute exactly what the CUDA kernels in ``csrc/topk.cu`` (K1, K2)
-and ``csrc/embedding_bag.cu`` (K4) compute.  The kernel wrappers
+These compute exactly what the CUDA kernels in ``csrc/topk.cu`` (K1, K2),
+``csrc/embedding_bag.cu`` (K4) and ``csrc/embedding_bag_backward.cu``
+(K4's backward, K4T) compute.  The kernel wrappers
 (``kernels/topk.py``, ``kernels/embedding_bag.py``) take them for CPU
 tensors; the CPU tests hold them against the reference package, and
 ``chip_smoke.py`` holds the kernels against them on the card.
@@ -106,3 +107,55 @@ def embedding_bag_ref(table: torch.Tensor, idx: torch.Tensor,
         w = 1.0 if weights is None else weights[:, l, None].float()
         acc = acc + (row * w) * (rid >= 0)[:, None].float()
     return acc.to(table.dtype)
+
+
+def embedding_bag_backward_ref(grad_out: torch.Tensor, idx: torch.Tensor,
+                               n_rows: int,
+                               weights: torch.Tensor | None = None
+                               ) -> torch.Tensor:
+    """K4T: the gradient of :func:`embedding_bag_ref` with respect to its
+    (``n_rows``, D) table,
+    ``d_table[r] = sum over (b, l) with idx[b, l] = r of g[b] * w[b, l]``.
+
+    grad_out (B, D) float32 or bfloat16 (the table's dtype), idx (B, L)
+    int32, weights (B, L) float32 or None (all ones) -> (n_rows, D) in
+    grad_out's dtype.  Slot (b, l) contributes ``(g[b] * mask) * w[b, l]``
+    in float32, the product autograd of the forward's ``acc + (row * w) *
+    mask`` takes, with mask 0 on padding.  **Order:** each row adds its
+    contributions to +0.0 one at a time in ascending flat position
+    ``b * L + l``, and the sum is rounded once to grad_out's dtype; the
+    kernel adds them in the same order, so the two agree bitwise.  At the
+    edges this is what autograd of the plain forward gives: a padded slot
+    (idx < 0) read row 0, so it adds ``(g[b] * 0) * w`` there (NaN where
+    ``g[b]`` or the weight is not finite); an id >= ``n_rows`` read no
+    row and adds nothing; rows no id touches, and L = 0 or B = 0, give
+    zeros.
+    """
+    b, n_slots = idx.shape
+    dev = grad_out.device
+    flat = idx.reshape(-1).long()
+    rows = flat.clamp(min=0)
+    pos = torch.arange(b * n_slots, device=dev)[rows < n_rows]
+    rows = rows[pos]
+    x = grad_out.float()[pos // n_slots] * (flat[pos] >= 0)[:, None].float()
+    if weights is not None:
+        x = x * weights.reshape(-1)[pos, None].float()
+    # a stable sort by row keeps each row's contributions in position
+    # order; a contribution's rank is its place in its row's run
+    rows, order = torch.sort(rows, stable=True)
+    x = x[order]
+    n = rows.numel()
+    at = torch.arange(n, device=dev)
+    head = torch.ones(n, dtype=torch.bool, device=dev)
+    head[1:] = rows[1:] != rows[:-1]
+    rank = at - torch.cummax(torch.where(head, at, 0), 0).values
+    out = torch.zeros((n_rows, grad_out.shape[1]), dtype=torch.float32,
+                      device=dev)
+    # rank by rank: within one rank every row appears at most once
+    by_rank = torch.argsort(rank, stable=True)
+    lo = 0
+    for count in torch.bincount(rank).tolist() if n else []:
+        sel = by_rank[lo:lo + count]
+        lo += count
+        out[rows[sel]] += x[sel]
+    return out.to(grad_out.dtype)

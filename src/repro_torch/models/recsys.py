@@ -9,7 +9,11 @@ The counterpart of ``repro.models.recsys``, for one card:
     passed;
   * the bag sums of the forward pass go through the EmbeddingBag kernel
     (K4, ``kernels.ops.embedding_bag``): DeepFM's linear term and FM sum,
-    Wide&Deep's wide term.  AutoInt and BST launch no kernel.
+    Wide&Deep's wide term.  AutoInt and BST launch no kernel.  In
+    training (``configs.base.make_train_cell``) the bag sums carry their
+    tables' gradients through K4's backward kernel (K4T, one launch per
+    bag sum), while the ``table[idx]`` gathers keep torch's own backward,
+    as the reference keeps ``jnp.take``'s.
 
 :func:`retrieval_scores` scores one user against N candidates as one
 batched forward (the paper's FastResultHeapq scenario, Table 3).

@@ -28,14 +28,16 @@ def leaves(tree: Any) -> list:
 
 def unflatten(template: Any, new_leaves) -> Any:
     """``template``'s structure with ``new_leaves`` in flatten order."""
-    it = iter(new_leaves)
+    return _build(template, iter(new_leaves))
 
-    def build(node):
-        if not isinstance(node, dict):
-            return next(it)
-        return {key: build(node[key]) for key in sorted(node)}
 
-    return build(template)
+def _build(node: Any, it) -> Any:
+    # a module-level function, not a recursive closure: a closure that
+    # refers to itself is a reference cycle, which would keep the leaves
+    # (a training step's gradients) alive until the cyclic collector ran
+    if not isinstance(node, dict):
+        return next(it)
+    return {key: _build(node[key], it) for key in sorted(node)}
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:

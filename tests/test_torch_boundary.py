@@ -60,7 +60,8 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.training.grad_compression",
             "repro_torch.training.checkpoint",
             "repro_torch.training.trainer",
-            "repro_torch.launch.train"} <= set(out["imported"])
+            "repro_torch.launch.train",
+            "repro_torch.configs.base"} <= set(out["imported"])
     leaked = [m for m in out["loaded"]
               if m in ("jax", "repro") or m.startswith(("jax.", "repro."))]
     assert leaked == []

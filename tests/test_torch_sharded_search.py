@@ -595,6 +595,8 @@ def test_launch_counters_count_exactly_under_threads():
                 topk.count_launch(topk.LAUNCHES, "fused_score_topk")
                 topk.count_launch(topk.LAUNCHES, "topk_update")
                 topk.count_launch(embedding_bag.LAUNCHES, "embedding_bag")
+                topk.count_launch(embedding_bag.LAUNCHES,
+                                  "embedding_bag_backward")
                 if i % 10 == 0:
                     topk.count_launch(switching, "k")
 
@@ -609,7 +611,8 @@ def test_launch_counters_count_exactly_under_threads():
     assert dict(switching) == {"k": 8_000}
     assert ops.launch_counts() == {"fused_score_topk": 80_000,
                                    "topk_update": 80_000,
-                                   "embedding_bag": 80_000}
+                                   "embedding_bag": 80_000,
+                                   "embedding_bag_backward": 80_000}
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}
 
