@@ -62,7 +62,8 @@ Phases, each printing its own lines:
       serving path of (d), each recsys cell of (f), each cached path of
       (g), each W > 1 path of (h), each fault path of (i), each data
       path of (j), each IVF path of (k), each training path of (l) and
-      each recsys training path of (m), and read just after; each kernel
+      each recsys training path of (m) and each LM encoder path of (n),
+      and read just after; each kernel
       of that path must have launched exactly as
       often as predicted (``ShardedSearchDriver.stats`` on (c) / (g) /
       (h), summed over ranks, and on (d) and (i) over every round of the
@@ -240,7 +241,37 @@ Phases, each printing its own lines:
       trained DeepFM through the serve_p99 cell, probabilities in (0, 1);
       (m2) DeepFM and Wide&Deep 3 steps twice from one seed under
       ``torch.use_deterministic_algorithms``, final parameters bitwise
-      equal.
+      equal;
+  (n) the dense LM encoders at their published widths (bf16, seeded
+      weights drawn on the card, each model freed before the next):
+      qwen2-0.5b (24 x 896, GQA 14 / 2, QKV biases), stablelm-3b (32 x
+      2560, head_dim 80, LayerNorm) and gemma-7b (28 x 3072, 16 x 256,
+      GeGLU, the bf16 sqrt(d) embedding scale): (n1) ``evaluate`` over
+      (c)'s recipe at 4096 docs (256 queries) on (fused, kernel), (torch,
+      kernel) and (torch, torch), (torch, kernel) == (torch, torch)
+      bitwise, fused within
+      TOL of torch, K1's scores within TOL of a float64 host product of
+      the very embeddings the (fused, kernel) pass scored (recorded by
+      wrapping the driver's ``search`` and the encode pipeline's chunk
+      source) and its ranking within TOL of the exact top-k, then
+      ``mine_hard_negatives`` on (fused, kernel); pass time, padded
+      tokens/s, peak memory and parameter bytes; (n3) the ``LMArch``
+      ``prefill_32k`` encode cell at one row of 32,768 tokens, its
+      attention in 8 chunks of 4096 (the calls counted by wrapping the
+      score function), ms and peak memory, and chunked against one pass
+      at 8,192 tokens; (n4) 64 passages and 64 queries encoded with the
+      bf16 weights and with the same weights cast to float32 (gemma-7b:
+      its first 4 layers), each row's cosine and the overlap of the
+      queries' top-10 over the passages; K1 at each width (Q = 256, S =
+      64, C = 32, k = 100) within TOL of its plain version and timed as
+      in (b); then (n2) ``repro_torch.launch.serve.main --arch`` at
+      ``--workers 1`` for trove-base, qwen2-0.5b, stablelm-3b and
+      gemma-7b one after the other on one ``--data-dir`` (S pinned to
+      64): each encodes its whole corpus into its own cache directory,
+      each request within TOL of a solo ``search_texts`` over the
+      launcher's own prepared corpus; and ``repro_torch.launch.evalsuite.
+      main --arch qwen2-0.5b``.  Launches on every (n) path: the driver's
+      prediction, summed over its rounds.
 Each phase's wall seconds follow it (``[a] (x) ...: N s``), all of them
 on one ``[a] seconds by phase`` line at the end.
 The second-to-last line is the ``kernels`` JSON object; the last line is
@@ -715,8 +746,8 @@ def k1_time(dev, queries, tile, offs, nvs, shape: str,
     import torch
 
     from repro_torch.kernels import ops, ref, topk
-    q, s = queries.shape[0], tile.shape[0]
-    docs = tile.view(s * C, D)[:int(nvs.sum())]
+    (q, d), s = queries.shape, tile.shape[0]
+    docs = tile.view(s * C, d)[:int(nvs.sum())]
     v, i = ops.empty_state(q, K, dev)
 
     def reset():
@@ -726,9 +757,9 @@ def k1_time(dev, queries, tile, offs, nvs, shape: str,
     def call():
         topk.fused_score_topk_(v, i, queries, tile, offs, nvs)
 
-    t_bytes = (4 * (q * D + s * C * D + 2 * s) + 2 * q * K * 8) / \
+    t_bytes = (4 * (q * d + s * C * d + 2 * s) + 2 * q * K * 8) / \
         HBM_BYTES_S * 1e3
-    t_ops = 2 * q * int(nvs.sum()) * D / F32_FLOPS * 1e3
+    t_ops = 2 * q * int(nvs.sum()) * d / F32_FLOPS * 1e3
     rows, splits, span = topk.fused_split_plan(q, s * C, topk.sm_count(dev))
     t = {"shape": shape, "tile_rows": rows,
          "splits": splits, "span": span, "ms": median_ms(call, reset),
@@ -2952,7 +2983,7 @@ def phase_faults(dev, card: str, trove: dict) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         _, i4_corpus, _ = make_retrieval_dataset(
             tmp, n_queries=Q, n_docs=n_docs, n_topics=64, seed=SEED)
-        cache = EmbeddingCache(os.path.join(tmp, "emb_cache"), D)
+        cache = EmbeddingCache(serve.cache_dir(tmp, "trove-base", False), D)
         cache.cache_records(list(corpus), rows)
         tag = "(i4) from_cluster W=2, rank 1 crashing in round 6"
         cc = ChaosCluster(dev, trove, 2, "fused", "kernel",
@@ -3116,7 +3147,7 @@ def suite_paths(dev, card: str, trove: dict, tmp: str) -> dict:
     from repro_torch.core import sharded_search
     from repro_torch.core.embedding_cache import EmbeddingCache
     from repro_torch.data.views import TableView
-    from repro_torch.launch import evalsuite
+    from repro_torch.launch import evalsuite, serve
     from repro_torch.launch.distributed import SimulatedCluster
 
     paths: dict = {}
@@ -3297,7 +3328,7 @@ def suite_paths(dev, card: str, trove: dict, tmp: str) -> dict:
         # W = 2 read the cache W = 1 left: check it over that cache
         check_cache = EmbeddingCache(
             os.path.join(tmp, "j4-check") if workers == 1
-            else os.path.join(root, "emb_cache"), D)
+            else serve.cache_dir(root, "trove-base", False), D)
         want, _ = logged_path(
             paths, f"(j4) in-process evaluate_suite for --workers "
             f"{workers} (fused, kernel)", "fused", "kernel",
@@ -4143,7 +4174,7 @@ def ivf_serving(dev, card, trove, cache, pruned, tmp, paths) -> None:
         seed=SEED)
     if list(k4_corpus) != list(corpus):
         fail("(k4) the launcher's dataset is not (c)'s")
-    shutil.copytree(cache.path, os.path.join(data, "emb_cache"))
+    shutil.copytree(cache.path, serve.cache_dir(data, "trove-base", False))
     argv = ["--data-dir", data, "--device", dev.type, "--topk", str(K),
             "--n-requests", str(D_SINGLE), "--batch", "1", "--concurrency",
             str(D_THREADS), "--max-batch", str(rungs[-1]), "--index-impl",
@@ -5516,6 +5547,567 @@ def recsys_deterministic(dev, paths: dict) -> None:
         torch.use_deterministic_algorithms(False)
 
 
+# -- (n) the dense LM encoders at full width ---------------------------------
+
+N_ARCHS = ("qwen2-0.5b", "stablelm-3b", "gemma-7b")
+N_PAIRS = (("fused", "kernel"), ("torch", "kernel"), ("torch", "torch"))
+# (n1): (c)'s recipe (Q queries, 64 topics, SEED) at half its corpus: the
+# encodes are host-bound, and at 8192 docs (n1)'s 12 passes took 185 s
+# of (n)'s 242 s (PERF.md §4)
+N1_DOCS = 4096
+# (n3): one row of the prefill_32k cell (the reference's batch of 32 is
+# 32 x (B, H, 4096, 32768) float32 score chunks: far past one card), its
+# attention in chunks of the configs' 4096; chunked against one pass at
+# N3_CHECK tokens (2 chunks)
+N3_SEQ, N3_CHECK = 32768, 8192
+# (n4): passages and queries encoded in bf16 and in float32; gemma-7b's
+# float32 copy (34 GB) is cut to its first N4_GEMMA_LAYERS layers
+N4_TEXTS, N4_TOPK, N4_GEMMA_LAYERS = 64, 10, 4
+# (n2): the launcher's requests (S pinned to 64 for every rung)
+N2_REQUESTS, N2_BATCH = 4, 8
+# Tolerances, stated before the first run on the card (PERF.md §6):
+# (n3) chunked against unchunked attention, the embedding's cosine (bf16
+# activations; cuBLAS may pick other algorithms per chunk, so the bits
+# are not promised); (n4) bf16 against float32 embeddings, each row's
+# cosine, and the mean overlap of their top-10 over the 64 passages
+N3_MIN_COS = 0.999
+N4_MIN_COS, N4_MIN_OVERLAP = 0.99, 0.5
+
+
+def lm_model(dev, name: str) -> dict:
+    """An LM encoder at full width with seeded weights drawn on the card,
+    its retriever and collator."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.collator import RetrievalCollator
+    from repro_torch.core.config import DataArguments
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.models.encoder import DefaultEncoder
+    from repro_torch.models.retriever import BiEncoderRetriever
+
+    cfg = get_arch(name).cfg
+    retriever = BiEncoderRetriever(DefaultEncoder(cfg))
+    t0 = time.perf_counter()
+    params = retriever.init_params(
+        torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    return {"cfg": cfg, "retriever": retriever, "params": params,
+            "init_s": init_s,
+            "collator": RetrievalCollator(
+                DataArguments(vocab_size=cfg.vocab_size),
+                HashTokenizer(cfg.vocab_size))}
+
+
+def gib(n_bytes: float) -> float:
+    return n_bytes / 2 ** 30
+
+
+class EncodeLog:
+    """What one online search scored, recorded by wrapping, in the
+    script: the query embeddings ``ShardedSearchDriver.search`` gets, and
+    every corpus chunk ``PipelineChunkSource.open_slice`` yields, by
+    offset (device tensors, kept without a copy or a sync)."""
+
+    def __init__(self):
+        self.queries: list = []
+        self.chunks: dict = {}
+
+    def __enter__(self):
+        from repro_torch.core.encode_pipeline import PipelineChunkSource
+        from repro_torch.core.sharded_search import ShardedSearchDriver
+        self._orig = (ShardedSearchDriver.search,
+                      PipelineChunkSource.open_slice)
+        search, open_slice = self._orig
+
+        def logged_search(driver, q_emb, *args, **kw):
+            self.queries.append(q_emb)
+            return search(driver, q_emb, *args, **kw)
+
+        def logged_slice(src, lo, hi, chunk_size):
+            for off, emb in open_slice(src, lo, hi, chunk_size):
+                self.chunks[off] = emb
+                yield off, emb
+
+        ShardedSearchDriver.search = logged_search
+        PipelineChunkSource.open_slice = logged_slice
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.encode_pipeline import PipelineChunkSource
+        from repro_torch.core.sharded_search import ShardedSearchDriver
+        (ShardedSearchDriver.search,
+         PipelineChunkSource.open_slice) = self._orig
+
+    def rows(self):
+        """(queries, docs) as float64 numpy arrays, docs in corpus
+        order."""
+        import torch
+        if len(self.queries) != 1:
+            fail(f"expected one search, saw {len(self.queries)}")
+        docs = torch.cat([self.chunks[o] for o in sorted(self.chunks)])
+        return (self.queries[0].double().cpu().numpy(),
+                docs.double().cpu().numpy())
+
+
+def k1_against_f64(tag: str, log: EncodeLog, ids, vals, corpus) -> float:
+    """K1's scores against a float64 host product of the embeddings the
+    search scored: each returned id's score within TOL of its exact
+    score, and the ranking within TOL of the exact top-k (ids equal
+    where separated).  Returns the largest score error."""
+    import numpy as np
+
+    from repro_torch.data.table import stable_id_hash_array
+
+    q, docs = log.rows()
+    hashes = stable_id_hash_array(list(corpus))
+    if docs.shape[0] != len(hashes):
+        fail(f"{tag}: {docs.shape[0]} rows scored of {len(hashes)}")
+    exact = q @ docs.T
+    pos_of = {h: i for i, h in enumerate(hashes.tolist())}
+    pos = np.vectorize(pos_of.__getitem__)(ids)
+    err = float(np.abs(vals - exact[np.arange(len(q))[:, None], pos]).max())
+    if not err <= TOL:
+        fail(f"{tag}: K1 score error {err} against float64 above {TOL}")
+    order = np.argsort(-exact, axis=1, kind="stable")[:, :K]
+    check_exact(f"{tag} vs exact float64 top-k", ids, vals, hashes[order],
+                np.take_along_axis(exact, order, 1).astype(np.float32))
+    return err
+
+
+def k1_held(dev, q: int, s: int, d: int, tag: str, timed: bool):
+    """K1 at (q, s, C, d, K) on seeded unit vectors: within TOL of its
+    plain version, ids equal where separated; then, if ``timed``, timed
+    as in (b) (:func:`k1_time`), the row returned (else None)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref, topk
+
+    g = torch.Generator(device=dev).manual_seed(SEED + d)
+
+    def unit(*shape):
+        x = torch.randn(*shape, generator=g, device=dev)
+        return x / x.norm(dim=-1, keepdim=True)
+
+    queries, tile = unit(q, d), unit(s, C, d)
+    offs = torch.arange(s, dtype=torch.int32, device=dev) * C
+    nvs = torch.full((s,), C, dtype=torch.int32, device=dev)
+    v, i = ops.empty_state(q, K, dev)
+    want = ref.fused_score_topk_ref(v.clone(), i.clone(), queries, tile,
+                                    offs, nvs)
+    topk.fused_score_topk_(v, i, queries, tile, offs, nvs)
+    torch.cuda.synchronize()
+    err = compare(f"{tag} K1 Q={q} S={s} d={d}", (v, i), want, False)
+    rows, splits, span = topk.fused_split_plan(q, s * C, topk.sm_count(dev))
+    print(f"[n] {tag} K1 at Q={q} S={s} C={C} d={d} k={K} ({splits} "
+          f"range(s) of {span} rows, tiles of {rows}) vs its plain "
+          f"version: max abs error {err:.3g} (tol {TOL}), ids equal where "
+          f"separated")
+    if not timed:
+        return None
+    t = k1_time(dev, queries, tile, offs, nvs,
+                f"Q={q} S={s} C={C} d={d} k={K}", phase="n")
+    t["max_abs_err"] = err
+    return t
+
+
+class K1Calls:
+    """The shape (Q, S, C, d, k) of every K1 call a path makes, recorded
+    by wrapping ``topk.fused_score_topk_`` here, in the script (the
+    wrapper it calls still counts each launch once)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import topk
+        self.shapes: set = set()
+        self._orig = launch = topk.fused_score_topk_
+
+        def logged(vals, ids, queries, tile, *args, **kw):
+            self.shapes.add((queries.shape[0], *tile.shape, vals.shape[1]))
+            return launch(vals, ids, queries, tile, *args, **kw)
+
+        topk.fused_score_topk_ = logged
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import topk
+        topk.fused_score_topk_ = self._orig
+
+
+def lm_evaluate(dev, card: str, name: str, lm: dict, trove: dict,
+                paths: dict) -> None:
+    """(n1): evaluate over ``trove``'s dataset on the three pairs, launches
+    predicted; fused within TOL of torch and of a float64 host product;
+    then a mine on (fused, kernel)."""
+    import numpy as np
+    import torch
+
+    queries, corpus, qrels = (trove["queries"], trove["corpus"],
+                              trove["qrels"])
+    data = dict(lm, queries=queries, corpus=corpus, qrels=qrels)
+    d = lm["cfg"].d_model
+    runs, log = {}, EncodeLog()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for score, heap in N_PAIRS:
+        ev = trove_evaluator(dev, data, score, heap)
+        kernel = path_kernel(score, heap)
+        searched = []
+        search = ev.search
+
+        def recorded(*args, search=search, searched=searched, **kw):
+            searched.append(search(*args, **kw))
+            return searched[-1]
+
+        ev.search = recorded
+
+        def want(_, score=score, heap=heap, ev=ev):
+            return predicted(ev, score, heap)
+
+        def run(ev=ev, fused=score == "fused"):
+            if fused:
+                with log:
+                    return ev.evaluate(queries, corpus, qrels)
+            return ev.evaluate(queries, corpus, qrels)
+
+        tokens = ev.encode_pipeline.stats["tokens_padded"]
+        t0 = time.perf_counter()
+        metrics = on_path(paths, f"(n1) {name} evaluate ({score}, {heap})",
+                          kernel, run, want)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tokens = ev.encode_pipeline.stats["tokens_padded"] - tokens
+        _, ids, vals = searched[0]
+        if ids.shape != (Q, K) or not np.isfinite(vals).all() or (
+                np.diff(vals, axis=1) > 0).any():
+            fail(f"(n1) {name} ({score}, {heap}): bad result")
+        if not all(0.0 <= m <= 1.0 for m in metrics.values()):
+            fail(f"(n1) {name} ({score}, {heap}): metrics {metrics}")
+        runs[(score, heap)] = (ids, vals)
+        st = ev.last_search_stats
+        print(f"[n] (n1) {name} evaluate ({score}, {heap}) on {card}: "
+              f"{wall:.3f} s, {tokens} padded tokens encoded, "
+              f"{tokens / wall:.0f} padded tokens/s, {st['executor']} x"
+              f"{st['dispatch_rounds']} calls of S={st['superchunk_size']}"
+              f", metrics {rounded(metrics)}")
+        if (score, heap) == ("fused", "kernel"):
+            f64_err = k1_against_f64(f"(n1) {name}", log, ids, vals, corpus)
+            negs = on_path(
+                paths, f"(n1) {name} mine_hard_negatives (fused, kernel)",
+                kernel, lambda ev=ev: ev.mine_hard_negatives(
+                    queries, corpus, qrels, depth=20), want)
+            if not negs or any(not np.isfinite(s) for _, _, s in negs):
+                fail(f"(n1) {name}: mine_hard_negatives bad")
+            print(f"[n] (n1) {name} mine_hard_negatives (fused, kernel): "
+                  f"{len(negs)} triplets")
+    err = check_backends(f"(n1) {name}", runs)
+    print(f"[n] (n1) {name} d = {d}: (torch, kernel) == (torch, torch) "
+          f"bitwise; fused vs torch max abs error {err:.3g}; K1's largest "
+          f"score error against a float64 host product {f64_err:.3g} (tol "
+          f"{TOL}), ids equal where separated; peak "
+          f"{gib(torch.cuda.max_memory_allocated(dev)):.2f} GiB on {card}")
+
+
+def lm_prefill(dev, card: str, name: str, lm: dict, paths: dict,
+               checks: list) -> None:
+    """(n3): the prefill_32k encode cell at one row of N3_SEQ tokens, its
+    attention in chunks of 4096 (counted by wrapping the score function),
+    ms and peak memory (no kernel launched); then chunked against one
+    pass at N3_CHECK."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.lm_arch import LMArch
+    from repro_torch.models import transformer
+    from repro_torch.training import tree
+
+    cfg, params = lm["cfg"], lm["params"]
+
+    def cell_for(c, seq):
+        arch = LMArch(c, shapes={"prefill_32k": dict(
+            kind="encode", seq_len=seq, global_batch=1)})
+        return arch, arch.build_cell("prefill_32k", dev)
+
+    arch, cell = cell_for(cfg, N3_SEQ)
+    batch = arch.smoke_inputs("prefill_32k", torch.Generator(
+        device=dev).manual_seed(SEED), dev)
+    chunks = []
+    inner = transformer._attn_scores_softmax
+
+    def counted(q, *args):
+        chunks.append(q.shape[1])
+        return inner(q, *args)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    transformer._attn_scores_softmax = counted
+    try:
+        t0 = time.perf_counter()
+        emb = on_path(paths, f"(n3) {name} prefill_32k cell", None,
+                      lambda: cell.fn(params, batch), no_launches)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        transformer._attn_scores_softmax = inner
+    peak = gib(torch.cuda.max_memory_allocated(dev))
+    n_chunks = N3_SEQ // cfg.attn_chunk
+    if chunks != [cfg.attn_chunk] * (n_chunks * cfg.n_layers):
+        fail(f"(n3) {name}: attention calls {len(chunks)} of "
+             f"{sorted(set(chunks))} rows, not {n_chunks} chunks x "
+             f"{cfg.n_layers} layers")
+    norm = float(emb.norm())
+    if emb.shape != (1, cfg.d_model) or abs(norm - 1) > 1e-3:
+        fail(f"(n3) {name}: embedding {tuple(emb.shape)}, norm {norm}")
+    score_gib = gib(cfg.n_heads * cfg.attn_chunk * N3_SEQ * 4)
+    param_gib = gib(sum(t.nbytes for t in tree.leaves(params)))
+    print(f"[n] (n3) {name} prefill_32k cell, 1 x {N3_SEQ} tokens, "
+          f"attention in {n_chunks} chunks of {cfg.attn_chunk} on {card}: "
+          f"{ms:.1f} ms, {N3_SEQ / ms * 1e3:.0f} tokens/s, peak {peak:.2f} "
+          f"GiB (params {param_gib:.2f} GiB, one chunk's float32 scores "
+          f"{score_gib:.2f} GiB)")
+    short = {k: t[:, :N3_CHECK].contiguous() for k, t in batch.items()}
+    embs = [cell_for(c, N3_CHECK)[1].fn(params, short) for c in (
+        cfg, dataclasses.replace(cfg, attn_chunk=0))]
+    cos = float((embs[0] * embs[1]).sum())
+    diff = float((embs[0] - embs[1]).abs().max())
+    same = torch.equal(embs[0], embs[1])
+    print(f"[n] (n3) {name} at {N3_CHECK} tokens, "
+          f"{N3_CHECK // cfg.attn_chunk} "
+          f"chunks against one pass: cosine {cos:.6f}, max abs "
+          f"{diff:.3g}, bitwise {same} (tol cosine >= {N3_MIN_COS})")
+    if not cos >= N3_MIN_COS:
+        checks.append(f"(n3) {name}: chunked vs unchunked cosine {cos}")
+
+
+def lm_precision(dev, card: str, name: str, lm: dict, trove: dict,
+                 paths: dict, checks: list) -> None:
+    """(n4): N4_TEXTS passages and queries encoded with the bf16 weights
+    and with the same weights cast to float32 (gemma-7b: a config of its
+    first N4_GEMMA_LAYERS layers over those layers of the same params),
+    each row's cosine and the overlap of the top-N4_TOPK passages of the
+    queries."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    cfg, params = lm["cfg"], lm["params"]
+    if name == "gemma-7b":
+        depth = min(N4_GEMMA_LAYERS, cfg.n_layers)
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+        params = dict(params, blocks={k: t[:depth] for k, t
+                                      in params["blocks"].items()})
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    f32_params = {k: ({n: t.float() for n, t in v.items()}
+                      if isinstance(v, dict) else v.float())
+                  for k, v in params.items()}
+    passages = list(trove["corpus"].values())[:N4_TEXTS]
+    queries = list(trove["queries"].values())[:N4_TEXTS]
+
+    def encode_both():
+        out = []
+        for c, p in ((cfg, params), (f32, f32_params)):
+            ev = trove_evaluator(dev, dict(lm_model_parts(c, lm), params=p))
+            out.append([ev._encode_texts(t, q, device=True).double()
+                        for t, q in ((passages, False), (queries, True))])
+        return out
+
+    out = on_path(paths, f"(n4) {name} bf16 and float32 encodes", None,
+                  encode_both, no_launches)
+    del f32_params
+    (p16, q16), (p32, q32) = out
+    cos = torch.cat([(p16 * p32).sum(1), (q16 * q32).sum(1)])
+    top16 = torch.topk(q16 @ p16.T, N4_TOPK).indices.cpu().numpy()
+    top32 = torch.topk(q32 @ p32.T, N4_TOPK).indices.cpu().numpy()
+    overlap = float(np.mean([len(set(a) & set(b)) / N4_TOPK
+                             for a, b in zip(top16, top32)]))
+    print(f"[n] (n4) {name} ({cfg.n_layers} layers) bf16 vs float32 on "
+          f"{card}: {N4_TEXTS} passages + {N4_TEXTS} queries, cosine min "
+          f"{float(cos.min()):.6f} mean {float(cos.mean()):.6f}; top-"
+          f"{N4_TOPK} overlap {overlap:.3f} (tol cosine >= {N4_MIN_COS}, "
+          f"overlap >= {N4_MIN_OVERLAP})")
+    if not (float(cos.min()) >= N4_MIN_COS and overlap >= N4_MIN_OVERLAP):
+        checks.append(f"(n4) {name}: cosine min {float(cos.min())}, "
+                      f"overlap {overlap}")
+
+
+def lm_model_parts(cfg, lm: dict) -> dict:
+    """A retriever and collator for ``cfg`` (lm's collator: one vocab)."""
+    from repro_torch.models.encoder import DefaultEncoder
+    from repro_torch.models.retriever import BiEncoderRetriever
+    return {"retriever": BiEncoderRetriever(DefaultEncoder(cfg)),
+            "collator": lm["collator"]}
+
+
+def pin_superchunk(dev, d: int, n_queries, k: int) -> None:
+    """The launchers' S autotune keys at width ``d`` (on ``dev``'s type,
+    the launchers' device) pinned to S, so their counted runs launch only
+    their rounds' K1 calls, at S = 64 (phase (n) runs last: no later
+    launcher reads these keys)."""
+    import torch
+
+    from repro_torch.core import sharded_search
+    for q in n_queries:
+        sharded_search._AUTOTUNE_CACHE[(q, d, C, k, "fused", "kernel",
+                                        str(torch.device(dev.type)))] = S
+
+
+def lm_launchers(dev, card: str, paths: dict) -> list:
+    """(n2): ``serve.main --arch`` at ``--workers 1`` for trove-base and
+    the three LM archs, one after the other on ONE ``--data-dir``: each
+    encodes its own corpus into its own cache directory (before the
+    repair a second encoder read the first's rows), each request within
+    TOL of a solo ``search_texts``, and K1 held against its plain version
+    at every shape the run gave it (:class:`K1Calls`; the requests
+    compare K1 only with itself), and at S = 64, the pinned S over a
+    corpus of 64 chunks or more; then ``evalsuite.main --arch
+    qwen2-0.5b``.  Returns K1's timings at the run's Q = 1 and Q =
+    N2_BATCH."""
+    import contextlib
+    import gc
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.table import stable_id_hash_array
+    from repro_torch.launch import evalsuite, serve
+
+    rungs = [1]
+    while rungs[-1] < N2_BATCH:
+        rungs.append(2 * rungs[-1])
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "serve-data")
+        argv = ["--data-dir", data, "--device", dev.type, "--topk", str(K),
+                "--n-requests", str(N2_REQUESTS), "--batch", str(N2_BATCH),
+                "--max-batch", str(N2_BATCH), "--workers", "1"]
+        timings = []
+        for name in ("trove-base",) + N_ARCHS:
+            cfg = get_arch(name).cfg
+            pin_superchunk(dev, cfg.d_model, rungs, K)
+            out, served, calls = io.StringIO(), ServedLog(), K1Calls()
+
+            def run(name=name, out=out, served=served, calls=calls):
+                with contextlib.redirect_stdout(out), served, calls:
+                    return serve.main(argv + ["--arch", name])
+
+            t0 = time.perf_counter()
+            try:
+                stats = serving_path(
+                    paths, f"(n2) serve.main --arch {name} (fused, kernel)",
+                    run)
+                corpus = [json.loads(line)["_id"] for line in open(
+                    os.path.join(data, "corpus.jsonl"))]
+                held = check_served(f"(n2) serve.main --arch {name}",
+                                    served, corpus, N2_REQUESTS)
+                wrote = set(stable_id_hash_array(corpus).tolist())
+                if not wrote <= served.written:
+                    fail(f"(n2) {name}: encoded {len(served.written)} "
+                         f"corpus rows, not all {len(wrote)}")
+            finally:
+                served.close()
+            wall = time.perf_counter() - t0
+            fs = stats["frontend"]
+            if fs["completed"] != N2_REQUESTS + len(rungs) or fs["failed"]:
+                fail(f"(n2) {name}: {json.dumps(fs)}")
+            print(f"[n] (n2) serve.main --arch {name} ({cfg.d_model} wide) "
+                  f"on {card}: {wall:.1f} s, its {len(wrote)} corpus rows "
+                  f"encoded into {serve.cache_dir(data, name, False)}; "
+                  f"{N2_REQUESTS} requests of {N2_BATCH}, p50 "
+                  f"{stats['p50_ms']:.3f} ms; {held}")
+            # the run's frontend (and with it the launcher's weights) is
+            # held by the log and the closure until here
+            del served, stats, run
+            gc.collect()
+            torch.cuda.empty_cache()
+            if {(q, c, dd, k) for q, _, c, dd, k in calls.shapes} != {
+                    (q, C, cfg.d_model, K) for q in rungs}:
+                fail(f"(n2) {name}: K1 calls {sorted(calls.shapes)}")
+            for q, s, *_ in sorted(calls.shapes):
+                t = k1_held(dev, q, s, cfg.d_model, f"(n2) {name}",
+                            timed=q in (1, N2_BATCH))
+                timings += [t] if t else []
+            k1_held(dev, N2_BATCH, S, cfg.d_model, f"(n2) {name}",
+                    timed=False)
+        print(f"[n] (n2) one data dir, caches "
+              f"{sorted(os.listdir(os.path.join(data, 'emb_cache')))}")
+
+        cfg = get_arch("qwen2-0.5b").cfg
+        pin_superchunk(dev, cfg.d_model, (16, 32), 10)
+        root = os.path.join(tmp, "suite")
+        out = io.StringIO()
+
+        def suite():
+            with contextlib.redirect_stdout(out):
+                return evalsuite.main([
+                    "--arch", "qwen2-0.5b", "--data-root", root,
+                    "--device", dev.type, "--out-dir",
+                    os.path.join(root, "out")])
+
+        t0 = time.perf_counter()
+        results = serving_path(
+            paths, "(n2) evalsuite.main --arch qwen2-0.5b (fused, kernel)",
+            suite)
+        wall = time.perf_counter() - t0
+        if set(results) != {"d0", "d1", "combined"} or not all(
+                0.0 <= m <= 1.0 for row in results.values()
+                for m in row.values()):
+            fail(f"(n2) evalsuite: {results}")
+        print(f"[n] (n2) evalsuite.main --arch qwen2-0.5b on {card}: "
+              f"{wall:.1f} s, combined {rounded(results['combined'])}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        return timings
+
+
+def phase_lm_encoders(dev, card: str) -> tuple[dict, list]:
+    """(n) qwen2-0.5b, stablelm-3b and gemma-7b at full width, bf16,
+    seeded weights drawn on the card, each freed before the next: (n1)
+    evaluate / mine through K1 and K2 over (c)'s recipe at N1_DOCS docs,
+    (n3) the prefill cell at 32k, (n4) bf16 against float32; then (n2)
+    the launchers; and K1 held and timed at each width, at (n1)'s and
+    (n2)'s shapes.  Returns each path's
+    launches and the K1 timings."""
+    import gc
+
+    import torch
+
+    from repro_torch.data.synthetic import make_retrieval_dataset
+    from repro_torch.training import tree
+
+    with tempfile.TemporaryDirectory() as tmp:
+        queries, corpus, qrels = make_retrieval_dataset(
+            tmp, n_queries=Q, n_docs=N1_DOCS, n_topics=64, seed=SEED)
+    trove = {"queries": queries, "corpus": corpus, "qrels": qrels}
+    paths: dict = {}
+    checks: list = []
+    timings = []
+    for name in N_ARCHS:
+        t0 = time.perf_counter()
+        lm = lm_model(dev, name)
+        cfg = lm["cfg"]
+        n_bytes = sum(t.nbytes for t in tree.leaves(lm["params"]))
+        print(f"[n] {name}: {cfg.n_layers} x {cfg.d_model}, "
+              f"{cfg.n_heads} heads x {cfg.head_dim} over "
+              f"{cfg.n_kv_heads} KV, d_ff {cfg.d_ff}, vocab "
+              f"{cfg.vocab_size}, {cfg.param_count() / 1e9:.3f} B params, "
+              f"{gib(n_bytes):.2f} GiB in {cfg.dtype}, drawn in "
+              f"{lm['init_s']:.2f} s on {card}")
+        lm_evaluate(dev, card, name, lm, trove, paths)
+        lm_prefill(dev, card, name, lm, paths, checks)
+        lm_precision(dev, card, name, lm, trove, paths, checks)
+        del lm
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[n] {name}: {time.perf_counter() - t0:.1f} s")
+        timings.append(k1_held(dev, Q, S, cfg.d_model, "(n1)", timed=True))
+    timings += lm_launchers(dev, card, paths)
+    if checks:
+        fail("; ".join(checks))
+    return paths, timings
+
+
 def main() -> int:
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
@@ -5580,6 +6172,10 @@ def main() -> int:
     paths.update(timed("(f) recsys", phase_recsys, dev, card))
     paths.update(timed("(m) recsys training", phase_recsys_training, dev,
                        card))
+    lm_paths, lm_timings = timed("(n) LM encoders", phase_lm_encoders, dev,
+                                 card)
+    paths.update(lm_paths)
+    kernels["fused_score_topk"]["timings"] += lm_timings
 
     def profile():
         for t, call, reset, names in PROFILED:

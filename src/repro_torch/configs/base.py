@@ -29,7 +29,7 @@ from repro_torch.training.tree import flatten, unflatten
 class Cell:
     arch: str
     shape: str
-    kind: str                       # train | serve | retrieval
+    kind: str                       # train | encode | serve | retrieval
     fn: Callable                    # fn(params, batch); train: (state, batch)
     optimizer: str = ""             # train cells: the optimizer's name
 

@@ -8,10 +8,9 @@ parameters.  The same fields as ``repro.configs.trove_base``.
 ``LMArch.reduced()``.
 """
 
-import dataclasses
-
 import torch
 
+from repro_torch.configs.lm_arch import LMArch, reduced_config
 from repro_torch.models.transformer import LMConfig
 
 
@@ -28,6 +27,8 @@ def reduced() -> LMConfig:
     d_ff 128, vocab 512) in float32, as the reference's
     ``get_arch("trove-base").reduced()`` with its dtype set to
     float32 (``launch.serve --smoke``)."""
-    return dataclasses.replace(
-        get_config(), n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
-        head_dim=16, d_ff=128, vocab_size=512, dtype=torch.float32)
+    return reduced_config(get_config())
+
+
+def get_arch() -> LMArch:
+    return LMArch(get_config())

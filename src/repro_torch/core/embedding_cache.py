@@ -270,7 +270,10 @@ class EmbeddingCache:
             return
         with open(self._meta_path) as f:
             meta = json.load(f)
-        assert meta["dim"] == self.dim, "cache dim mismatch"
+        if meta["dim"] != self.dim:
+            raise ValueError(
+                f"embedding cache {self.path} holds rows of dim "
+                f"{meta['dim']}, not {self.dim}: another encoder's cache")
         self.dtype = np.dtype(meta["dtype"])
         n = int(meta["n"])
         # pre-generation metas: epoch 0, no tombstones, one synthetic

@@ -10,6 +10,10 @@ markdown) into ``--out-dir``.
   python -m repro_torch.launch.evalsuite --smoke --device cpu \\
       --out-dir results
 
+  # the same through qwen2-0.5b's reduced form
+  python -m repro_torch.launch.evalsuite --arch qwen2-0.5b --smoke \\
+      --device cpu --out-dir results
+
   # your own BEIR-style dataset dirs (queries.jsonl, corpus.jsonl,
   # qrels/train.tsv each), 4 simulated workers, on the card
   python -m repro_torch.launch.evalsuite --data-dirs /d/fiqa,/d/scifact \\
@@ -18,8 +22,12 @@ markdown) into ``--out-dir``.
 The port of ``repro.launch.evalsuite``, with the port's backend names
 (``--score-impl numpy | torch | fused``, default ``fused``) and
 ``--device`` (``cuda`` by default; without a card it raises unless
-``--device cpu`` is given).  The encoder is trove-base (``--smoke``:
-its ``reduced()`` form) with seeded random weights.  Each scenario runs
+``--device cpu`` is given).  The encoder is ``--arch``: trove-base (the
+default), qwen2-0.5b, stablelm-3b or gemma-7b (``--smoke``: its
+``reduced()`` form in float32), with seeded random weights; any other
+architecture raises naming its ROADMAP item.  The shared embedding cache
+is the encoder's own, ``DATA_ROOT/emb_cache/ARCH[-smoke]``
+(``launch.serve.cache_dir``).  Each scenario runs
 through ``RetrievalEvaluator`` -> ``ShardedSearchDriver``, so
 ``--workers N`` runs N workers in this process (``SimulatedCluster``)
 and every pass, the combined one included, is sharded across them.
@@ -78,7 +86,6 @@ def make_synthetic_suite(root: str, n_datasets: int = 2,
 def main(argv=None):
     import torch
 
-    from repro_torch.configs import trove_base
     from repro_torch.core.collator import RetrievalCollator
     from repro_torch.core.config import DataArguments, EvaluationArguments
     from repro_torch.core.embedding_cache import EmbeddingCache
@@ -86,15 +93,16 @@ def main(argv=None):
                                             format_metrics_table)
     from repro_torch.data.tokenizer import HashTokenizer
     from repro_torch.device import resolve_device
-    from repro_torch.launch.serve import _not_ported
+    from repro_torch.launch.serve import cache_dir, lm_config
     from repro_torch.models.encoder import DefaultEncoder
     from repro_torch.models.retriever import BiEncoderRetriever
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="trove-base")
+    ap.add_argument("--arch", default="trove-base",
+                    help="trove-base, qwen2-0.5b, stablelm-3b or gemma-7b")
     ap.add_argument("--smoke", action="store_true",
-                    help="trove-base cut to 2 x 64 in float32 (fast CI "
-                         "path)")
+                    help="the arch cut to 2 x 64 (its reduced() form) in "
+                         "float32 (fast CI path)")
     ap.add_argument("--data-dirs", default=None,
                     help="comma-separated BEIR-style dataset dirs; default: "
                          "generate --datasets synthetic ones under "
@@ -119,12 +127,8 @@ def main(argv=None):
                     help="skip the shared embedding cache (online regime)")
     args = ap.parse_args(argv)
 
-    if args.arch != "trove-base":
-        raise _not_ported(f"--arch {args.arch}", 8,
-                          "the other LM configs (the port evaluates "
-                          "trove-base)")
+    cfg = lm_config(args.arch, args.smoke)
     device = resolve_device(args.device)
-    cfg = trove_base.reduced() if args.smoke else trove_base.get_config()
     if args.data_dirs:
         data_dirs = args.data_dirs.split(",")
     else:
@@ -142,7 +146,7 @@ def main(argv=None):
     eval_args = EvaluationArguments(topk=args.topk,
                                     score_impl=args.score_impl)
     cache = (None if args.no_cache else EmbeddingCache(
-        os.path.join(args.data_root, "emb_cache"), dim=cfg.d_model))
+        cache_dir(args.data_root, args.arch, args.smoke), dim=cfg.d_model))
 
     t0 = time.monotonic()
     if args.workers > 1:

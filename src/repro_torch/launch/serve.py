@@ -4,14 +4,23 @@ answer concurrent query requests through the continuous-batching
 admission control, per-request demux).
 
   python -m repro_torch.launch.serve --smoke --device cpu
+  python -m repro_torch.launch.serve --arch qwen2-0.5b --smoke --device cpu
   python -m repro_torch.launch.serve --data-dir DIR --topk 10
 
 The port of ``repro.launch.serve``, with the port's backend names
 (``--score-impl numpy | torch | fused``, default ``fused``) and
 ``--device`` (``cuda`` by default; without a card it raises unless
-``--device cpu`` is given).  The weights are seeded, or with
+``--device cpu`` is given).  ``--arch`` names the encoder: trove-base
+(the default), qwen2-0.5b, stablelm-3b or gemma-7b (``--smoke``: its
+``reduced()`` form in float32); any other architecture raises naming
+its ROADMAP item, before any work.  The weights are seeded, or with
 ``--ckpt-dir DIR`` the ``params`` of the latest checkpoint in ``DIR`` (a
 trainer's ``OUTPUT_DIR/checkpoints``, written by either package).
+The embedding cache is kept per encoder, under
+``DATA_DIR/emb_cache/ARCH[-smoke][-step_N-DIGEST]`` (:func:`cache_dir`;
+the digest is the restored checkpoint's manifest's), so an encoder never
+reads another's rows (the reference keeps one ``DATA_DIR/emb_cache`` for
+every encoder).
 Modes:
 
   * ``--workers 0`` (default): the ``torch.distributed`` world when a
@@ -60,6 +69,7 @@ processes nothing tells a dead rank from a slow collective.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import tempfile
@@ -73,11 +83,42 @@ def _not_ported(flag: str, item: int, what: str) -> NotImplementedError:
         f"(ROADMAP queue 1 item {item})")
 
 
+def lm_config(arch: str, smoke: bool):
+    """The encoder config ``--arch`` names: an LM arch of
+    ``repro_torch.configs`` (``smoke``: its ``reduced()`` form, float32).
+    Any other family raises naming ROADMAP queue 1 item 8."""
+    from repro_torch.configs import get_arch
+    found = get_arch(arch)
+    if found.family != "lm":
+        raise _not_ported(f"--arch {arch}", 8,
+                          f"a retrieval encoder ({arch} is a "
+                          f"{found.family} arch; the port's encoders are "
+                          f"the LM archs)")
+    return (found.reduced() if smoke else found).cfg
+
+
+def cache_dir(root: str, arch: str, smoke: bool,
+              checkpoint: str | None = None) -> str:
+    """The embedding cache of one encoder under ``root``:
+    ``root/emb_cache/ARCH``, with ``-smoke`` for the reduced form and,
+    for weights restored from a checkpoint, its step directory's name
+    and the first 12 hex digits of the SHA-256 of its ``manifest.json``
+    (``-step_00000020-3f9c0a1b2d4e``).  The manifest holds the save's
+    time, so two runs restored at one step get two directories; the same
+    checkpoint, wherever it lies, keeps one.  The rows and the on-disk
+    format are the cache's own; only the directory is per encoder."""
+    key = arch + ("-smoke" if smoke else "")
+    if checkpoint:
+        with open(os.path.join(checkpoint, "manifest.json"), "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()[:12]
+        key += f"-{os.path.basename(os.path.normpath(checkpoint))}-{digest}"
+    return os.path.join(root, "emb_cache", key)
+
+
 def main(argv=None):
     import numpy as np
     import torch
 
-    from repro_torch.configs import trove_base
     from repro_torch.core.collator import RetrievalCollator
     from repro_torch.core.config import DataArguments, EvaluationArguments
     from repro_torch.core.embedding_cache import EmbeddingCache
@@ -92,9 +133,11 @@ def main(argv=None):
     # the frontend's defaults live in EvaluationArguments only
     defaults = EvaluationArguments()
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="trove-base")
+    ap.add_argument("--arch", default="trove-base",
+                    help="trove-base, qwen2-0.5b, stablelm-3b or gemma-7b")
     ap.add_argument("--smoke", action="store_true",
-                    help="trove-base cut to 2 x 64 in float32")
+                    help="the arch cut to 2 x 64 (its reduced() form) in "
+                         "float32")
     ap.add_argument("--data-dir",
                     default=os.path.join(tempfile.gettempdir(),
                                          "trove_data"))
@@ -164,10 +207,7 @@ def main(argv=None):
     if args.chaos and not (args.resilient and args.workers > 1):
         ap.error("--chaos requires --resilient and --workers > 1")
 
-    if args.arch != "trove-base":
-        raise _not_ported(f"--arch {args.arch}", 8,
-                          "the other LM configs (the port serves "
-                          "trove-base)")
+    cfg = lm_config(args.arch, args.smoke)
     dist = torch.distributed
     world = (dist.get_world_size()
              if dist.is_available() and dist.is_initialized() else 1)
@@ -197,7 +237,6 @@ def main(argv=None):
             f"resilient cluster in one process")
 
     device = resolve_device(args.device)
-    cfg = trove_base.reduced() if args.smoke else trove_base.get_config()
     if not os.path.exists(os.path.join(args.data_dir, "queries.jsonl")):
         make_retrieval_dataset(args.data_dir, n_queries=64, n_docs=512,
                                n_topics=32)
@@ -214,6 +253,7 @@ def main(argv=None):
                                  HashTokenizer(cfg.vocab_size))
     params = retriever.init_params(
         torch.Generator(device=device).manual_seed(0), device=device)
+    restored = None
     if args.ckpt_dir:
         # the latest checkpoint's params, in the reference's layout
         # (written by either package's trainer)
@@ -226,6 +266,7 @@ def main(argv=None):
                        "params": params, "opt": {},
                        "rng": np.zeros(2, np.uint32)})
             params = state["params"]
+            restored = path
             print(f"restored {path}")
     eval_args = EvaluationArguments(topk=args.topk,
                                     score_impl=args.score_impl,
@@ -236,8 +277,9 @@ def main(argv=None):
                                     serve_max_wait_ms=args.max_wait_ms,
                                     serve_max_queue=args.max_queue,
                                     round_deadline_s=args.round_deadline_s)
-    cache = EmbeddingCache(os.path.join(args.data_dir, "emb_cache"),
-                           dim=cfg.d_model)
+    cache = EmbeddingCache(
+        cache_dir(args.data_dir, args.arch, args.smoke, restored),
+        dim=cfg.d_model)
 
     # one micro-batch is one sharded round, and the warm pass below makes
     # one round per rung, so the first steady-state round is known ahead

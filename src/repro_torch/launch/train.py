@@ -64,8 +64,10 @@ def main(argv=None):
 
     if args.arch != "trove-base":
         raise _not_ported(f"--arch {args.arch}", 8,
-                          "the other LM configs (the port trains "
-                          "trove-base)")
+                          "training the other LM encoders (the port "
+                          "serves and evaluates them, and trains "
+                          "trove-base; gemma-7b needs item 7c's remat "
+                          "and Adafactor to fit one card)")
     if args.multi_pod or args.mesh != "local":
         raise _not_ported("--mesh pod / multipod and --multi-pod", 10,
                           "a device mesh across cards")

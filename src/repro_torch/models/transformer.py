@@ -19,8 +19,20 @@ Numerics follow the reference where frameworks differ:
     always causal & padding.  It is written out rather than calling
     ``scaled_dot_product_attention`` for that reason;
   * pooling is in float32 with the clips 1e-6 and 1e-9.
-The MoE FFN, the KV-cache decode step and the sharding constraints come
-with later slices.
+
+``attn_chunk`` is the reference's field that changes the function.
+With ``attn_chunk > 0`` attention runs over query chunks of that many
+rows when the query length is a larger multiple of it, else in one pass
+(the reference's rule); each chunk sees every key, so a row's softmax is
+the same function, and only one chunk's scores are alive at a time.
+The reference's ``logit_softcap`` is left out: no config sets it.
+
+The reference's mesh and compile knobs have no counterpart here, since
+torch runs eagerly on one card: ``remat`` (ROADMAP queue 1 item 7c),
+``scan_layers``, ``seq_shard_attn``, ``seq_shard_acts``,
+``inline_mask``, ``dus_cache_update`` and ``moe_impl``; nor has
+``max_seq_len``, which the reference declares and never reads.  The
+MoE FFN and the KV-cache decode step come with later slices (item 8).
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.training.tree import leaves
 
 Params = dict[str, Any]
 
@@ -53,6 +66,12 @@ class LMConfig:
     rope_theta: float = 10000.0
     pooling: str = "last"           # last | mean | first
     dtype: torch.dtype = torch.bfloat16
+    attn_chunk: int = 0             # > 0: query-chunked attention
+
+    def param_count(self) -> int:
+        """Parameters of :func:`param_shapes` (the reference's
+        ``LMConfig.param_count()``)."""
+        return sum(math.prod(s) for s in leaves(param_shapes(self)))
 
 
 def param_shapes(cfg: LMConfig) -> dict:
@@ -88,8 +107,9 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
         elif name.startswith("b") or name.endswith("_b"):
             t = torch.zeros(shape)
         else:
-            t = 0.02 * torch.randn(shape, generator=generator,
-                                   device=generator.device)
+            # scaled in place: one float32 copy of the leaf at a time
+            t = torch.randn(shape, generator=generator,
+                            device=generator.device).mul_(0.02)
         return t.to(device=device, dtype=cfg.dtype)
 
     out: Params = {}
@@ -140,20 +160,37 @@ def _act(x, kind):
 
 
 def _attn_scores_softmax(q, k, v, mask):
-    """q: (B, Sq, H, hd), k/v: (B, Skv, K, hd), mask (B, Sq, Skv) bool."""
+    """q: (B, Sq, H, hd), k/v: (B, Skv, K, hd), mask (B, Sq, Skv) bool.
+
+    At most two float32 score-sized tensors are alive at once: the
+    scores, scaled and masked in place, and the softmax of them (the
+    scores are freed before the cast to ``v``'s dtype)."""
     b, sq, h, hd = q.shape
     kh = k.shape[2]
     qg = q.reshape(b, sq, kh, h // kh, hd)
     # float32 scores from (possibly bf16) inputs: the reference's
     # preferred_element_type=float32 product
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
-    scores = scores / math.sqrt(hd)
-    scores = torch.where(mask[:, None, None, :, :], scores,
-                         torch.tensor(-1e30, dtype=scores.dtype,
-                                      device=scores.device))
+    scores.div_(math.sqrt(hd))
+    scores.masked_fill_(~mask[:, None, None, :, :], -1e30)
     probs = torch.softmax(scores, dim=-1)
+    del scores
     out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
     return out.reshape(b, sq, h, hd)
+
+
+def _attention(cfg: LMConfig, q, k, v, mask):
+    """Attention over query chunks of ``cfg.attn_chunk`` rows when
+    ``0 < attn_chunk < Sq`` and ``attn_chunk`` divides ``Sq``, else in
+    one pass (the reference's rule, ``repro/models/transformer.py``'s
+    ``_attention``)."""
+    sq, chunk = q.shape[1], cfg.attn_chunk
+    if not chunk or sq <= chunk or sq % chunk != 0:
+        return _attn_scores_softmax(q, k, v, mask)
+    return torch.cat([
+        _attn_scores_softmax(q[:, lo: lo + chunk], k, v,
+                             mask[:, lo: lo + chunk])
+        for lo in range(0, sq, chunk)], dim=1)
 
 
 def _attn_block(cfg: LMConfig, lp: Params, x, positions, mask):
@@ -165,7 +202,7 @@ def _attn_block(cfg: LMConfig, lp: Params, x, positions, mask):
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
-    out = _attn_scores_softmax(q, k, v, mask)
+    out = _attention(cfg, q, k, v, mask)
     return x + torch.einsum("bshk,hkd->bsd", out, lp["wo"])
 
 

@@ -61,7 +61,10 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.training.checkpoint",
             "repro_torch.training.trainer",
             "repro_torch.launch.train",
-            "repro_torch.configs.base"} <= set(out["imported"])
+            "repro_torch.configs.base", "repro_torch.configs.lm_arch",
+            "repro_torch.configs.qwen2_0_5b",
+            "repro_torch.configs.stablelm_3b",
+            "repro_torch.configs.gemma_7b"} <= set(out["imported"])
     leaked = [m for m in out["loaded"]
               if m in ("jax", "repro") or m.startswith(("jax.", "repro."))]
     assert leaked == []

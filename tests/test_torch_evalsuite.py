@@ -268,9 +268,38 @@ def test_evalsuite_cli_smoke(tmp_path, capsys):
     assert payload["results"] == results
     assert "2 datasets (d0: 6q/24d, d1: 6q/24d) on 1 process(es) (cpu)" in \
         capsys.readouterr().out
-    # the shared cache holds both corpora after the run
-    cache = EmbeddingCache(str(tmp_path / "data" / "emb_cache"), dim=64)
+    # the shared cache, the encoder's own, holds both corpora after the run
+    cache = EmbeddingCache(str(tmp_path / "data" / "emb_cache"
+                               / "trove-base-smoke"), dim=64)
     assert cache.n_live == 48
+
+
+def test_evalsuite_cli_lm_arch(tmp_path):
+    """``--arch qwen2-0.5b --smoke``: the launcher's tables equal an
+    in-process ``evaluate_suite`` over the same files with the same seeded
+    params and a cold cache of its own, and its shared cache is the
+    encoder's own directory."""
+    from repro_torch.configs import qwen2_0_5b
+
+    root = tmp_path / "data"
+    results = evalsuite.main([
+        "--arch", "qwen2-0.5b", "--smoke", "--device", "cpu",
+        "--data-root", str(root), "--out-dir", str(tmp_path / "results"),
+        "--n-queries", "6", "--n-docs", "24", "--topk", "5"])
+    cfg = qwen2_0_5b.reduced()
+    retriever = BiEncoderRetriever(DefaultEncoder(cfg))
+    ev = RetrievalEvaluator(
+        EvaluationArguments(topk=5), retriever,
+        RetrievalCollator(DataArguments(vocab_size=cfg.vocab_size),
+                          HashTokenizer(cfg.vocab_size)),
+        retriever.init_params(torch.Generator().manual_seed(0), "cpu"),
+        device="cpu")
+    scenarios = evalsuite.build_scenarios(
+        [str(root / "d0"), str(root / "d1")], str(tmp_path / "tables"))
+    want = ev.evaluate_suite(scenarios, cache=EmbeddingCache(
+        str(tmp_path / "check"), dim=cfg.d_model))
+    assert results == want
+    assert os.listdir(root / "emb_cache") == ["qwen2-0.5b-smoke"]
 
 
 @pytest.mark.distributed
@@ -290,10 +319,15 @@ def test_evalsuite_cli_workers_and_no_cache(tmp_path):
 
 
 def test_evalsuite_cli_refusals(tmp_path):
-    """Another arch names the ROADMAP item that brings it; no card and
-    no ``--device cpu`` raises instead of moving to the CPU."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        evalsuite.main(["--arch", "qwen2-0.5b", "--device", "cpu"])
+    """An arch that is no LM encoder of the port names the ROADMAP item
+    that brings it (qwen2-0.5b is one now: test_evalsuite_cli_lm_arch);
+    no card and no ``--device cpu`` raises instead of moving to the
+    CPU."""
+    for arch in ("granite-moe-3b-a800m", "deepfm"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+            evalsuite.main(["--arch", arch, "--device", "cpu",
+                            "--data-root", str(tmp_path / "data")])
+    assert not os.path.exists(tmp_path / "data")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             evalsuite.main(["--smoke", "--data-root",

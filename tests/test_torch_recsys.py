@@ -171,8 +171,12 @@ def test_unported_parts_raise():
     tb = arch.smoke_inputs("serve_p99", np.random.default_rng(0), "cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         recsys.forward(arch.cfg, params, tb, mesh=object())
+    # gemma-7b is an LM encoder of the port now (tests/test_torch_lm_
+    # encoders.py); the MoE archs name their ROADMAP item
     with pytest.raises(KeyError, match="unknown arch"):
-        get_arch("gemma-7b")
+        get_arch("no-such-arch")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        get_arch("granite-moe-3b-a800m")
 
 
 def test_init_params_follow_reference_rule():

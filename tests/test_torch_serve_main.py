@@ -127,7 +127,8 @@ def test_serve_main_ivf_resolves_every_request(tmp_path_factory, mode):
     fs = stats["frontend"]
     assert fs["completed"] == 6 + 4 and fs["failed"] == 0
     assert fs["queries"] == 6 * 5 + 15
-    meta = os.path.join(data_dir, "emb_cache", "ivf_k8", "meta.json")
+    meta = os.path.join(data_dir, "emb_cache", "trove-base-smoke", "ivf_k8",
+                        "meta.json")
     with open(meta) as f:
         meta = json.load(f)
     assert meta["n_clusters"] == 8
@@ -146,6 +147,8 @@ def test_serve_main_ivf_resolves_every_request(tmp_path_factory, mode):
 # their ids
 @pytest.mark.parametrize("extra,match", (
     pytest.param(["--arch", "deepfm"], "item 8", id="extra5-item 8"),
+    pytest.param(["--arch", "granite-moe-3b-a800m"], "item 8",
+                 id="moe-item 8"),
 ))
 def test_unported_flags_raise_naming_their_item(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -220,6 +223,105 @@ def test_serve_main_ckpt_dir_serves_the_trained_params(tmp_path,
             ids, vals = fe.search(req)
             np.testing.assert_array_equal(ids, got_ids[i])
             np.testing.assert_array_equal(vals, got_vals[i])
+
+
+def _frontend_results(cfg, params, queries, corpus, cache_path):
+    """The launcher's 6 requests of 5 queries through a frontend over an
+    in-process evaluator holding ``params``, with a cold cache of its
+    own, as the launcher's was on a fresh directory."""
+    from repro_torch.core.collator import RetrievalCollator
+    from repro_torch.core.config import DataArguments, EvaluationArguments
+    from repro_torch.core.embedding_cache import EmbeddingCache
+    from repro_torch.core.evaluator import RetrievalEvaluator
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.models.encoder import DefaultEncoder
+    from repro_torch.models.retriever import BiEncoderRetriever
+
+    ev = RetrievalEvaluator(
+        EvaluationArguments(topk=7, serve_max_batch=8, serve_max_wait_ms=2),
+        BiEncoderRetriever(DefaultEncoder(cfg)),
+        RetrievalCollator(DataArguments(vocab_size=cfg.vocab_size),
+                          HashTokenizer(cfg.vocab_size)),
+        params, device="cpu")
+    cache = EmbeddingCache(cache_path, dim=cfg.d_model)
+    texts = list(queries.values())
+    out = []
+    with serving.ServeFrontend.from_evaluator(ev, corpus, cache) as fe:
+        for i in range(6):
+            out.append(fe.search([texts[(i * 5 + j) % len(texts)]
+                                  for j in range(5)]))
+    return (np.stack([o[0] for o in out]), np.stack([o[1] for o in out]))
+
+
+def test_serve_main_lm_arch_matches_in_process_evaluator(tmp_path,
+                                                         monkeypatch):
+    """``--arch qwen2-0.5b --smoke``: its reduced form (GQA, QKV biases,
+    last-token pooling) served end to end, every request bitwise equal to
+    a frontend over an in-process evaluator holding the same seeded
+    params, and its cache the encoder's own directory."""
+    from repro_torch.configs import qwen2_0_5b
+    from repro_torch.data.synthetic import make_retrieval_dataset
+    from repro_torch.models.encoder import DefaultEncoder
+    from repro_torch.models.retriever import BiEncoderRetriever
+
+    data_dir = str(tmp_path / "data")
+    queries, corpus, _ = make_retrieval_dataset(data_dir, n_queries=64,
+                                                n_docs=512, n_topics=32)
+    got = _serve_recording(monkeypatch, SMOKE + [
+        "--data-dir", data_dir, "--arch", "qwen2-0.5b", "--workers", "1"])
+    cfg = qwen2_0_5b.reduced()
+    params = BiEncoderRetriever(DefaultEncoder(cfg)).init_params(
+        torch.Generator().manual_seed(0), "cpu")
+    want = _frontend_results(cfg, params, queries, corpus,
+                             str(tmp_path / "check"))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert os.listdir(os.path.join(data_dir, "emb_cache")) == [
+        "qwen2-0.5b-smoke"]
+
+
+@pytest.mark.parametrize("first,second", (
+    pytest.param(["--arch", "trove-base"], ["--arch", "qwen2-0.5b"],
+                 id="trove-base-then-qwen2"),
+    pytest.param([], ["--ckpt-dir", "run-a"], id="seeded-then-ckpt-dir"),
+    pytest.param(["--ckpt-dir", "run-a"], ["--ckpt-dir", "run-b"],
+                 id="two-runs-at-one-step"),
+))
+def test_second_encoder_on_one_data_dir_matches_a_fresh_dir(
+        tmp_path, monkeypatch, first, second):
+    """Two encoders served one after the other on one ``--data-dir``: the
+    second run's results equal the same run's on a fresh directory.  The
+    reduced trove-base and qwen2-0.5b are both 64 wide, the seeded and
+    the trained weights are one layout, and two training runs (learning
+    rates 1e-3 and 1e-2) both end at ``step_00000002``, so a cache shared
+    by encoders would hand the second run the first's corpus rows without
+    an error; each encoder keeps its own cache directory instead."""
+    from repro_torch.data.synthetic import make_retrieval_dataset
+    from repro_torch.launch import train
+
+    shared, fresh = str(tmp_path / "shared"), str(tmp_path / "fresh")
+    for d in (shared, fresh):
+        make_retrieval_dataset(d, n_queries=64, n_docs=512, n_topics=32)
+    runs = {}
+    for run, lr in (("run-a", "1e-3"), ("run-b", "1e-2")):
+        if run in first + second:
+            out = str(tmp_path / run)
+            train.main(["--smoke", "--device", "cpu", "--data-dir", fresh,
+                        "--output_dir", out, "--max_steps", "2",
+                        "--checkpoint_every", "2", "--learning_rate", lr,
+                        "--per_device_batch_size", "4"])
+            runs[run] = os.path.join(out, "checkpoints")
+    first, second = ([runs.get(a, a) for a in args]
+                     for args in (first, second))
+    base = SMOKE + ["--workers", "1"]
+    serve.main(base + ["--data-dir", shared, *first])
+    got = _serve_recording(monkeypatch,
+                           base + ["--data-dir", shared, *second])
+    want = _serve_recording(monkeypatch,
+                            base + ["--data-dir", fresh, *second])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert len(os.listdir(os.path.join(shared, "emb_cache"))) == 2
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")
