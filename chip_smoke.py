@@ -197,29 +197,31 @@ Phases, each printing its own lines:
       holds a full probe), and K1 timed on the nprobe-8 round's first
       superchunk.  Launches on every (k) path: the sum over its driver
       rounds and ranks;
-  (l) retrieval training on the card: (l1) ``repro_torch.launch.train``
-      at trove-base's full width (bf16, seeded weights) on its own
-      synthetic dataset (256 queries, 2048 docs), 20 steps of 8 queries
-      x 2 passages (32 / 128 tokens at most) at a learning rate of 1e-4,
-      async checkpoints every 10 steps: every logged loss and grad_norm
-      finite, the loss falling, every weight matrix changed, ``step_00000010`` / ``step_00000020`` in the reference's
-      layout with the last one's bf16 leaves decoded bit-exact straight
-      from the npz; the median step ms split into forward / backward /
-      clip + optimizer (CUDA events), tokens/s and peak memory; (l2) the
-      same run with a failure injected at step 15 (step 10 restored)
-      against an uninterrupted one, both under
+  (l) retrieval training on the card: (l1) ``repro_torch.launch.train`` at
+      trove-base's full width (bf16, seeded weights, each layer checkpointed
+      in the backward: ``remat``) on its own synthetic dataset (256 queries,
+      2048 docs), 20 steps of 8 queries x 2 passages (32 / 128 tokens at
+      most) at a learning rate of 1e-4, async checkpoints every 10 steps:
+      every logged loss and grad_norm finite, the loss falling, every weight
+      matrix changed, ``step_00000010`` / ``step_00000020`` in the
+      reference's layout with the last one's bf16 leaves decoded bit-exact
+      straight from the npz; the median step ms split into forward /
+      backward / clip + optimizer (CUDA events), tokens/s and peak memory;
+      (l2) the same run with a failure injected at step 15 (step 10
+      restored) against an uninterrupted one, both under
       ``torch.use_deterministic_algorithms``: final parameters bitwise
-      equal; (l3) ``serve.main --ckpt-dir`` on (l1)'s checkpoint: the
-      restored params bitwise equal to the trainer's, 8 requests of 32
-      queries each within TOL of a solo ``search_texts``; (l4) the
-      paper's round trip: ``mine_hard_negatives`` with the trained
-      params on (fused, kernel) and (torch, kernel), the two TSVs equal
-      line for line in their documents where scores are separated and in
-      their scores within TOL, a retrain of 5 steps from (l1)'s last
-      checkpoint on a ``BinaryDataset`` of the mined negatives, then
-      ``evaluate`` on (fused, kernel) of the seeded, the trained and the
-      retrained params.  Launches: 0 on every training path, the driver's
-      prediction on the serving, mining and evaluation paths;
+      equal, and a third such run with ``remat`` off: its final parameters
+      bitwise the run's with it; (l3) ``serve.main --ckpt-dir`` on (l1)'s
+      checkpoint: the restored params bitwise equal to the trainer's, 8
+      requests of 32 queries each within TOL of a solo ``search_texts``;
+      (l4) the paper's round trip: ``mine_hard_negatives`` with the trained
+      params on (fused, kernel) and (torch, kernel), the two TSVs equal line
+      for line in their documents where scores are separated and in their
+      scores within TOL, a retrain of 5 steps from (l1)'s last checkpoint on
+      a ``BinaryDataset`` of the mined negatives, then ``evaluate`` on
+      (fused, kernel) of the seeded, the trained and the retrained params.
+      Launches: 0 on every training path, the driver's prediction on the
+      serving, mining and evaluation paths;
   (m) recsys training at the full published widths (seeded random
       weights drawn on the card), the ``train_batch`` cell (B = 65,536;
       BCE, backward, clip, AdamW): (m1) DeepFM, Wide&Deep, AutoInt and BST
@@ -271,7 +273,28 @@ Phases, each printing its own lines:
       each request within TOL of a solo ``search_texts`` over the
       launcher's own prepared corpus; and ``repro_torch.launch.evalsuite.
       main --arch qwen2-0.5b``.  Launches on every (n) path: the driver's
-      prediction, summed over its rounds.
+      prediction, summed over its rounds;
+  (o) the dense LM encoders under training, each freed before the
+      next: (o1) ``repro_torch.launch.train --arch`` for qwen2-0.5b and
+      stablelm-3b (AdamW) and gemma-7b (Adafactor) at full width, bf16,
+      remat, seeded, (l)'s dataset and batch, 5 steps, only the final
+      checkpoint written: step ms split into forward / backward / clip +
+      optimizer, padded tokens/s, peak memory against its reckoning,
+      finite losses, the checkpoint's bytes and the disk free before;
+      (o3) the trained weights through ``evaluate`` on the three pairs
+      and ``mine_hard_negatives`` on (fused, kernel) at 1024 docs with
+      (n1)'s rules, K1 held against its plain version at every shape the
+      passes gave it, and qwen2-0.5b's checkpoint through
+      ``serve.main --ckpt-dir`` (restored params bitwise the trainer's,
+      each request within TOL of a solo search, the cache directory
+      named by the checkpoint's step and manifest digest); each
+      checkpoint deleted then; (o2) the ``train_4k`` cell (Adafactor) on
+      the same weights at 4096 tokens, its batch cut to 4 / 2 / 2
+      queries and as many passages, 2 steps: ms, tokens/s, peak, loss;
+      then qwen2-0.5b's cell at 2 x 1024 tokens with remat on and off
+      under deterministic algorithms: gradients and updated parameters
+      bitwise equal.  Launches: 0 on the training paths, the driver's
+      prediction on the scoring paths.
 Each phase's wall seconds follow it (``[a] (x) ...: N s``), all of them
 on one ``[a] seconds by phase`` line at the end.
 The second-to-last line is the ``kernels`` JSON object; the last line is
@@ -282,6 +305,7 @@ of the reference package ``repro``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -4465,10 +4489,11 @@ class TrainLog:
     ``RetrievalTrainer.init_state`` (a copy of the initial params) and
     ``RetrievalCollator.__call__`` (each batch's padded and real token
     counts); ``fail_at`` makes ``RetrievalTrainer.train`` inject a
-    failure at that step."""
+    failure at that step; without ``keep_initial`` no copy is taken."""
 
-    def __init__(self, fail_at: int | None = None):
+    def __init__(self, fail_at: int | None = None, keep_initial=True):
         self.fail_at = fail_at
+        self.keep_initial = keep_initial
         self.initial = None
         self.tokens: list = []
 
@@ -4482,6 +4507,8 @@ class TrainLog:
 
         def recorded_init(trainer, params=None):
             state = init_state(trainer, params)
+            if not self.keep_initial:
+                return state
             self.initial = {k: (v.clone() if not isinstance(v, dict) else
                                 {n: t.clone() for n, t in v.items()})
                             for k, v in state["params"].items()}
@@ -4552,6 +4579,23 @@ def trace_steps(trainer, state, batch, card: str) -> None:
           f"(idle share {1 - busy_ms / wall:.3f}); "
           f"{kernels / L_TRACE_STEPS:.0f} kernels and "
           f"{htod / L_TRACE_STEPS:.0f} host-to-device copies a step")
+
+
+@contextlib.contextmanager
+def remat_off(off: bool = True):
+    """trove-base's full config with ``remat=False`` while it lasts (the
+    launchers read it through ``trove_base.get_config``), if ``off``."""
+    import dataclasses
+
+    from repro_torch.configs import trove_base
+    full = trove_base.get_config
+    if off:
+        trove_base.get_config = lambda: dataclasses.replace(full(),
+                                                            remat=False)
+    try:
+        yield
+    finally:
+        trove_base.get_config = full
 
 
 def no_launches(_) -> dict:
@@ -4803,23 +4847,38 @@ def phase_training(dev, card: str) -> dict:
               f"{len(unchanged)} norm leaves bitwise unchanged "
               f"{unchanged}; {held}")
 
-        # (l2) an injected failure resumed, both runs deterministic
-        runs = {}
+        # (l2) an injected failure resumed, and the run without remat, all
+        # deterministic
+        runs, peaks = {}, {}
         torch.use_deterministic_algorithms(True)
         try:
-            for name, fail_at in (("whole", None), ("resumed", L_FAIL_AT)):
+            for name, fail_at in (("whole", None), ("resumed", L_FAIL_AT),
+                                  ("without remat", None)):
                 rlog = TrainLog(fail_at)
+                if cuda:
+                    torch.cuda.reset_peak_memory_stats(dev)
 
                 def run_l2(rlog=rlog, name=name):
-                    with contextlib.redirect_stdout(io.StringIO()), rlog:
+                    with contextlib.redirect_stdout(io.StringIO()), rlog, \
+                            remat_off(name == "without remat"):
                         return train.main(train_argv(
                             data_dir, os.path.join(tmp, f"l2-{name}"), dev))
 
                 runs[name] = on_path(paths, f"(l2) launch.train {name}",
                                      None, run_l2, no_launches)
+                peaks[name] = gib(torch.cuda.max_memory_allocated(dev)
+                                  if cuda else 0)
         finally:
             torch.use_deterministic_algorithms(False)
         (_, whole), (resumed_tr, resumed) = runs["whole"], runs["resumed"]
+        norem_tr, norem = runs["without remat"]
+        if norem_tr.retriever.encoder.cfg.remat or not \
+                trainer.retriever.encoder.cfg.remat:
+            fail("(l2) remat is not on in (l1) and off in the run without")
+        same_params("(l2) remat on vs off", whole["params"], norem["params"])
+        whole_ms, norem_ms = (statistics.median(t["total"] for t in
+                                                tr.step_ms())
+                              for tr in (runs["whole"][0], norem_tr))
         steps = [r["step"] for r in resumed_tr.logs]
         want_steps = list(range(L_FAIL_AT)) + list(range(L_EVERY + 1,
                                                          L_STEPS))
@@ -4833,7 +4892,13 @@ def phase_training(dev, card: str) -> dict:
               f"(both under torch.use_deterministic_algorithms); the "
               f"deterministic run vs (l1)'s max abs param difference "
               f"{max_param_diff(whole['params'], state['params']):.3g}")
-        del runs, whole, resumed, resumed_tr
+        print(f"[l] (l2) the same deterministic run without remat: final "
+              f"params bitwise equal to the run with it (each layer "
+              f"checkpointed); its step median {norem_ms:.3f} ms against "
+              f"{whole_ms:.3f} with remat (the trainer's step_ms), peak "
+              f"{peaks['without remat']:.3f} GiB against "
+              f"{peaks['whole']:.3f}")
+        del runs, whole, resumed, resumed_tr, norem, norem_tr
 
         # (l3) serve.main --ckpt-dir on (l1)'s checkpoint
         for q in (1, 2, 4, 8, 16, 32):
@@ -5145,16 +5210,19 @@ def bag_launches(kind: str, forwards: int, backwards: int) -> dict:
 
 class StepMarks:
     """CUDA events inside a train cell's step, recorded by wrapping
-    ``recsys.forward`` (its end) and ``configs.base.clip_by_global_norm``
-    (its start), so a step splits into forward, loss + backward, and clip
-    + AdamW without a change to the cell."""
+    ``forward`` (an (owner, attribute) pair, ``recsys.forward`` unless
+    given; its end) and ``configs.base.clip_by_global_norm`` (its start),
+    so a step splits into forward, backward and clip + optimizer without
+    a change to the cell."""
 
-    def __init__(self):
+    def __init__(self, forward=None):
         from repro_torch.configs import base
-        from repro_torch.models import recsys
+        if forward is None:
+            from repro_torch.models import recsys
+            forward = (recsys, "forward")
         self.marks: list = []
         self.splits: list = []          # per step: its four events
-        self._saved = [(recsys, "forward"), (base, "clip_by_global_norm")]
+        self._saved = [forward, (base, "clip_by_global_norm")]
         self._orig = [getattr(m, n) for m, n in self._saved]
 
     def _mark(self):
@@ -5676,14 +5744,17 @@ def k1_against_f64(tag: str, log: EncodeLog, ids, vals, corpus) -> float:
     return err
 
 
-def k1_held(dev, q: int, s: int, d: int, tag: str, timed: bool):
-    """K1 at (q, s, C, d, K) on seeded unit vectors: within TOL of its
-    plain version, ids equal where separated; then, if ``timed``, timed
-    as in (b) (:func:`k1_time`), the row returned (else None)."""
+def k1_held(dev, q: int, s: int, d: int, tag: str, timed: bool,
+            k: int | None = None):
+    """K1 at (q, s, C, d, k) (k = K unless given) on seeded unit vectors:
+    within TOL of its plain version, ids equal where separated; then, if
+    ``timed``, timed as in (b) (:func:`k1_time`), the row returned (else
+    None)."""
     import torch
 
     from repro_torch.kernels import ops, ref, topk
 
+    k = K if k is None else k
     g = torch.Generator(device=dev).manual_seed(SEED + d)
 
     def unit(*shape):
@@ -5693,21 +5764,21 @@ def k1_held(dev, q: int, s: int, d: int, tag: str, timed: bool):
     queries, tile = unit(q, d), unit(s, C, d)
     offs = torch.arange(s, dtype=torch.int32, device=dev) * C
     nvs = torch.full((s,), C, dtype=torch.int32, device=dev)
-    v, i = ops.empty_state(q, K, dev)
+    v, i = ops.empty_state(q, k, dev)
     want = ref.fused_score_topk_ref(v.clone(), i.clone(), queries, tile,
                                     offs, nvs)
     topk.fused_score_topk_(v, i, queries, tile, offs, nvs)
     torch.cuda.synchronize()
     err = compare(f"{tag} K1 Q={q} S={s} d={d}", (v, i), want, False)
     rows, splits, span = topk.fused_split_plan(q, s * C, topk.sm_count(dev))
-    print(f"[n] {tag} K1 at Q={q} S={s} C={C} d={d} k={K} ({splits} "
-          f"range(s) of {span} rows, tiles of {rows}) vs its plain "
+    print(f"[{tag[1]}] {tag} K1 at Q={q} S={s} C={C} d={d} k={k} "
+          f"({splits} range(s) of {span} rows, tiles of {rows}) vs its plain "
           f"version: max abs error {err:.3g} (tol {TOL}), ids equal where "
           f"separated")
     if not timed:
         return None
     t = k1_time(dev, queries, tile, offs, nvs,
-                f"Q={q} S={s} C={C} d={d} k={K}", phase="n")
+                f"Q={q} S={s} C={C} d={d} k={k}", phase="n")
     t["max_abs_err"] = err
     return t
 
@@ -5735,10 +5806,10 @@ class K1Calls:
 
 
 def lm_evaluate(dev, card: str, name: str, lm: dict, trove: dict,
-                paths: dict) -> None:
-    """(n1): evaluate over ``trove``'s dataset on the three pairs, launches
-    predicted; fused within TOL of torch and of a float64 host product;
-    then a mine on (fused, kernel)."""
+                paths: dict, tag: str = "(n1)") -> None:
+    """(n1) (and (o3), ``tag``): evaluate over ``trove``'s dataset on the
+    three pairs, launches predicted; fused within TOL of torch and of a
+    float64 host product; then a mine on (fused, kernel)."""
     import numpy as np
     import torch
 
@@ -5771,7 +5842,7 @@ def lm_evaluate(dev, card: str, name: str, lm: dict, trove: dict,
 
         tokens = ev.encode_pipeline.stats["tokens_padded"]
         t0 = time.perf_counter()
-        metrics = on_path(paths, f"(n1) {name} evaluate ({score}, {heap})",
+        metrics = on_path(paths, f"{tag} {name} evaluate ({score}, {heap})",
                           kernel, run, want)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -5779,31 +5850,31 @@ def lm_evaluate(dev, card: str, name: str, lm: dict, trove: dict,
         _, ids, vals = searched[0]
         if ids.shape != (Q, K) or not np.isfinite(vals).all() or (
                 np.diff(vals, axis=1) > 0).any():
-            fail(f"(n1) {name} ({score}, {heap}): bad result")
+            fail(f"{tag} {name} ({score}, {heap}): bad result")
         if not all(0.0 <= m <= 1.0 for m in metrics.values()):
-            fail(f"(n1) {name} ({score}, {heap}): metrics {metrics}")
+            fail(f"{tag} {name} ({score}, {heap}): metrics {metrics}")
         runs[(score, heap)] = (ids, vals)
         st = ev.last_search_stats
-        print(f"[n] (n1) {name} evaluate ({score}, {heap}) on {card}: "
-              f"{wall:.3f} s, {tokens} padded tokens encoded, "
+        print(f"[{tag[1]}] {tag} {name} evaluate ({score}, {heap}) on "
+              f"{card}: {wall:.3f} s, {tokens} padded tokens encoded, "
               f"{tokens / wall:.0f} padded tokens/s, {st['executor']} x"
               f"{st['dispatch_rounds']} calls of S={st['superchunk_size']}"
               f", metrics {rounded(metrics)}")
         if (score, heap) == ("fused", "kernel"):
-            f64_err = k1_against_f64(f"(n1) {name}", log, ids, vals, corpus)
+            f64_err = k1_against_f64(f"{tag} {name}", log, ids, vals, corpus)
             negs = on_path(
-                paths, f"(n1) {name} mine_hard_negatives (fused, kernel)",
+                paths, f"{tag} {name} mine_hard_negatives (fused, kernel)",
                 kernel, lambda ev=ev: ev.mine_hard_negatives(
                     queries, corpus, qrels, depth=20), want)
             if not negs or any(not np.isfinite(s) for _, _, s in negs):
-                fail(f"(n1) {name}: mine_hard_negatives bad")
-            print(f"[n] (n1) {name} mine_hard_negatives (fused, kernel): "
-                  f"{len(negs)} triplets")
-    err = check_backends(f"(n1) {name}", runs)
-    print(f"[n] (n1) {name} d = {d}: (torch, kernel) == (torch, torch) "
-          f"bitwise; fused vs torch max abs error {err:.3g}; K1's largest "
-          f"score error against a float64 host product {f64_err:.3g} (tol "
-          f"{TOL}), ids equal where separated; peak "
+                fail(f"{tag} {name}: mine_hard_negatives bad")
+            print(f"[{tag[1]}] {tag} {name} mine_hard_negatives (fused, "
+                  f"kernel): {len(negs)} triplets")
+    err = check_backends(f"{tag} {name}", runs)
+    print(f"[{tag[1]}] {tag} {name} d = {d}: (torch, kernel) == (torch, "
+          f"torch) bitwise; fused vs torch max abs error {err:.3g}; K1's "
+          f"largest score error against a float64 host product "
+          f"{f64_err:.3g} (tol {TOL}), ids equal where separated; peak "
           f"{gib(torch.cuda.max_memory_allocated(dev)):.2f} GiB on {card}")
 
 
@@ -6108,6 +6179,393 @@ def phase_lm_encoders(dev, card: str) -> tuple[dict, list]:
     return paths, timings
 
 
+# -- (o) the dense LM encoders under training ---------------------------------
+
+# (o1): launch/train.py --arch at full width over (l)'s dataset (L_DATA) and
+# batch (L_BATCH queries x L_GROUP passages, L_QLEN / L_PLEN tokens at
+# most) at L_LR for O1_STEPS steps, only the final save written; AdamW for
+# qwen2-0.5b and stablelm-3b, Adafactor for gemma-7b (AdamW's float32
+# moments alone are 63.6 GiB there).  (o3): (o1)'s weights evaluated and
+# mined over (c)'s recipe at O3_DOCS docs, and qwen2-0.5b's checkpoint
+# served (O3_REQUESTS requests of O3_BATCH queries).  (o2): the train_4k
+# cell (Adafactor) on (o1)'s weights for O2_STEPS steps at O2_LEN tokens,
+# its batch cut to O2_BATCH queries and as many passages (the reference's
+# 256 x 4096 runs on a mesh; PERF.md §4); then remat on against off for
+# qwen2-0.5b at O2R_BATCH x O2R_LEN, under deterministic algorithms.
+O_ARCHS = (("qwen2-0.5b", "adamw"), ("stablelm-3b", "adamw"),
+           ("gemma-7b", "adafactor"))
+O1_STEPS = 5
+O2_BATCH = {"qwen2-0.5b": 4, "stablelm-3b": 2, "gemma-7b": 2}
+O2_LEN, O2_STEPS = 4096, 2
+O2R_LEN, O2R_BATCH = 1024, 2
+O3_DOCS, O3_REQUESTS, O3_BATCH = 1024, 4, 8
+# Peak GiB reckoned before the first run on the card (PERF.md §4): (o1)
+# bf16 params + bf16 gradients + the optimizer's float32 state + two
+# float32 copies of the largest leaf (the in-place clip and update);
+# (o2) params + gradients + state + the layer inputs remat keeps + one
+# layer's recomputed float32 attention scores (3-4 score tensors)
+O1_RECKONED = {"qwen2-0.5b": 6.5, "stablelm-3b": 34.0, "gemma-7b": 51.5}
+O2_RECKONED = {"qwen2-0.5b": 18.0, "stablelm-3b": 28.0, "gemma-7b": 52.0}
+
+
+def o1_train(dev, card: str, name: str, optimizer: str, data_dir: str,
+             tmp: str, paths: dict):
+    """(o1): ``launch.train --arch name`` at full width, bf16, seeded
+    weights; (trainer, final state, the final checkpoint's directory)."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import train
+
+    out_dir = os.path.join(tmp, f"o1-{name}")
+    free = shutil.disk_usage(tmp).free
+    log = TrainLog(keep_initial=False)
+    argv = ["--arch", name, "--optimizer", optimizer, "--data-dir",
+            data_dir, "--output_dir", out_dir, "--device", dev.type,
+            "--max_steps", str(O1_STEPS), "--per_device_batch_size",
+            str(L_BATCH), "--group_size", str(L_GROUP), "--query_max_len",
+            str(L_QLEN), "--passage_max_len", str(L_PLEN),
+            "--checkpoint_every", str(10 * O1_STEPS), "--log_every", "1",
+            "--learning_rate", str(L_LR)]
+
+    def run():
+        with contextlib.redirect_stdout(io.StringIO()), log:
+            return train.main(argv)
+
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.empty(0, device=dev)        # the allocator exists
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    trainer, state = on_path(paths, f"(o1) launch.train --arch {name}",
+                             None, run, no_launches)
+    wall = time.perf_counter() - t0
+    peak = gib(torch.cuda.max_memory_allocated(dev)) if cuda else 0.0
+    cfg = trainer.retriever.encoder.cfg
+    logs = trainer.logs
+    if (cfg.name, cfg.dtype, cfg.remat) != (name, torch.bfloat16, True):
+        fail(f"(o1) {name}: trained {cfg.name} in {cfg.dtype}, remat "
+             f"{cfg.remat}")
+    if [r["step"] for r in logs] != list(range(O1_STEPS)) or not all(
+            np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+            for r in logs) or int(state["step"]) != O1_STEPS:
+        fail(f"(o1) {name}: logs {[(r['step'], r['loss']) for r in logs]}")
+    ckpts = os.path.join(out_dir, "checkpoints")
+    final = f"step_{O1_STEPS:08d}"
+    if sorted(os.listdir(ckpts)) != [final]:
+        fail(f"(o1) {name}: checkpoints {sorted(os.listdir(ckpts))}")
+    step_dir = os.path.join(ckpts, final)
+    n_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                  for f in os.listdir(step_dir))
+    times = trainer.step_ms()
+    med = {p: statistics.median(t[p] for t in times[1:])
+           for p in ("total", "forward", "backward", "update")}
+    toks = log.tokens[:O1_STEPS]
+    padded = statistics.median(q[0] + p[0] for q, p in toks)
+    real = statistics.median(q[1] + p[1] for q, p in toks)
+    print(f"[o] (o1) launch.train --arch {name} --optimizer {optimizer}: "
+          f"{cfg.n_layers} x {cfg.d_model}, {cfg.dtype}, remat, "
+          f"{O1_STEPS} steps of {L_BATCH} queries x {L_GROUP} passages "
+          f"({L_QLEN} / {L_PLEN} tokens at most) on {card}: {wall:.2f} s "
+          f"of launcher, {gib(free):.1f} GiB of disk free before it")
+    print(f"[o] (o1) {name} step ms (median of steps 1-{O1_STEPS - 1}, "
+          f"{'CUDA events' if cuda else 'host clock'}): "
+          f"{med['total']:.3f} = forward {med['forward']:.3f} + backward "
+          f"{med['backward']:.3f} + clip + {optimizer} "
+          f"{med['update']:.3f}; first step {times[0]['total']:.3f}; "
+          f"{padded:.0f} padded ({real:.0f} real) tokens a step: "
+          f"{padded / med['total'] * 1e3:.0f} padded tokens/s; peak "
+          f"{peak:.2f} GiB (reckoned {O1_RECKONED[name]:.1f})")
+    losses = " ".join(f"{r['loss']:.4f}" for r in logs)
+    print(f"[o] (o1) {name} loss {losses}, all finite; final checkpoint "
+          f"{final}: {gib(n_bytes):.2f} GiB ({n_bytes} bytes)")
+    return trainer, state, step_dir
+
+
+def o3_score(dev, card: str, name: str, trainer, state, trove: dict,
+             paths: dict) -> None:
+    """(o3): evaluate on the three pairs and mine on (fused, kernel) with
+    (o1)'s trained weights (:func:`lm_evaluate`'s rules), and K1 held
+    against its plain version at every shape those runs gave it."""
+    from repro_torch.core.collator import RetrievalCollator
+    from repro_torch.core.config import DataArguments
+    from repro_torch.data.tokenizer import HashTokenizer
+
+    cfg = trainer.retriever.encoder.cfg
+    lm = {"cfg": cfg, "retriever": trainer.retriever,
+          "params": state["params"],
+          "collator": RetrievalCollator(
+              DataArguments(vocab_size=cfg.vocab_size),
+              HashTokenizer(cfg.vocab_size))}
+    with K1Calls() as calls:
+        lm_evaluate(dev, card, name, lm, trove, paths, tag="(o3)")
+    # evaluate's k = K, the mine's its depth
+    if {(q, c, d) for q, _, c, d, _ in calls.shapes} != {
+            (Q, C, cfg.d_model)}:
+        fail(f"(o3) {name}: K1 calls {sorted(calls.shapes)}")
+    for q, s, _, d, k in sorted(calls.shapes):
+        k1_held(dev, q, s, d, f"(o3) {name}", timed=False, k=k)
+
+
+def o3_serve(dev, card: str, name: str, data_dir: str, step_dir: str,
+             state, paths: dict) -> None:
+    """(o3): ``serve.main --arch name --ckpt-dir`` on (o1)'s checkpoint:
+    the restored params bitwise the trainer's, each request within TOL of
+    a solo search, the cache directory named by the checkpoint's step and
+    manifest digest, K1 held at every shape the run gave it."""
+    import contextlib
+    import hashlib
+    import io
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.training import checkpoint
+
+    d = get_arch(name).cfg.d_model
+    rungs = [1]
+    while rungs[-1] < O3_BATCH:
+        rungs.append(2 * rungs[-1])
+    pin_superchunk(dev, d, rungs, K)
+    restored, restore = [], checkpoint.restore_checkpoint
+
+    def recording(path, template):
+        restored.append(restore(path, template))
+        return restored[-1]
+
+    served, calls = ServedLog(), K1Calls()
+
+    def run():
+        checkpoint.restore_checkpoint = recording
+        try:
+            with contextlib.redirect_stdout(io.StringIO()), served, calls:
+                return serve.main([
+                    "--arch", name, "--data-dir", data_dir, "--device",
+                    dev.type, "--ckpt-dir", os.path.dirname(step_dir),
+                    "--topk", str(K), "--n-requests", str(O3_REQUESTS),
+                    "--batch", str(O3_BATCH), "--max-batch", str(O3_BATCH),
+                    "--workers", "1"])
+        finally:
+            checkpoint.restore_checkpoint = restore
+
+    t0 = time.perf_counter()
+    try:
+        stats = serving_path(paths, f"(o3) serve.main --arch {name} "
+                             f"--ckpt-dir (fused, kernel)", run)
+        if len(restored) != 1:
+            fail(f"(o3) {name}: {len(restored)} restores")
+        same_params(f"(o3) {name} restored vs trained",
+                    restored[0]["params"], state["params"])
+        corpus = [json.loads(line)["_id"] for line in open(
+            os.path.join(data_dir, "corpus.jsonl"))]
+        held = check_served(f"(o3) serve.main --arch {name} --ckpt-dir",
+                            served, corpus, O3_REQUESTS)
+    finally:
+        served.close()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(step_dir, "manifest.json"), "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+    cache = os.path.join(data_dir, "emb_cache", f"{name}-"
+                         f"{os.path.basename(step_dir)}-{digest}")
+    if not os.path.isdir(cache):
+        fail(f"(o3) {name}: no cache at {cache}: "
+             f"{os.listdir(os.path.join(data_dir, 'emb_cache'))}")
+    if {(q, c, dd, k) for q, _, c, dd, k in calls.shapes} != {
+            (q, C, d, K) for q in rungs}:
+        fail(f"(o3) {name} serve: K1 calls {sorted(calls.shapes)}")
+    for q, s, *_ in sorted(calls.shapes):
+        k1_held(dev, q, s, d, f"(o3) {name} serve", timed=False)
+    print(f"[o] (o3) serve.main --arch {name} --ckpt-dir on {card}: "
+          f"{wall:.1f} s, restored params bitwise equal to the trainer's, "
+          f"cache {os.path.basename(cache)} (the checkpoint's step and "
+          f"manifest digest); {O3_REQUESTS} requests of {O3_BATCH}, p50 "
+          f"{stats['p50_ms']:.3f} ms; {held}")
+
+
+def o2_cell(dev, card: str, name: str, params, paths: dict) -> None:
+    """(o2): the train_4k cell at full width, O2_LEN tokens kept, the
+    batch cut to O2_BATCH[name] queries + as many passages, O2_STEPS
+    steps on ``params`` (updated in place) from a zero Adafactor state:
+    ms a step, tokens/s, peak GiB, finite losses."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import init_train_state
+    from repro_torch.configs.lm_arch import LMArch
+    from repro_torch.models.losses import InfoNCELoss
+
+    arch = get_arch(name)
+    b = O2_BATCH[name]
+    cut = LMArch(arch.cfg, arch.optimizer, shapes={
+        "train_4k": dict(arch.shapes["train_4k"], global_batch=b)})
+    if cut.shapes["train_4k"]["seq_len"] != O2_LEN:
+        fail(f"(o2) {name}: train_4k is {cut.shapes['train_4k']}")
+    batch = cut.smoke_inputs("train_4k", torch.Generator(
+        device=dev).manual_seed(SEED), dev)
+    cell = cut.build_cell("train_4k", device=dev)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    state = init_train_state(cell, params)
+    # the forward ends with the loss (InfoNCE), the backward at the clip
+    marks = StepMarks(forward=(InfoNCELoss, "__call__")) if cuda else None
+
+    def run():
+        with marks or contextlib.nullcontext():
+            return train_steps(cell, state, batch, O2_STEPS, marks)
+
+    metrics = on_path(paths, f"(o2) {name} train_4k", None, run,
+                      no_launches)
+    split = {p: [0.0] for p in ("total", "forward", "backward", "update")}
+    if cuda:
+        torch.cuda.synchronize(dev)
+        split = {p: [] for p in split}
+        for s0, f, c, s1 in marks.splits:
+            split["forward"].append(s0.elapsed_time(f))
+            split["backward"].append(f.elapsed_time(c))
+            split["update"].append(c.elapsed_time(s1))
+            split["total"].append(s0.elapsed_time(s1))
+    peak = gib(torch.cuda.max_memory_allocated(dev)) if cuda else 0.0
+    losses = [float(m["loss"]) for m in metrics]
+    if not all(np.isfinite(x) for x in losses) or int(state["step"]) != \
+            O2_STEPS:
+        fail(f"(o2) {name}: losses {losses}, step {int(state['step'])}")
+    tokens = 2 * b * O2_LEN
+    last = {p: v[-1] for p, v in split.items()}
+    print(f"[o] (o2) {name} train_4k ({cell.optimizer}, remat) at {b} "
+          f"queries + {b} passages x {O2_LEN} tokens on {card}: step ms "
+          f"{' / '.join(f'{x:.1f}' for x in split['total'])} (CUDA "
+          f"events), the last {last['total']:.1f} = forward "
+          f"{last['forward']:.1f} + backward {last['backward']:.1f} + "
+          f"clip + {cell.optimizer} {last['update']:.1f}; "
+          f"{tokens / max(last['total'], 1e-9) * 1e3:.0f} tokens/s; peak "
+          f"{peak:.2f} GiB (reckoned {O2_RECKONED[name]:.1f}); loss "
+          f"{' '.join(f'{x:.4f}' for x in losses)}")
+    del state
+
+
+def o2_remat(dev, card: str, paths: dict) -> None:
+    """(o2): qwen2-0.5b's train_4k step at O2R_BATCH x O2R_LEN from one
+    seed with remat on and off, under deterministic algorithms: the
+    gradients (recorded by wrapping ``configs.base.clip_by_global_norm``,
+    which receives them) and the updated parameters bitwise equal."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import base, get_arch
+    from repro_torch.configs.lm_arch import LMArch
+    from repro_torch.models import transformer
+    from repro_torch.training.tree import leaves
+
+    cfg = get_arch("qwen2-0.5b").cfg
+    shapes = {"train_4k": dict(kind="train", seq_len=O2R_LEN,
+                               global_batch=O2R_BATCH)}
+    clip = base.clip_by_global_norm
+    cuda = dev.type == "cuda"
+    out = {}
+    for remat in (True, False):
+        arch = LMArch(dataclasses.replace(cfg, remat=remat), "adafactor",
+                      shapes)
+        params = transformer.init_params(
+            arch.cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+        batch = arch.smoke_inputs("train_4k", torch.Generator(
+            device=dev).manual_seed(SEED + 1), dev)
+        cell = arch.build_cell("train_4k", device=dev)
+        state = base.init_train_state(cell, params)
+        grads = []
+
+        def recorded(g, max_norm):
+            grads.extend(t.clone() for t in leaves(g))
+            return clip(g, max_norm)
+
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        base.clip_by_global_norm = recorded
+        torch.use_deterministic_algorithms(True)
+        try:
+            _, m = on_path(paths, f"(o2) qwen2-0.5b train_4k remat "
+                           f"{'on' if remat else 'off'}", None,
+                           lambda: cell.fn(state, batch), no_launches)
+        finally:
+            torch.use_deterministic_algorithms(False)
+            base.clip_by_global_norm = clip
+        if cuda:
+            torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        peak = gib(torch.cuda.max_memory_allocated(dev)) if cuda else 0.0
+        out[remat] = (grads, state["params"], float(m["loss"]), wall, peak)
+        del state, params
+    (g1, p1, l1, ms1, pk1), (g0, p0, l0, ms0, pk0) = out[True], out[False]
+    if len(g1) != len(g0) or not all(torch.equal(a, b) for a, b in
+                                     zip(g1, g0)):
+        fail("(o2) remat on vs off: the gradients differ")
+    same_params("(o2) remat on vs off", p1, p0)
+    if l1 != l0:
+        fail(f"(o2) remat on vs off: loss {l1} vs {l0}")
+    print(f"[o] (o2) qwen2-0.5b train_4k at {O2R_BATCH} + {O2R_BATCH} x "
+          f"{O2R_LEN} tokens, remat on vs off under deterministic "
+          f"algorithms on {card}: {len(g1)} gradient leaves and the updated "
+          f"params bitwise equal, loss {l1:.6f}; a step {ms1:.1f} / "
+          f"{ms0:.1f} ms (host clock after a sync), peak {pk1:.2f} / "
+          f"{pk0:.2f} GiB")
+    del out, g1, g0, p1, p0
+
+
+def phase_lm_training(dev, card: str) -> dict:
+    """(o) qwen2-0.5b, stablelm-3b and gemma-7b trained at full width, one
+    after the other, each freed before the next: (o1) the launcher, (o3)
+    its weights scored through K1 and K2 (and qwen2-0.5b's checkpoint
+    served), the checkpoint deleted, (o2) the train_4k cell on the same
+    weights; then (o2)'s remat check.  Returns each path's launches."""
+    import gc
+    import shutil
+
+    import torch
+
+    from repro_torch.data.synthetic import make_retrieval_dataset
+
+    paths: dict = {}
+    cuda = dev.type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "data")
+        make_retrieval_dataset(data_dir, **L_DATA)
+        queries, corpus, qrels = make_retrieval_dataset(
+            os.path.join(tmp, "o3"), n_queries=Q, n_docs=O3_DOCS,
+            n_topics=64, seed=SEED)
+        trove = {"queries": queries, "corpus": corpus, "qrels": qrels}
+        for name, optimizer in O_ARCHS:
+            t0 = time.perf_counter()
+            trainer, state, step_dir = o1_train(dev, card, name, optimizer,
+                                                data_dir, tmp, paths)
+            o3_score(dev, card, name, trainer, state, trove, paths)
+            if name == "qwen2-0.5b":
+                o3_serve(dev, card, name, data_dir, step_dir, state, paths)
+            shutil.rmtree(os.path.dirname(os.path.dirname(step_dir)))
+            params = state["params"]
+            del trainer, state
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+            o2_cell(dev, card, name, params, paths)
+            del params
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+            print(f"[o] {name}: {time.perf_counter() - t0:.1f} s")
+        o2_remat(dev, card, paths)
+    if cuda:
+        torch.cuda.empty_cache()
+    return paths
+
+
 def main() -> int:
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
@@ -6176,6 +6634,7 @@ def main() -> int:
                                  card)
     paths.update(lm_paths)
     kernels["fused_score_topk"]["timings"] += lm_timings
+    paths.update(timed("(o) LM training", phase_lm_training, dev, card))
 
     def profile():
         for t, call, reset, names in PROFILED:

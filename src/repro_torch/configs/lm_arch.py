@@ -2,12 +2,16 @@
 
 The counterpart of ``repro.configs.base.LMArch`` for the dense LM
 encoders (trove-base, qwen2-0.5b, stablelm-3b, gemma-7b).  Of the
-reference's four shapes the port runs the ``encode`` kind
-(``prefill_32k``: ``transformer.encode`` over a batch of token rows, the
-corpus-encoding prefill).  ``train_4k`` (the contrastive step at 4k
-tokens) needs activation checkpointing and a mesh (ROADMAP queue 1
-items 7c, 10); ``decode_32k`` and ``long_500k`` are the KV-cache decode
-(item 8c).  Both raise.
+reference's four shapes the port runs two kinds: ``train_4k``, the
+contrastive bi-encoder step at 4k tokens (forward, backward and the
+arch's optimizer through ``configs.base.make_train_cell``: Adafactor at
+full width, AdamW in ``reduced()``, the reference's defaults), and
+``prefill_32k``, the ``encode`` kind (``transformer.encode`` over a
+batch of token rows, the corpus-encoding prefill).  ``decode_32k`` and
+``long_500k`` are the KV-cache decode (ROADMAP queue 1 item 8c) and
+raise; so does a mesh (item 10).  At full width the reference runs
+``train_4k`` at 256 x 4096 on a mesh; one card takes a cut batch (its
+reckoning is in ``PERF.md``).
 """
 
 from __future__ import annotations
@@ -16,9 +20,10 @@ import dataclasses
 
 import torch
 
-from repro_torch.configs.base import Cell
+from repro_torch.configs.base import Cell, make_train_cell
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
+from repro_torch.models.losses import InfoNCELoss
 
 LM_SHAPES = {
     "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
@@ -39,11 +44,12 @@ REDUCED_SHAPES = {
 def reduced_config(cfg: transformer.LMConfig) -> transformer.LMConfig:
     """The reference's ``LMArch.reduced()`` config: 2 layers of width 64
     (4 heads x 16; 2 KV heads where the arch groups its heads, else 4),
-    d_ff 128, vocab 512, float32, unchunked attention."""
+    d_ff 128, vocab 512, float32, unchunked attention, no remat."""
     return dataclasses.replace(
         cfg, n_layers=2, d_model=64, n_heads=4,
         n_kv_heads=2 if cfg.n_kv_heads < cfg.n_heads else 4, head_dim=16,
-        d_ff=128, vocab_size=512, dtype=torch.float32, attn_chunk=0)
+        d_ff=128, vocab_size=512, dtype=torch.float32, attn_chunk=0,
+        remat=False)
 
 
 def _not_ported(shape: str, items: str, what: str) -> NotImplementedError:
@@ -56,29 +62,59 @@ class LMArch:
     family = "lm"
 
     def __init__(self, cfg: transformer.LMConfig,
-                 shapes: dict | None = None):
+                 optimizer: str = "adafactor", shapes: dict | None = None):
         self.cfg = cfg
         self.name = cfg.name
+        self.optimizer = optimizer
         self.shapes = shapes or LM_SHAPES
 
     def shape_names(self) -> list[str]:
         return list(self.shapes)
 
+    def _contrastive_loss(self):
+        """The reference's contrastive step loss: queries through
+        ``encode``, passages through ``forward_hidden`` and ``pool``,
+        in-batch scores at temperature 0.02, InfoNCE on the diagonal plus
+        0.01 x the MoE aux loss (0.0 for a dense stack)."""
+        loss = InfoNCELoss()
+        cfg = self.cfg
+
+        def fn(params, batch):
+            q = transformer.encode(cfg, params, batch["query"]["tokens"],
+                                   batch["query"]["mask"])
+            hidden = transformer.forward_hidden(
+                cfg, params, batch["passage"]["tokens"],
+                batch["passage"]["mask"])
+            aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+            p = transformer.pool(cfg, hidden, batch["passage"]["mask"])
+            scores = torch.einsum("qd,pd->qp", q, p) / 0.02
+            labels = torch.arange(q.shape[0], dtype=torch.int32,
+                                  device=q.device)
+            return loss(scores, labels) + 0.01 * aux
+
+        return fn
+
     def build_cell(self, shape_name: str,
-                   device: str | torch.device = "cuda") -> Cell:
-        """The step of one shape: ``encode`` gives a cell whose ``fn(params,
-        batch)`` is ``transformer.encode`` of ``batch["tokens"]`` /
-        ``batch["mask"]`` without gradients, on the device of its inputs
-        (``device`` is checked here, and must hold a card unless it is
-        ``"cpu"``)."""
+                   device: str | torch.device = "cuda", mesh=None) -> Cell:
+        """The step of one shape, on the device of its inputs (``device``
+        is checked here, and must hold a card unless it is ``"cpu"``).
+        ``train`` gives ``make_train_cell``'s cell: ``fn(state, batch)``
+        with ``batch = {"query", "passage"}`` token rows and ``state``
+        from ``configs.base.init_train_state``, updated in place.
+        ``encode`` gives a cell whose ``fn(params, batch)`` is
+        ``transformer.encode`` of ``batch["tokens"]`` / ``batch["mask"]``
+        without gradients."""
         resolve_device(device)
+        if mesh is not None:
+            raise _not_ported(shape_name, "10", "a device mesh across cards")
         kind = self.shapes[shape_name]["kind"]
-        if kind == "train":
-            raise _not_ported(shape_name, "7c / 10",
-                              "activation checkpointing and a mesh")
         if kind == "serve":
             raise _not_ported(shape_name, "8c",
                               "the KV-cache decode step")
+        if kind == "train":
+            return make_train_cell(self.name, shape_name,
+                                   loss_fn=self._contrastive_loss(),
+                                   optimizer=self.optimizer)
         cfg = self.cfg
 
         def encode_fn(params, batch):
@@ -90,8 +126,9 @@ class LMArch:
 
     def reduced(self) -> "LMArch":
         """A small config of the same family, for CPU tests (the
-        reference's ``reduced``)."""
-        return LMArch(reduced_config(self.cfg), shapes=REDUCED_SHAPES)
+        reference's ``reduced``: AdamW, the reduced shapes)."""
+        return LMArch(reduced_config(self.cfg), optimizer="adamw",
+                      shapes=REDUCED_SHAPES)
 
     def smoke_inputs(self, shape_name: str, generator: torch.Generator,
                      device: str | torch.device = "cuda"

@@ -2,10 +2,10 @@
 default architecture of the reference's serve and eval launchers.
 
 12 layers, d_model 768, 12 heads x 64, d_ff 3072, vocab 50304, a
-non-gated GELU FFN, LayerNorm with biases, bfloat16: about 124 M
-parameters.  The same fields as ``repro.configs.trove_base``.
-:func:`reduced` is the smoke-test size of the reference's
-``LMArch.reduced()``.
+non-gated GELU FFN, LayerNorm with biases, bfloat16, each layer
+checkpointed in training (``remat``): about 124 M parameters.  The same
+fields as ``repro.configs.trove_base``.  :func:`reduced` is the
+smoke-test size of the reference's ``LMArch.reduced()``.
 """
 
 import torch
@@ -19,7 +19,7 @@ def get_config() -> LMConfig:
         name="trove-base", n_layers=12, d_model=768, n_heads=12,
         n_kv_heads=12, head_dim=64, d_ff=3072, vocab_size=50304,
         activation="gelu", norm="layernorm", pooling="mean",
-        dtype=torch.bfloat16)
+        dtype=torch.bfloat16, remat=True)
 
 
 def reduced() -> LMConfig:

@@ -2,21 +2,26 @@
 
     python -m repro_torch.launch.train --smoke --device cpu --output_dir DIR
     python -m repro_torch.launch.train --output_dir DIR --max_steps 20
+    python -m repro_torch.launch.train --arch gemma-7b --optimizer adafactor
 
 The port of ``repro.launch.train``: builds the synthetic-or-given
 retrieval dataset through ``MaterializedQRel`` (``--data-dir``, written
 by ``make_retrieval_dataset(256 queries, 2048 docs, 64 topics)`` when it
-has no ``queries.jsonl``), a ``BiEncoderRetriever`` on trove-base, and
-runs ``RetrievalTrainer`` (gradient accumulation, async checkpoints
-under ``OUTPUT_DIR/checkpoints``, fault tolerance).  ``--smoke`` is
-trove-base cut to 2 x 64 in float32.  ``--device`` is ``cuda`` by
-default and raises without a card unless ``--device cpu`` is given.
+has no ``queries.jsonl``), a ``BiEncoderRetriever`` on the ``--arch``
+backbone (trove-base, the default, qwen2-0.5b, stablelm-3b or gemma-7b),
+and runs ``RetrievalTrainer`` (gradient accumulation, async checkpoints
+under ``OUTPUT_DIR/checkpoints``, fault tolerance).  ``--smoke`` is the
+arch's ``reduced()`` form, 2 x 64 in float32.  ``--device`` is ``cuda``
+by default and raises without a card unless ``--device cpu`` is given.
 Every other ``--field value`` goes through ``parse_cli`` to
-``RetrievalTrainingArguments`` / ``ModelArguments`` / ``DataArguments``.
+``RetrievalTrainingArguments`` / ``ModelArguments`` / ``DataArguments``;
+``--optimizer adafactor`` is the one that fits gemma-7b on one card
+(AdamW's float32 moments alone are 63.6 GiB there).  The full-width
+configs checkpoint each layer in the backward (``remat``).
 
-Not ported yet, and raising: ``--arch`` other than trove-base (ROADMAP
-queue 1 item 8) and ``--mesh pod | multipod`` / ``--multi-pod`` (item
-10).  ``main`` returns the trainer and its final state.
+Not ported yet, and raising: an ``--arch`` outside the LM encoders
+(ROADMAP queue 1 item 8) and ``--mesh pod | multipod`` / ``--multi-pod``
+(item 10).  ``main`` returns the trainer and its final state.
 """
 
 from __future__ import annotations
@@ -33,7 +38,6 @@ def _not_ported(flag: str, item: int, what: str) -> NotImplementedError:
 
 
 def main(argv=None):
-    from repro_torch.configs import trove_base
     from repro_torch.core.collator import RetrievalCollator
     from repro_torch.core.config import (DataArguments, MaterializedQRelConfig,
                                          ModelArguments,
@@ -44,17 +48,20 @@ def main(argv=None):
     from repro_torch.data.synthetic import make_retrieval_dataset
     from repro_torch.data.tokenizer import HashTokenizer
     from repro_torch.device import resolve_device
+    from repro_torch.launch.serve import lm_config
     from repro_torch.models.encoder import DefaultEncoder
     from repro_torch.models.retriever import BiEncoderRetriever
     from repro_torch.training.trainer import RetrievalTrainer
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="trove-base")
+    ap.add_argument("--arch", default="trove-base",
+                    help="trove-base, qwen2-0.5b, stablelm-3b or gemma-7b")
     ap.add_argument("--data-dir",
                     default=os.path.join(tempfile.gettempdir(),
                                          "trove_data"))
     ap.add_argument("--smoke", action="store_true",
-                    help="trove-base cut to 2 x 64 in float32")
+                    help="the arch cut to 2 x 64 (its reduced() form) in "
+                         "float32")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--mesh", default="local",
                     choices=["local", "pod", "multipod"])
@@ -62,12 +69,7 @@ def main(argv=None):
                     help="cuda (default) or cpu")
     args, rest = ap.parse_known_args(argv)
 
-    if args.arch != "trove-base":
-        raise _not_ported(f"--arch {args.arch}", 8,
-                          "training the other LM encoders (the port "
-                          "serves and evaluates them, and trains "
-                          "trove-base; gemma-7b needs item 7c's remat "
-                          "and Adafactor to fit one card)")
+    cfg = lm_config(args.arch, args.smoke)
     if args.multi_pod or args.mesh != "local":
         raise _not_ported("--mesh pod / multipod and --multi-pod", 10,
                           "a device mesh across cards")
@@ -75,7 +77,6 @@ def main(argv=None):
         RetrievalTrainingArguments, ModelArguments, DataArguments,
         argv=rest)
     device = resolve_device(args.device)
-    cfg = trove_base.reduced() if args.smoke else trove_base.get_config()
 
     if not os.path.exists(os.path.join(args.data_dir, "queries.jsonl")):
         make_retrieval_dataset(args.data_dir, n_queries=256, n_docs=2048,

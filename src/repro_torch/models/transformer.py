@@ -27,12 +27,23 @@ rows when the query length is a larger multiple of it, else in one pass
 the same function, and only one chunk's scores are alive at a time.
 The reference's ``logit_softcap`` is left out: no config sets it.
 
+``remat`` is the reference's activation checkpointing (its
+``jax.checkpoint`` per layer).  Under autograd with ``remat`` each
+layer (attention block and FFN) runs as one
+``torch.utils.checkpoint``: the backward keeps only the layer's input
+and recomputes the rest.  Chunked attention checkpoints each query chunk
+under autograd whatever ``remat`` says, as the reference's chunk scan
+does, so a backward holds one chunk's float32 scores.  The recomputed
+forward runs the same ops on the same inputs, so the gradients are the
+same bits with and without it.  Under ``no_grad`` (every encode, serve
+and prefill path) nothing is checkpointed.
+
 The reference's mesh and compile knobs have no counterpart here, since
-torch runs eagerly on one card: ``remat`` (ROADMAP queue 1 item 7c),
-``scan_layers``, ``seq_shard_attn``, ``seq_shard_acts``,
-``inline_mask``, ``dus_cache_update`` and ``moe_impl``; nor has
-``max_seq_len``, which the reference declares and never reads.  The
-MoE FFN and the KV-cache decode step come with later slices (item 8).
+torch runs eagerly on one card: ``scan_layers``, ``seq_shard_attn``,
+``seq_shard_acts``, ``inline_mask``, ``dus_cache_update`` and
+``moe_impl``; nor has ``max_seq_len``, which the reference declares and
+never reads.  The MoE FFN and the KV-cache decode step come with later
+slices (item 8).
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.training.tree import leaves
@@ -67,6 +79,7 @@ class LMConfig:
     pooling: str = "last"           # last | mean | first
     dtype: torch.dtype = torch.bfloat16
     attn_chunk: int = 0             # > 0: query-chunked attention
+    remat: bool = True              # checkpoint each layer under autograd
 
     def param_count(self) -> int:
         """Parameters of :func:`param_shapes` (the reference's
@@ -187,10 +200,17 @@ def _attention(cfg: LMConfig, q, k, v, mask):
     sq, chunk = q.shape[1], cfg.attn_chunk
     if not chunk or sq <= chunk or sq % chunk != 0:
         return _attn_scores_softmax(q, k, v, mask)
-    return torch.cat([
-        _attn_scores_softmax(q[:, lo: lo + chunk], k, v,
-                             mask[:, lo: lo + chunk])
-        for lo in range(0, sq, chunk)], dim=1)
+    if torch.is_grad_enabled():
+        # the reference's jax.checkpoint of the chunk body: the backward
+        # recomputes one chunk's scores at a time
+        def run(*args):
+            return checkpoint(_attn_scores_softmax, *args,
+                              use_reentrant=False, preserve_rng_state=False)
+    else:
+        run = _attn_scores_softmax
+    return torch.cat([run(q[:, lo: lo + chunk], k, v,
+                          mask[:, lo: lo + chunk])
+                      for lo in range(0, sq, chunk)], dim=1)
 
 
 def _attn_block(cfg: LMConfig, lp: Params, x, positions, mask):
@@ -221,6 +241,10 @@ def _dense_ffn(cfg: LMConfig, lp: Params, x):
     return x + _glu(cfg, h, lp.get("wi_gate"), lp["wi_up"], lp["wo_ffn"])
 
 
+def _layer(cfg: LMConfig, lp: Params, x, positions, mask):
+    return _dense_ffn(cfg, lp, _attn_block(cfg, lp, x, positions, mask))
+
+
 def forward_hidden(cfg: LMConfig, params: Params, tokens: torch.Tensor,
                    attn_mask: torch.Tensor) -> torch.Tensor:
     """tokens (B, S) int, attn_mask (B, S) {0,1} -> hidden (B, S, d)."""
@@ -234,10 +258,18 @@ def forward_hidden(cfg: LMConfig, params: Params, tokens: torch.Tensor,
                                    device=tokens.device))
     mask = causal[None] & attn_mask[:, None, :].bool()
     blocks = params["blocks"]
-    for i in range(cfg.n_layers):
-        lp = {name: w[i] for name, w in blocks.items()}
-        x = _attn_block(cfg, lp, x, positions, mask)
-        x = _dense_ffn(cfg, lp, x)
+    # one view per layer of each stacked weight: unbind's backward stacks
+    # the layers' gradients once, where indexing would write a zero-filled
+    # stack per layer and sum the stacks
+    layers = [dict(zip(blocks, ws)) for ws in zip(
+        *(w.unbind(0) for w in blocks.values()))][: cfg.n_layers]
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in layers:
+        if remat:
+            x = checkpoint(_layer, cfg, lp, x, positions, mask,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _layer(cfg, lp, x, positions, mask)
     return _norm(x, params["final_ln"], params.get("final_ln_b"), cfg.norm)
 
 

@@ -14,6 +14,14 @@ is computed in float32 and cast back to the parameter's dtype; and
 gradient's dtype (bf16 at trove-base) before the update, as the
 reference does.  The schedule and corrections are 0-d CPU tensors, which
 torch applies to tensors on any device.
+
+The clip and the updates work in place, one leaf at a time, so that at
+most two float32 copies of a leaf are alive beside its state: a clipped
+gradient is written back into the gradient's own tensor, and each
+update's products are taken into buffers the update owns.  Every element
+sees the same operations in the same order as the out-of-place form
+(``a * x + b * y`` is ``x.mul_(a)`` then ``add_`` of ``y * b``, never one
+fused op), so the results are the same bits.
 """
 
 from __future__ import annotations
@@ -60,14 +68,25 @@ def schedule(cfg: OptimizerConfig, step) -> torch.Tensor:
     return lr
 
 
+@torch.no_grad()
 def clip_by_global_norm(grads, max_norm: float):
     """(grads scaled to global norm <= ``max_norm``, each cast back to its
-    dtype; the float32 global norm before clipping)."""
+    dtype; the float32 global norm before clipping).  The scaled leaves
+    are written into ``grads``' own tensors, which are returned."""
     gs = leaves(grads)
     gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in gs))
     scale = torch.minimum(torch.tensor(1.0, device=gn.device),
                           max_norm / torch.clamp_min(gn, 1e-9))
-    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
+    for g in gs:
+        # a float32 leaf is scaled in place; another dtype through one
+        # float32 copy, rounded back by the copy
+        g.copy_(g.float().mul_(scale))
+    return grads, gn
+
+
+def _f32_copy(t: torch.Tensor) -> torch.Tensor:
+    """A float32 copy of ``t`` the caller may overwrite."""
+    return t.to(torch.float32, copy=True)
 
 
 # ---------------------------------------------------------------------------
@@ -89,12 +108,19 @@ def adamw_update(cfg: OptimizerConfig, grads, state, params, step):
     c2 = 1.0 - cfg.b2 ** t
     for g, mu, nu, p in zip(leaves(grads), leaves(state["mu"]),
                             leaves(state["nu"]), leaves(params)):
-        g = g.float()
-        mu.copy_(cfg.b1 * mu + (1 - cfg.b1) * g)
-        nu.copy_(cfg.b2 * nu + (1 - cfg.b2) * g * g)
-        u = (mu / c1) / (torch.sqrt(nu / c2) + cfg.eps)
-        u = u + cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr * u).to(p.dtype))
+        # mu = b1 * mu + (1 - b1) * g;  nu = b2 * nu + (1 - b2) * g * g
+        t = _f32_copy(g).mul_(1 - cfg.b1)
+        mu.mul_(cfg.b1).add_(t)
+        t.copy_(g).mul_(1 - cfg.b2).mul_(g)
+        nu.mul_(cfg.b2).add_(t)
+        # u = (mu / c1) / (sqrt(nu / c2) + eps) + wd * p
+        u = torch.div(mu, c1)
+        torch.div(nu, c2, out=t).sqrt_().add_(cfg.eps)
+        u.div_(t)
+        u.add_(t.copy_(p).mul_(cfg.weight_decay))
+        # p = p - lr * u, rounded to p's dtype
+        p.copy_(t.copy_(p).sub_(u.mul_(lr)))
+        del t, u
     return params, state
 
 
@@ -134,24 +160,25 @@ def adafactor_update(cfg: OptimizerConfig, grads, state, params, step):
     eps = 1e-30
     for (path, p), g in zip(flatten(params), leaves(grads)):
         v = _state_at(state["v"], path)
-        g = g.float()
-        g2 = g * g + eps
+        u = _f32_copy(g)
+        t = (u * u).add_(eps)                       # g2 = g * g + eps
         if "vr" in v:
-            v["vr"].copy_(b2 * v["vr"] + (1 - b2) * g2.mean(-1))
-            v["vc"].copy_(b2 * v["vc"] + (1 - b2) * g2.mean(-2))
+            v["vr"].copy_(b2 * v["vr"] + (1 - b2) * t.mean(-1))
+            v["vc"].copy_(b2 * v["vc"] + (1 - b2) * t.mean(-2))
+            del t
             vr, vc = v["vr"], v["vc"]
-            denom = torch.sqrt(vr[..., None] / vr.mean(-1, keepdim=True
-                                                       )[..., None]
-                               * vc[..., None, :])
+            t = (vr[..., None] / vr.mean(-1, keepdim=True)[..., None]
+                 * vc[..., None, :]).sqrt_()
         else:
-            v["v"].copy_(b2 * v["v"] + (1 - b2) * g2)
-            denom = torch.sqrt(v["v"])
-        u = g / torch.clamp_min(denom, 1e-30)
+            v["v"].mul_(b2).add_(t.mul_(1 - b2))
+            t = torch.sqrt(v["v"], out=t)
+        u.div_(t.clamp_min_(1e-30))                 # u = g / denom
         # update clipping (RMS(u) <= 1)
-        rms_u = torch.sqrt((u * u).mean() + 1e-30)
-        u = u / torch.clamp_min(rms_u, 1.0)
-        u = u + cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr * u).to(p.dtype))
+        rms_u = torch.sqrt(torch.mul(u, u, out=t).mean() + 1e-30)
+        u.div_(torch.clamp_min(rms_u, 1.0))
+        u.add_(t.copy_(p).mul_(cfg.weight_decay))
+        p.copy_(t.copy_(p).sub_(u.mul_(lr)))
+        del t, u
     return params, state
 
 

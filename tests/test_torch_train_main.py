@@ -69,7 +69,8 @@ def test_default_device_is_the_card(tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", (
-    (["--arch", "qwen2-0.5b"], "item 8"),
+    (["--arch", "granite-moe-3b-a800m"], "item 8"),
+    (["--arch", "deepfm"], "item 8"),
     (["--mesh", "pod"], "item 10"),
     (["--multi-pod"], "item 10"),
 ))
