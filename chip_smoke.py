@@ -5619,10 +5619,11 @@ def recsys_deterministic(dev, paths: dict) -> None:
 
 N_ARCHS = ("qwen2-0.5b", "stablelm-3b", "gemma-7b")
 N_PAIRS = (("fused", "kernel"), ("torch", "kernel"), ("torch", "torch"))
-# (n1): (c)'s recipe (Q queries, 64 topics, SEED) at half its corpus: the
-# encodes are host-bound, and at 8192 docs (n1)'s 12 passes took 185 s
-# of (n)'s 242 s (PERF.md §4)
-N1_DOCS = 4096
+# (n1): (c)'s recipe (Q queries, 64 topics, SEED) at a quarter of its
+# corpus: the encodes are host-bound, and at 8192 docs (n1)'s 12 passes
+# took 185 s of (n)'s 242 s; 4096 docs gave room to (o), 2048 to (p)
+# (PERF.md §4).  2048 docs are one superchunk of S = 64 chunks of C
+N1_DOCS = 2048
 # (n3): one row of the prefill_32k cell (the reference's batch of 32 is
 # 32 x (B, H, 4096, 32768) float32 score chunks: far past one card), its
 # attention in chunks of the configs' 4096; chunked against one pass at
@@ -5642,9 +5643,9 @@ N3_MIN_COS = 0.999
 N4_MIN_COS, N4_MIN_OVERLAP = 0.99, 0.5
 
 
-def lm_model(dev, name: str) -> dict:
-    """An LM encoder at full width with seeded weights drawn on the card,
-    its retriever and collator."""
+def lm_model(dev, name: str, cfg=None) -> dict:
+    """An LM encoder at full width (or ``cfg``) with seeded weights drawn
+    on the card, its retriever and collator."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -5654,7 +5655,7 @@ def lm_model(dev, name: str) -> dict:
     from repro_torch.models.encoder import DefaultEncoder
     from repro_torch.models.retriever import BiEncoderRetriever
 
-    cfg = get_arch(name).cfg
+    cfg = cfg or get_arch(name).cfg
     retriever = BiEncoderRetriever(DefaultEncoder(cfg))
     t0 = time.perf_counter()
     params = retriever.init_params(
@@ -5778,7 +5779,7 @@ def k1_held(dev, q: int, s: int, d: int, tag: str, timed: bool,
     if not timed:
         return None
     t = k1_time(dev, queries, tile, offs, nvs,
-                f"Q={q} S={s} C={C} d={d} k={k}", phase="n")
+                f"Q={q} S={s} C={C} d={d} k={k}", phase=tag[1])
     t["max_abs_err"] = err
     return t
 
@@ -5806,9 +5807,10 @@ class K1Calls:
 
 
 def lm_evaluate(dev, card: str, name: str, lm: dict, trove: dict,
-                paths: dict, tag: str = "(n1)") -> None:
-    """(n1) (and (o3), ``tag``): evaluate over ``trove``'s dataset on the
-    three pairs, launches predicted; fused within TOL of torch and of a
+                paths: dict, tag: str = "(n1)", pairs=N_PAIRS) -> None:
+    """(n1) (and (o3), (p1), (p3): ``tag``): evaluate over ``trove``'s
+    dataset on ``pairs`` (the three, or (fused, kernel) and (torch,
+    kernel)), launches predicted; fused within TOL of torch and of a
     float64 host product; then a mine on (fused, kernel)."""
     import numpy as np
     import torch
@@ -5819,7 +5821,7 @@ def lm_evaluate(dev, card: str, name: str, lm: dict, trove: dict,
     d = lm["cfg"].d_model
     runs, log = {}, EncodeLog()
     torch.cuda.reset_peak_memory_stats(dev)
-    for score, heap in N_PAIRS:
+    for score, heap in pairs:
         ev = trove_evaluator(dev, data, score, heap)
         kernel = path_kernel(score, heap)
         searched = []
@@ -5870,9 +5872,15 @@ def lm_evaluate(dev, card: str, name: str, lm: dict, trove: dict,
                 fail(f"{tag} {name}: mine_hard_negatives bad")
             print(f"[{tag[1]}] {tag} {name} mine_hard_negatives (fused, "
                   f"kernel): {len(negs)} triplets")
-    err = check_backends(f"{tag} {name}", runs)
-    print(f"[{tag[1]}] {tag} {name} d = {d}: (torch, kernel) == (torch, "
-          f"torch) bitwise; fused vs torch max abs error {err:.3g}; K1's "
+    if ("torch", "torch") in runs:
+        err, same = check_backends(f"{tag} {name}", runs), (
+            "(torch, kernel) == (torch, torch) bitwise; ")
+    else:
+        err, same = check_exact(f"{tag} {name} fused vs torch",
+                                *runs[("fused", "kernel")],
+                                *runs[("torch", "kernel")]), ""
+    print(f"[{tag[1]}] {tag} {name} d = {d}: {same}fused vs torch max abs "
+          f"error {err:.3g}; K1's "
           f"largest score error against a float64 host product "
           f"{f64_err:.3g} (tol {TOL}), ids equal where separated; peak "
           f"{gib(torch.cuda.max_memory_allocated(dev)):.2f} GiB on {card}")
@@ -6183,10 +6191,14 @@ def phase_lm_encoders(dev, card: str) -> tuple[dict, list]:
 
 # (o1): launch/train.py --arch at full width over (l)'s dataset (L_DATA) and
 # batch (L_BATCH queries x L_GROUP passages, L_QLEN / L_PLEN tokens at
-# most) at L_LR for O1_STEPS steps, only the final save written; AdamW for
+# most) at L_LR for O1_STEPS steps, only the final save asked for; AdamW for
 # qwen2-0.5b and stablelm-3b, Adafactor for gemma-7b (AdamW's float32
-# moments alone are 63.6 GiB there).  (o3): (o1)'s weights evaluated and
-# mined over (c)'s recipe at O3_DOCS docs, and qwen2-0.5b's checkpoint
+# moments alone are 63.6 GiB there).  The final save is written only for
+# the archs in O1_SAVED (qwen2-0.5b's is served in (o3), granite's read in
+# (p2)); stablelm-3b's and gemma-7b's (24.8 + 19.9 GiB) are recorded as
+# asked for and not written, to make room for (p).  (o3): (o1)'s weights
+# evaluated and mined over (c)'s recipe at O3_DOCS docs, and qwen2-0.5b's
+# checkpoint
 # served (O3_REQUESTS requests of O3_BATCH queries).  (o2): the train_4k
 # cell (Adafactor) on (o1)'s weights for O2_STEPS steps at O2_LEN tokens,
 # its batch cut to O2_BATCH queries and as many passages (the reference's
@@ -6195,7 +6207,9 @@ def phase_lm_encoders(dev, card: str) -> tuple[dict, list]:
 O_ARCHS = (("qwen2-0.5b", "adamw"), ("stablelm-3b", "adamw"),
            ("gemma-7b", "adafactor"))
 O1_STEPS = 5
-O2_BATCH = {"qwen2-0.5b": 4, "stablelm-3b": 2, "gemma-7b": 2}
+O1_SAVED = ("qwen2-0.5b", "granite-moe-3b-a800m")
+O2_BATCH = {"qwen2-0.5b": 4, "stablelm-3b": 2, "gemma-7b": 2,
+            "granite-moe-3b-a800m": 4}
 O2_LEN, O2_STEPS = 4096, 2
 O2R_LEN, O2R_BATCH = 1024, 2
 O3_DOCS, O3_REQUESTS, O3_BATCH = 1024, 4, 8
@@ -6203,15 +6217,24 @@ O3_DOCS, O3_REQUESTS, O3_BATCH = 1024, 4, 8
 # bf16 params + bf16 gradients + the optimizer's float32 state + two
 # float32 copies of the largest leaf (the in-place clip and update);
 # (o2) params + gradients + state + the layer inputs remat keeps + one
-# layer's recomputed float32 attention scores (3-4 score tensors)
-O1_RECKONED = {"qwen2-0.5b": 6.5, "stablelm-3b": 34.0, "gemma-7b": 51.5}
-O2_RECKONED = {"qwen2-0.5b": 18.0, "stablelm-3b": 28.0, "gemma-7b": 52.0}
+# layer's recomputed float32 attention scores (3-4 score tensors); (p2)'s
+# granite-moe-3b-a800m with Adafactor: 6.14 params + 6.14 grads + 0.79
+# state + 2 x 3.75 (one (32, 40, 1536, 512) expert leaf in float32), and
+# train_4k at 4 + 4 x 4096: 6.14 + 6.14 + 0.79 + 3.0 (96 KiB a token
+# kept) + 3-5 x 1.5 (24 heads x 4096^2 float32 scores a sequence) + ~2
+# (the expert buffers at cap 1024)
+O1_RECKONED = {"qwen2-0.5b": 6.5, "stablelm-3b": 34.0, "gemma-7b": 51.5,
+               "granite-moe-3b-a800m": 20.6}
+O2_RECKONED = {"qwen2-0.5b": 18.0, "stablelm-3b": 28.0, "gemma-7b": 52.0,
+               "granite-moe-3b-a800m": 48.0}
 
 
 def o1_train(dev, card: str, name: str, optimizer: str, data_dir: str,
-             tmp: str, paths: dict):
-    """(o1): ``launch.train --arch name`` at full width, bf16, seeded
-    weights; (trainer, final state, the final checkpoint's directory)."""
+             tmp: str, paths: dict, tag: str = "(o1)"):
+    """(o1) (and (p2), ``tag``): ``launch.train --arch name`` at full
+    width, bf16, seeded weights; (trainer, final state, the final
+    checkpoint's directory, None when ``name`` is not in O1_SAVED: the
+    save is then recorded as asked for and not written)."""
     import contextlib
     import io
     import shutil
@@ -6220,6 +6243,7 @@ def o1_train(dev, card: str, name: str, optimizer: str, data_dir: str,
     import torch
 
     from repro_torch.launch import train
+    from repro_torch.training.checkpoint import CheckpointManager
 
     out_dir = os.path.join(tmp, f"o1-{name}")
     free = shutil.disk_usage(tmp).free
@@ -6232,47 +6256,61 @@ def o1_train(dev, card: str, name: str, optimizer: str, data_dir: str,
             "--checkpoint_every", str(10 * O1_STEPS), "--log_every", "1",
             "--learning_rate", str(L_LR)]
 
+    saves, save = [], CheckpointManager.save
+
+    def asked(mgr, step, state, blocking=None):
+        saves.append(step)
+
     def run():
-        with contextlib.redirect_stdout(io.StringIO()), log:
-            return train.main(argv)
+        if name not in O1_SAVED:
+            CheckpointManager.save = asked
+        try:
+            with contextlib.redirect_stdout(io.StringIO()), log:
+                return train.main(argv)
+        finally:
+            CheckpointManager.save = save
 
     cuda = dev.type == "cuda"
     if cuda:
         torch.empty(0, device=dev)        # the allocator exists
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    trainer, state = on_path(paths, f"(o1) launch.train --arch {name}",
+    trainer, state = on_path(paths, f"{tag} launch.train --arch {name}",
                              None, run, no_launches)
     wall = time.perf_counter() - t0
     peak = gib(torch.cuda.max_memory_allocated(dev)) if cuda else 0.0
     cfg = trainer.retriever.encoder.cfg
     logs = trainer.logs
     if (cfg.name, cfg.dtype, cfg.remat) != (name, torch.bfloat16, True):
-        fail(f"(o1) {name}: trained {cfg.name} in {cfg.dtype}, remat "
+        fail(f"{tag} {name}: trained {cfg.name} in {cfg.dtype}, remat "
              f"{cfg.remat}")
     if [r["step"] for r in logs] != list(range(O1_STEPS)) or not all(
             np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
             for r in logs) or int(state["step"]) != O1_STEPS:
-        fail(f"(o1) {name}: logs {[(r['step'], r['loss']) for r in logs]}")
+        fail(f"{tag} {name}: logs {[(r['step'], r['loss']) for r in logs]}")
     ckpts = os.path.join(out_dir, "checkpoints")
     final = f"step_{O1_STEPS:08d}"
-    if sorted(os.listdir(ckpts)) != [final]:
-        fail(f"(o1) {name}: checkpoints {sorted(os.listdir(ckpts))}")
-    step_dir = os.path.join(ckpts, final)
+    written = [] if saves else [final]
+    if sorted(os.listdir(ckpts)) != written or saves not in ([], [O1_STEPS]):
+        fail(f"{tag} {name}: checkpoints {sorted(os.listdir(ckpts))}, "
+             f"saves asked for and not written {saves}")
+    step_dir = os.path.join(ckpts, final) if written else None
     n_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
-                  for f in os.listdir(step_dir))
+                  for f in os.listdir(step_dir)) if written else 0
     times = trainer.step_ms()
     med = {p: statistics.median(t[p] for t in times[1:])
            for p in ("total", "forward", "backward", "update")}
     toks = log.tokens[:O1_STEPS]
     padded = statistics.median(q[0] + p[0] for q, p in toks)
     real = statistics.median(q[1] + p[1] for q, p in toks)
-    print(f"[o] (o1) launch.train --arch {name} --optimizer {optimizer}: "
-          f"{cfg.n_layers} x {cfg.d_model}, {cfg.dtype}, remat, "
-          f"{O1_STEPS} steps of {L_BATCH} queries x {L_GROUP} passages "
-          f"({L_QLEN} / {L_PLEN} tokens at most) on {card}: {wall:.2f} s "
-          f"of launcher, {gib(free):.1f} GiB of disk free before it")
-    print(f"[o] (o1) {name} step ms (median of steps 1-{O1_STEPS - 1}, "
+    p = tag[1]
+    print(f"[{p}] {tag} launch.train --arch {name} --optimizer "
+          f"{optimizer}: {cfg.n_layers} x {cfg.d_model}, {cfg.dtype}, "
+          f"remat, {O1_STEPS} steps of {L_BATCH} queries x {L_GROUP} "
+          f"passages ({L_QLEN} / {L_PLEN} tokens at most) on {card}: "
+          f"{wall:.2f} s of launcher, {gib(free):.1f} GiB of disk free "
+          f"before it")
+    print(f"[{p}] {tag} {name} step ms (median of steps 1-{O1_STEPS - 1}, "
           f"{'CUDA events' if cuda else 'host clock'}): "
           f"{med['total']:.3f} = forward {med['forward']:.3f} + backward "
           f"{med['backward']:.3f} + clip + {optimizer} "
@@ -6281,8 +6319,18 @@ def o1_train(dev, card: str, name: str, optimizer: str, data_dir: str,
           f"{padded / med['total'] * 1e3:.0f} padded tokens/s; peak "
           f"{peak:.2f} GiB (reckoned {O1_RECKONED[name]:.1f})")
     losses = " ".join(f"{r['loss']:.4f}" for r in logs)
-    print(f"[o] (o1) {name} loss {losses}, all finite; final checkpoint "
-          f"{final}: {gib(n_bytes):.2f} GiB ({n_bytes} bytes)")
+    aux = ""
+    if cfg.moe:
+        if not all(np.isfinite(r["moe_aux_loss"]) and r["moe_aux_loss"] > 0
+                   for r in logs):
+            fail(f"{tag} {name}: moe_aux_loss "
+                 f"{[r['moe_aux_loss'] for r in logs]}")
+        aux = (" (moe_aux_loss " + " ".join(
+            f"{r['moe_aux_loss']:.4f}" for r in logs) + ", weighted 0.01)")
+    saved = (f"final checkpoint {final}: {gib(n_bytes):.2f} GiB ({n_bytes} "
+             f"bytes)" if written else f"final save of step {O1_STEPS} "
+             f"asked for, not written")
+    print(f"[{p}] {tag} {name} loss {losses}{aux}, all finite; {saved}")
     return trainer, state, step_dir
 
 
@@ -6385,17 +6433,21 @@ def o3_serve(dev, card: str, name: str, data_dir: str, step_dir: str,
           f"{stats['p50_ms']:.3f} ms; {held}")
 
 
-def o2_cell(dev, card: str, name: str, params, paths: dict) -> None:
-    """(o2): the train_4k cell at full width, O2_LEN tokens kept, the
-    batch cut to O2_BATCH[name] queries + as many passages, O2_STEPS
-    steps on ``params`` (updated in place) from a zero Adafactor state:
-    ms a step, tokens/s, peak GiB, finite losses."""
+def o2_cell(dev, card: str, name: str, params, paths: dict,
+            tag: str = "(o2)") -> None:
+    """(o2) (and (p2), ``tag``): the train_4k cell at full width, O2_LEN
+    tokens kept, the batch cut to O2_BATCH[name] queries + as many
+    passages, O2_STEPS steps on ``params`` (updated in place) from a zero
+    Adafactor state: ms a step, tokens/s, peak GiB, finite losses; for an
+    MoE stack the loss's 0.01 x aux term apart (the passages' aux,
+    recorded by wrapping ``transformer.forward_hidden``)."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import init_train_state
     from repro_torch.configs.lm_arch import LMArch
+    from repro_torch.models import transformer
     from repro_torch.models.losses import InfoNCELoss
 
     arch = get_arch(name)
@@ -6403,7 +6455,7 @@ def o2_cell(dev, card: str, name: str, params, paths: dict) -> None:
     cut = LMArch(arch.cfg, arch.optimizer, shapes={
         "train_4k": dict(arch.shapes["train_4k"], global_batch=b)})
     if cut.shapes["train_4k"]["seq_len"] != O2_LEN:
-        fail(f"(o2) {name}: train_4k is {cut.shapes['train_4k']}")
+        fail(f"{tag} {name}: train_4k is {cut.shapes['train_4k']}")
     batch = cut.smoke_inputs("train_4k", torch.Generator(
         device=dev).manual_seed(SEED), dev)
     cell = cut.build_cell("train_4k", device=dev)
@@ -6414,12 +6466,23 @@ def o2_cell(dev, card: str, name: str, params, paths: dict) -> None:
     state = init_train_state(cell, params)
     # the forward ends with the loss (InfoNCE), the backward at the clip
     marks = StepMarks(forward=(InfoNCELoss, "__call__")) if cuda else None
+    auxes, hidden = [], transformer.forward_hidden
+
+    def passage_aux(cfg, params, tokens, mask):
+        out = hidden(cfg, params, tokens, mask)
+        if tokens is batch["passage"]["tokens"]:
+            auxes.append(out[1].detach())
+        return out
 
     def run():
-        with marks or contextlib.nullcontext():
-            return train_steps(cell, state, batch, O2_STEPS, marks)
+        transformer.forward_hidden = passage_aux
+        try:
+            with marks or contextlib.nullcontext():
+                return train_steps(cell, state, batch, O2_STEPS, marks)
+        finally:
+            transformer.forward_hidden = hidden
 
-    metrics = on_path(paths, f"(o2) {name} train_4k", None, run,
+    metrics = on_path(paths, f"{tag} {name} train_4k", None, run,
                       no_launches)
     split = {p: [0.0] for p in ("total", "forward", "backward", "update")}
     if cuda:
@@ -6433,11 +6496,18 @@ def o2_cell(dev, card: str, name: str, params, paths: dict) -> None:
     peak = gib(torch.cuda.max_memory_allocated(dev)) if cuda else 0.0
     losses = [float(m["loss"]) for m in metrics]
     if not all(np.isfinite(x) for x in losses) or int(state["step"]) != \
-            O2_STEPS:
-        fail(f"(o2) {name}: losses {losses}, step {int(state['step'])}")
+            O2_STEPS or len(auxes) != O2_STEPS:
+        fail(f"{tag} {name}: losses {losses}, step {int(state['step'])}, "
+             f"{len(auxes)} passage encodes")
+    aux = [0.01 * float(a) for a in auxes]
+    if arch.cfg.moe != all(a > 0 for a in aux):
+        fail(f"{tag} {name}: 0.01 x aux {aux}")
+    terms = (f" = InfoNCE {' '.join(f'{x - a:.4f}' for x, a in zip(losses, aux))}"
+             f" + 0.01 x aux {' '.join(f'{a:.5f}' for a in aux)}"
+             if arch.cfg.moe else "")
     tokens = 2 * b * O2_LEN
     last = {p: v[-1] for p, v in split.items()}
-    print(f"[o] (o2) {name} train_4k ({cell.optimizer}, remat) at {b} "
+    print(f"[{tag[1]}] {tag} {name} train_4k ({cell.optimizer}, remat) at {b} "
           f"queries + {b} passages x {O2_LEN} tokens on {card}: step ms "
           f"{' / '.join(f'{x:.1f}' for x in split['total'])} (CUDA "
           f"events), the last {last['total']:.1f} = forward "
@@ -6445,15 +6515,17 @@ def o2_cell(dev, card: str, name: str, params, paths: dict) -> None:
           f"clip + {cell.optimizer} {last['update']:.1f}; "
           f"{tokens / max(last['total'], 1e-9) * 1e3:.0f} tokens/s; peak "
           f"{peak:.2f} GiB (reckoned {O2_RECKONED[name]:.1f}); loss "
-          f"{' '.join(f'{x:.4f}' for x in losses)}")
+          f"{' '.join(f'{x:.4f}' for x in losses)}{terms}")
     del state
 
 
-def o2_remat(dev, card: str, paths: dict) -> None:
-    """(o2): qwen2-0.5b's train_4k step at O2R_BATCH x O2R_LEN from one
-    seed with remat on and off, under deterministic algorithms: the
-    gradients (recorded by wrapping ``configs.base.clip_by_global_norm``,
-    which receives them) and the updated parameters bitwise equal."""
+def o2_remat(dev, card: str, paths: dict, name: str = "qwen2-0.5b",
+             tag: str = "(o2)") -> None:
+    """(o2) (and (p2): ``name``, ``tag``): the arch's train_4k step at
+    O2R_BATCH x O2R_LEN from one seed with remat on and off, under
+    deterministic algorithms: the gradients (recorded by wrapping
+    ``configs.base.clip_by_global_norm``, which receives them) and the
+    updated parameters bitwise equal."""
     import dataclasses
 
     import torch
@@ -6463,7 +6535,7 @@ def o2_remat(dev, card: str, paths: dict) -> None:
     from repro_torch.models import transformer
     from repro_torch.training.tree import leaves
 
-    cfg = get_arch("qwen2-0.5b").cfg
+    cfg = get_arch(name).cfg
     shapes = {"train_4k": dict(kind="train", seq_len=O2R_LEN,
                                global_batch=O2R_BATCH)}
     clip = base.clip_by_global_norm
@@ -6491,7 +6563,7 @@ def o2_remat(dev, card: str, paths: dict) -> None:
         base.clip_by_global_norm = recorded
         torch.use_deterministic_algorithms(True)
         try:
-            _, m = on_path(paths, f"(o2) qwen2-0.5b train_4k remat "
+            _, m = on_path(paths, f"{tag} {name} train_4k remat "
                            f"{'on' if remat else 'off'}", None,
                            lambda: cell.fn(state, batch), no_launches)
         finally:
@@ -6506,11 +6578,11 @@ def o2_remat(dev, card: str, paths: dict) -> None:
     (g1, p1, l1, ms1, pk1), (g0, p0, l0, ms0, pk0) = out[True], out[False]
     if len(g1) != len(g0) or not all(torch.equal(a, b) for a, b in
                                      zip(g1, g0)):
-        fail("(o2) remat on vs off: the gradients differ")
-    same_params("(o2) remat on vs off", p1, p0)
+        fail(f"{tag} {name} remat on vs off: the gradients differ")
+    same_params(f"{tag} {name} remat on vs off", p1, p0)
     if l1 != l0:
-        fail(f"(o2) remat on vs off: loss {l1} vs {l0}")
-    print(f"[o] (o2) qwen2-0.5b train_4k at {O2R_BATCH} + {O2R_BATCH} x "
+        fail(f"{tag} {name} remat on vs off: loss {l1} vs {l0}")
+    print(f"[{tag[1]}] {tag} {name} train_4k at {O2R_BATCH} + {O2R_BATCH} x "
           f"{O2R_LEN} tokens, remat on vs off under deterministic "
           f"algorithms on {card}: {len(g1)} gradient leaves and the updated "
           f"params bitwise equal, loss {l1:.6f}; a step {ms1:.1f} / "
@@ -6548,7 +6620,7 @@ def phase_lm_training(dev, card: str) -> dict:
             o3_score(dev, card, name, trainer, state, trove, paths)
             if name == "qwen2-0.5b":
                 o3_serve(dev, card, name, data_dir, step_dir, state, paths)
-            shutil.rmtree(os.path.dirname(os.path.dirname(step_dir)))
+            shutil.rmtree(os.path.join(tmp, f"o1-{name}"))
             params = state["params"]
             del trainer, state
             gc.collect()
@@ -6564,6 +6636,353 @@ def phase_lm_training(dev, card: str) -> dict:
     if cuda:
         torch.cuda.empty_cache()
     return paths
+
+
+# -- (p) the MoE FFN at full width -------------------------------------------
+
+P_GRANITE, P_LLAMA4 = "granite-moe-3b-a800m", "llama4-maverick-400b-a17b"
+# (p3): llama4-maverick at its published width with its depth cut to one
+# (dense, MoE) pair (its 48 layers are 739 GiB in bf16), over (o3)'s
+# O3_DOCS docs on two pairs
+P3_LAYERS = 2
+P3_PAIRS = (("fused", "kernel"), ("torch", "kernel"))
+# (p4): the serve launcher's requests; the tie check's batch of passages
+P4_REQUESTS, P4_BATCH = 8, 8
+P1_TIE_TEXTS = C
+
+
+class RouteLog:
+    """Every ``transformer._route`` call of a run, recorded by wrapping it
+    here, in the script: per padded length S, the token-slots routed and
+    those the capacity dropped (padding included).  With ``ties`` each
+    call's choice is also held to the tie rule: among the experts whose
+    probability equals a token's k-th chosen one, the chosen are the
+    lowest indices (the probabilities recomputed from the same product,
+    softmax and inputs)."""
+
+    def __init__(self, ties: bool = False):
+        self.ties = ties
+        self.slots: dict = {}
+        self.dropped: dict = {}
+        self.tokens = 0
+        self.tied: list = []
+        self.broken: list = []
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+        self._orig = route = transformer._route
+
+        def logged(cfg, h, router):
+            out = route(cfg, h, router)
+            keep, s = out[3], h.shape[1]
+            self.slots[s] = self.slots.get(s, 0) + keep.numel()
+            self.dropped.setdefault(s, []).append((~keep).sum())
+            if self.ties:
+                self._hold(cfg, h, router, out[1])
+            return out
+
+        transformer._route = logged
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer
+        transformer._route = self._orig
+
+    def _hold(self, cfg, h, router, choice):
+        import torch
+        import torch.nn.functional as F
+        probs = torch.softmax(
+            torch.einsum("bsd,de->bse", h, router).float(), dim=-1)
+        tied = probs == probs.gather(-1, choice[..., -1:])
+        chosen = F.one_hot(choice, cfg.n_experts).sum(-2).bool()
+        n = (tied & chosen).sum(-1, keepdim=True)
+        lowest = tied & (tied.cumsum(-1) <= n)
+        self.broken.append(((tied & chosen) != lowest).any(-1).sum())
+        self.tied.append((tied & ~chosen).any(-1).sum())
+        self.tokens += probs.shape[0] * probs.shape[1]
+
+    def shares(self) -> str:
+        """Each padded length's dropped share of its token-slots."""
+        return ", ".join(
+            f"S={s}: {int(sum(self.dropped[s]))} of {self.slots[s]} "
+            f"({int(sum(self.dropped[s])) / self.slots[s]:.4f})"
+            for s in sorted(self.slots))
+
+
+def moe_header(name: str, lm: dict, card: str) -> None:
+    from repro_torch.training import tree
+    cfg = lm["cfg"]
+    n_bytes = sum(t.nbytes for t in tree.leaves(lm["params"]))
+    print(f"[p] {name}: {cfg.n_layers} x {cfg.d_model}, {cfg.n_heads} "
+          f"heads x {cfg.head_dim} over {cfg.n_kv_heads} KV, "
+          f"{cfg.n_dense_layers} dense (d_ff {cfg.d_ff}) + "
+          f"{cfg.n_moe_layers} MoE layers ({cfg.n_experts} experts of "
+          f"{cfg.moe_d_ff}, top-{cfg.top_k}, {cfg.n_shared_experts} "
+          f"shared, capacity factor {cfg.capacity_factor}), vocab "
+          f"{cfg.vocab_size}: {cfg.param_count():,} params "
+          f"({cfg.active_param_count():,} active), {gib(n_bytes):.2f} GiB "
+          f"in {cfg.dtype}, drawn in {lm['init_s']:.2f} s on {card}")
+
+
+def moe_evaluate(dev, card: str, name: str, lm: dict, trove: dict,
+                 paths: dict, tag: str, pairs=N_PAIRS) -> None:
+    """(p1), (p3): :func:`lm_evaluate` over ``trove`` with every route
+    recorded (the dropped share at each padded length), then K1 held
+    against its plain version at every shape those runs gave it."""
+    with RouteLog() as routes, K1Calls() as calls:
+        lm_evaluate(dev, card, name, lm, trove, paths, tag=tag, pairs=pairs)
+    print(f"[p] {tag} {name}: token-slots the capacity dropped, by padded "
+          f"length: {routes.shares()}")
+    if {(q, c, d) for q, _, c, d, _ in calls.shapes} != {
+            (Q, C, lm["cfg"].d_model)}:
+        fail(f"{tag} {name}: K1 calls {sorted(calls.shapes)}")
+    for q, s, _, d, k in sorted(calls.shapes):
+        k1_held(dev, q, s, d, f"{tag} {name}", timed=False, k=k)
+
+
+def moe_ties(dev, card: str, lm: dict, trove: dict) -> None:
+    """(p1): the tie rule on one real bf16 batch, the first P1_TIE_TEXTS
+    passages, every layer's route held (:class:`RouteLog`)."""
+    passages = list(trove["corpus"].values())[:P1_TIE_TEXTS]
+    ev = trove_evaluator(dev, lm)
+    with RouteLog(ties=True) as routes:
+        ev._encode_texts(passages, False, device=True)
+    broken, tied = int(sum(routes.broken)), int(sum(routes.tied))
+    if broken:
+        fail(f"(p1) tie rule: {broken} tokens chose a higher expert than "
+             f"an unchosen equal one")
+    print(f"[p] (p1) tie rule on one bf16 batch of {len(passages)} "
+          f"passages on {card}: {routes.tokens} token-layers routed, "
+          f"{tied} with an unchosen expert equal to the k-th chosen "
+          f"({tied / routes.tokens:.4f}), every one of them with the lower "
+          f"indices chosen; dropped {routes.shares()}")
+
+
+def query_rungs(ev, texts) -> list:
+    """The padded length each query of ``texts`` is encoded at when they
+    are encoded together (the pipeline's own grouping: rows sorted by
+    length, batches of the query batch size, each padded to the rung of
+    its longest row)."""
+    import numpy as np
+    pipe = ev.encode_pipeline
+    max_len = ev.collator.max_len_for(True)
+    enc = pipe.tokenize(texts, max_len, ev.retriever.format_query)
+    lengths = np.array([len(e) for e in enc])
+    b = pipe._batch_dim(len(enc), ev.args.query_batch_size)
+    order = np.argsort(lengths, kind="stable")
+    out = [0] * len(enc)
+    for lo in range(0, len(enc), b):
+        idx = order[lo: lo + b]
+        rung = pipe._fit(max(lengths[idx].max(), 1), pipe.ladder(max_len))
+        for i in idx:
+            out[i] = rung
+    return out
+
+
+def moe_served_rungs(tag: str, served: ServedLog) -> str:
+    """Each served query against a search of it alone: the same padded
+    length gives the same embedding; where its request padded it longer
+    than it pads alone (mixed rungs), the capacity may drop other tokens
+    and its ids move.  Counts the mixed queries and their top-K overlap
+    with the served row (not held: the reference pads alike)."""
+    import numpy as np
+    backend = served.frontends[0].backend
+    ev, prepared = backend.ev, backend.prepared
+    mixed, overlaps, same_err = 0, [], 0.0
+    for (texts, fut) in served.requests:
+        ids, vals = fut.result(timeout=D_RESULT_S)
+        together = query_rungs(ev, texts)
+        for j, text in enumerate(texts):
+            alone_ids, alone_vals = ev.search_texts([text], prepared)
+            if query_rungs(ev, [text])[0] == together[j]:
+                same_err = max(same_err, check_exact(
+                    f"{tag} query at its request's rung vs alone",
+                    ids[j: j + 1], vals[j: j + 1], alone_ids, alone_vals))
+                continue
+            mixed += 1
+            overlaps.append(len(set(ids[j]) & set(alone_ids[0])) / K)
+    n = sum(len(t) for t, _ in served.requests)
+    moved = (f"top-{K} overlap with the served row mean "
+             f"{np.mean(overlaps):.3f}, min {min(overlaps):.3f}"
+             if overlaps else "none moved")
+    return (f"{n - mixed} of {n} queries at their request's rung alone "
+            f"too, each within {same_err:.3g} of its solo search (tol "
+            f"{TOL}); {mixed} mixed rungs: {moved}")
+
+
+def moe_launchers(dev, card: str, paths: dict, tmp: str) -> None:
+    """(p4): ``serve.main --arch granite-moe-3b-a800m`` at ``--workers 1``
+    on its own data dir, each request within TOL of a solo search of the
+    same queries (one encode batch: the same padded length), each query
+    against a search of it alone where its padded length is the same,
+    and the mixed ones counted; K1 held at every shape; then
+    ``evalsuite.main --arch granite-moe-3b-a800m`` on its own root."""
+    import contextlib
+    import gc
+    import io
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import evalsuite, serve
+
+    cfg = get_arch(P_GRANITE).cfg
+    rungs = [1]
+    while rungs[-1] < P4_BATCH:
+        rungs.append(2 * rungs[-1])
+    data = os.path.join(tmp, "p4-serve")
+    pin_superchunk(dev, cfg.d_model, rungs, K)
+    out, served, calls = io.StringIO(), ServedLog(), K1Calls()
+
+    def run():
+        with contextlib.redirect_stdout(out), served, calls:
+            return serve.main([
+                "--arch", P_GRANITE, "--data-dir", data, "--device",
+                dev.type, "--topk", str(K), "--n-requests",
+                str(P4_REQUESTS), "--batch", str(P4_BATCH), "--max-batch",
+                str(P4_BATCH), "--workers", "1"])
+
+    t0 = time.perf_counter()
+    try:
+        stats = serving_path(
+            paths, f"(p4) serve.main --arch {P_GRANITE} (fused, kernel)",
+            run)
+        corpus = [json.loads(line)["_id"] for line in open(
+            os.path.join(data, "corpus.jsonl"))]
+        held = check_served(f"(p4) serve.main --arch {P_GRANITE}", served,
+                            corpus, P4_REQUESTS)
+        wall = time.perf_counter() - t0
+        alone = moe_served_rungs("(p4)", served)
+    finally:
+        served.close()
+    fs = stats["frontend"]
+    if fs["completed"] != P4_REQUESTS + len(rungs) or fs["failed"]:
+        fail(f"(p4) serve: {json.dumps(fs)}")
+    print(f"[p] (p4) serve.main --arch {P_GRANITE} on {card}: {wall:.1f} "
+          f"s; {P4_REQUESTS} requests of {P4_BATCH}, p50 "
+          f"{stats['p50_ms']:.3f} ms; each request {held}; {alone}")
+    del served, stats, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    if {(q, c, dd, k) for q, _, c, dd, k in calls.shapes} != {
+            (q, C, cfg.d_model, K) for q in rungs}:
+        fail(f"(p4) serve: K1 calls {sorted(calls.shapes)}")
+    for q, s, *_ in sorted(calls.shapes):
+        k1_held(dev, q, s, cfg.d_model, "(p4) serve", timed=False)
+
+    pin_superchunk(dev, cfg.d_model, (16, 32), 10)
+    root = os.path.join(tmp, "p4-suite")
+    out = io.StringIO()
+
+    def suite():
+        with contextlib.redirect_stdout(out):
+            return evalsuite.main([
+                "--arch", P_GRANITE, "--data-root", root, "--device",
+                dev.type, "--out-dir", os.path.join(root, "out")])
+
+    t0 = time.perf_counter()
+    results = serving_path(
+        paths, f"(p4) evalsuite.main --arch {P_GRANITE} (fused, kernel)",
+        suite)
+    if set(results) != {"d0", "d1", "combined"} or not all(
+            0.0 <= m <= 1.0 for row in results.values()
+            for m in row.values()):
+        fail(f"(p4) evalsuite: {results}")
+    print(f"[p] (p4) evalsuite.main --arch {P_GRANITE} on {card}: "
+          f"{time.perf_counter() - t0:.1f} s, combined "
+          f"{rounded(results['combined'])}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_moe(dev, card: str) -> tuple[dict, list]:
+    """(p) the MoE FFN at published widths, bf16, seeded weights drawn on
+    the card, each model freed before the next: (p1) granite-moe-3b-a800m
+    evaluated and mined through K1 and K2 over (c)'s recipe at N1_DOCS
+    docs, the dropped shares and the tie rule; (p2) granite trained by
+    ``launch/train.py --arch`` (Adafactor), its ``train_4k`` cell, remat
+    on against off; (p3) llama4-maverick at its published width cut to
+    one (dense, MoE) pair, evaluated at O3_DOCS; (p4) the launchers; K1
+    held and timed at d = 1536 and 5120.  Returns each path's launches
+    and the K1 timings."""
+    import dataclasses
+    import gc
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import make_retrieval_dataset
+
+    paths: dict = {}
+    timings = []
+    cuda = dev.type == "cuda"
+
+    def freed():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "data")
+        make_retrieval_dataset(data_dir, **L_DATA)
+        troves = {}
+        for key, n_docs in (("p1", N1_DOCS), ("p3", O3_DOCS)):
+            queries, corpus, qrels = make_retrieval_dataset(
+                os.path.join(tmp, key), n_queries=Q, n_docs=n_docs,
+                n_topics=64, seed=SEED)
+            troves[key] = {"queries": queries, "corpus": corpus,
+                           "qrels": qrels}
+
+        t0 = time.perf_counter()
+        lm = lm_model(dev, P_GRANITE)
+        moe_header(P_GRANITE, lm, card)
+        moe_evaluate(dev, card, P_GRANITE, lm, troves["p1"], paths, "(p1)")
+        moe_ties(dev, card, lm, troves["p1"])
+        d = lm["cfg"].d_model
+        del lm
+        freed()
+        timings.append(k1_held(dev, Q, S, d, "(p1)", timed=True))
+        print(f"[p] (p1) {P_GRANITE}: {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        trainer, state, step_dir = o1_train(
+            dev, card, P_GRANITE, "adafactor", data_dir, tmp, paths,
+            tag="(p2)")
+        shutil.rmtree(os.path.join(tmp, f"o1-{P_GRANITE}"))
+        params = state["params"]
+        del trainer, state
+        freed()
+        o2_cell(dev, card, P_GRANITE, params, paths, tag="(p2)")
+        del params
+        freed()
+        o2_remat(dev, card, paths, name=P_GRANITE, tag="(p2)")
+        freed()
+        print(f"[p] (p2) {P_GRANITE}: {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_arch(P_LLAMA4).cfg, n_layers=P3_LAYERS)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        lm = lm_model(dev, P_LLAMA4, cfg)
+        peak = gib(torch.cuda.max_memory_allocated(dev)) if cuda else 0.0
+        moe_header(P_LLAMA4, lm, card)
+        print(f"[p] (p3) {P_LLAMA4} cut to {P3_LAYERS} layers: the draw's "
+              f"peak {peak:.2f} GiB (a float32 copy of one (1, "
+              f"{cfg.n_experts}, {cfg.d_model}, {cfg.moe_d_ff}) leaf "
+              f"beside the bf16 weights)")
+        moe_evaluate(dev, card, P_LLAMA4, lm, troves["p3"], paths, "(p3)",
+                     pairs=P3_PAIRS)
+        del lm
+        freed()
+        timings.append(k1_held(dev, Q, S, cfg.d_model, "(p3)", timed=True))
+        print(f"[p] (p3) {P_LLAMA4}: {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        moe_launchers(dev, card, paths, tmp)
+        print(f"[p] (p4): {time.perf_counter() - t0:.1f} s")
+    freed()
+    return paths, timings
 
 
 def main() -> int:
@@ -6635,6 +7054,9 @@ def main() -> int:
     paths.update(lm_paths)
     kernels["fused_score_topk"]["timings"] += lm_timings
     paths.update(timed("(o) LM training", phase_lm_training, dev, card))
+    moe_paths, moe_timings = timed("(p) MoE", phase_moe, dev, card)
+    paths.update(moe_paths)
+    kernels["fused_score_topk"]["timings"] += moe_timings
 
     def profile():
         for t, call, reset, names in PROFILED:

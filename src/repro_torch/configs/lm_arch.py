@@ -1,7 +1,8 @@
 """LM cells: (architecture x input shape) -> a step the card runs.
 
-The counterpart of ``repro.configs.base.LMArch`` for the dense LM
-encoders (trove-base, qwen2-0.5b, stablelm-3b, gemma-7b).  Of the
+The counterpart of ``repro.configs.base.LMArch`` for the LM encoders
+(trove-base, qwen2-0.5b, stablelm-3b, gemma-7b, and the MoE stacks
+granite-moe-3b-a800m and llama4-maverick-400b-a17b).  Of the
 reference's four shapes the port runs two kinds: ``train_4k``, the
 contrastive bi-encoder step at 4k tokens (forward, backward and the
 arch's optimizer through ``configs.base.make_train_cell``: Adafactor at
@@ -44,11 +45,16 @@ REDUCED_SHAPES = {
 def reduced_config(cfg: transformer.LMConfig) -> transformer.LMConfig:
     """The reference's ``LMArch.reduced()`` config: 2 layers of width 64
     (4 heads x 16; 2 KV heads where the arch groups its heads, else 4),
-    d_ff 128, vocab 512, float32, unchunked attention, no remat."""
+    d_ff 128, vocab 512, float32, unchunked attention, no remat; an MoE
+    stack keeps at most 8 experts, top-2 at most, of width 32 (so an
+    interleaved stack is one dense and one MoE layer)."""
     return dataclasses.replace(
         cfg, n_layers=2, d_model=64, n_heads=4,
         n_kv_heads=2 if cfg.n_kv_heads < cfg.n_heads else 4, head_dim=16,
-        d_ff=128, vocab_size=512, dtype=torch.float32, attn_chunk=0,
+        d_ff=128, vocab_size=512,
+        n_experts=min(cfg.n_experts, 8) if cfg.moe else 0,
+        top_k=min(cfg.top_k, 2) if cfg.moe else 0,
+        moe_d_ff=32 if cfg.moe else 0, dtype=torch.float32, attn_chunk=0,
         remat=False)
 
 
@@ -75,17 +81,17 @@ class LMArch:
         """The reference's contrastive step loss: queries through
         ``encode``, passages through ``forward_hidden`` and ``pool``,
         in-batch scores at temperature 0.02, InfoNCE on the diagonal plus
-        0.01 x the MoE aux loss (0.0 for a dense stack)."""
+        0.01 x the passages' MoE aux loss (0.0 for a dense stack; the
+        queries' aux is dropped, as in the reference)."""
         loss = InfoNCELoss()
         cfg = self.cfg
 
         def fn(params, batch):
             q = transformer.encode(cfg, params, batch["query"]["tokens"],
                                    batch["query"]["mask"])
-            hidden = transformer.forward_hidden(
+            hidden, aux = transformer.forward_hidden(
                 cfg, params, batch["passage"]["tokens"],
                 batch["passage"]["mask"])
-            aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
             p = transformer.pool(cfg, hidden, batch["passage"]["mask"])
             scores = torch.einsum("qd,pd->qp", q, p) / 0.02
             labels = torch.arange(q.shape[0], dtype=torch.int32,

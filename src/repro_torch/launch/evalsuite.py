@@ -23,9 +23,11 @@ The port of ``repro.launch.evalsuite``, with the port's backend names
 (``--score-impl numpy | torch | fused``, default ``fused``) and
 ``--device`` (``cuda`` by default; without a card it raises unless
 ``--device cpu`` is given).  The encoder is ``--arch``: trove-base (the
-default), qwen2-0.5b, stablelm-3b or gemma-7b (``--smoke``: its
+default), qwen2-0.5b, stablelm-3b, gemma-7b, or the MoE stacks
+granite-moe-3b-a800m and llama4-maverick-400b-a17b (``--smoke``: its
 ``reduced()`` form in float32), with seeded random weights; any other
-architecture raises naming its ROADMAP item.  The shared embedding cache
+architecture raises naming its ROADMAP item, and so does llama4-maverick
+at full width (item 10).  The shared embedding cache
 is the encoder's own, ``DATA_ROOT/emb_cache/ARCH[-smoke]``
 (``launch.serve.cache_dir``).  Each scenario runs
 through ``RetrievalEvaluator`` -> ``ShardedSearchDriver``, so
@@ -93,13 +95,13 @@ def main(argv=None):
                                             format_metrics_table)
     from repro_torch.data.tokenizer import HashTokenizer
     from repro_torch.device import resolve_device
-    from repro_torch.launch.serve import cache_dir, lm_config
+    from repro_torch.launch.serve import ARCH_HELP, cache_dir, lm_config
     from repro_torch.models.encoder import DefaultEncoder
     from repro_torch.models.retriever import BiEncoderRetriever
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="trove-base",
-                    help="trove-base, qwen2-0.5b, stablelm-3b or gemma-7b")
+                    help=ARCH_HELP)
     ap.add_argument("--smoke", action="store_true",
                     help="the arch cut to 2 x 64 (its reduced() form) in "
                          "float32 (fast CI path)")

@@ -11,9 +11,11 @@ The port of ``repro.launch.serve``, with the port's backend names
 (``--score-impl numpy | torch | fused``, default ``fused``) and
 ``--device`` (``cuda`` by default; without a card it raises unless
 ``--device cpu`` is given).  ``--arch`` names the encoder: trove-base
-(the default), qwen2-0.5b, stablelm-3b or gemma-7b (``--smoke``: its
+(the default), qwen2-0.5b, stablelm-3b, gemma-7b, or the MoE stacks
+granite-moe-3b-a800m and llama4-maverick-400b-a17b (``--smoke``: its
 ``reduced()`` form in float32); any other architecture raises naming
-its ROADMAP item, before any work.  The weights are seeded, or with
+its ROADMAP item, before any work, and so does llama4-maverick at full
+width (its weights need a mesh across cards, item 10).  The weights are seeded, or with
 ``--ckpt-dir DIR`` the ``params`` of the latest checkpoint in ``DIR`` (a
 trainer's ``OUTPUT_DIR/checkpoints``, written by either package).
 The embedding cache is kept per encoder, under
@@ -83,10 +85,20 @@ def _not_ported(flag: str, item: int, what: str) -> NotImplementedError:
         f"(ROADMAP queue 1 item {item})")
 
 
+ARCH_HELP = ("trove-base, qwen2-0.5b, stablelm-3b, gemma-7b, "
+             "granite-moe-3b-a800m or llama4-maverick-400b-a17b (the "
+             "last only with --smoke: at full width it needs more than "
+             "one card)")
+# the device memory of one card, for the weights alone
+CARD_BYTES = 80e9
+
+
 def lm_config(arch: str, smoke: bool):
     """The encoder config ``--arch`` names: an LM arch of
     ``repro_torch.configs`` (``smoke``: its ``reduced()`` form, float32).
-    Any other family raises naming ROADMAP queue 1 item 8."""
+    Any other family raises naming ROADMAP queue 1 item 8, and a config
+    whose weights alone exceed one card's 80 GB (llama4-maverick at full
+    width, 739 GiB in bf16) item 10, before anything is allocated."""
     from repro_torch.configs import get_arch
     found = get_arch(arch)
     if found.family != "lm":
@@ -94,7 +106,15 @@ def lm_config(arch: str, smoke: bool):
                           f"a retrieval encoder ({arch} is a "
                           f"{found.family} arch; the port's encoders are "
                           f"the LM archs)")
-    return (found.reduced() if smoke else found).cfg
+    cfg = (found.reduced() if smoke else found).cfg
+    n_bytes = cfg.param_count() * cfg.dtype.itemsize
+    if n_bytes > CARD_BYTES:
+        raise _not_ported(f"--arch {arch}", 10,
+                          f"a device mesh across cards (its "
+                          f"{cfg.param_count():,} parameters are "
+                          f"{n_bytes / 2 ** 30:.0f} GiB in {cfg.dtype}, "
+                          f"past one card's 80 GB)")
+    return cfg
 
 
 def cache_dir(root: str, arch: str, smoke: bool,
@@ -134,7 +154,7 @@ def main(argv=None):
     defaults = EvaluationArguments()
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="trove-base",
-                    help="trove-base, qwen2-0.5b, stablelm-3b or gemma-7b")
+                    help=ARCH_HELP)
     ap.add_argument("--smoke", action="store_true",
                     help="the arch cut to 2 x 64 (its reduced() form) in "
                          "float32")

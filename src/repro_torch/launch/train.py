@@ -8,7 +8,8 @@ The port of ``repro.launch.train``: builds the synthetic-or-given
 retrieval dataset through ``MaterializedQRel`` (``--data-dir``, written
 by ``make_retrieval_dataset(256 queries, 2048 docs, 64 topics)`` when it
 has no ``queries.jsonl``), a ``BiEncoderRetriever`` on the ``--arch``
-backbone (trove-base, the default, qwen2-0.5b, stablelm-3b or gemma-7b),
+backbone (trove-base, the default, qwen2-0.5b, stablelm-3b, gemma-7b,
+granite-moe-3b-a800m, or llama4-maverick-400b-a17b with ``--smoke``),
 and runs ``RetrievalTrainer`` (gradient accumulation, async checkpoints
 under ``OUTPUT_DIR/checkpoints``, fault tolerance).  ``--smoke`` is the
 arch's ``reduced()`` form, 2 x 64 in float32.  ``--device`` is ``cuda``
@@ -19,9 +20,11 @@ Every other ``--field value`` goes through ``parse_cli`` to
 (AdamW's float32 moments alone are 63.6 GiB there).  The full-width
 configs checkpoint each layer in the backward (``remat``).
 
-Not ported yet, and raising: an ``--arch`` outside the LM encoders
-(ROADMAP queue 1 item 8) and ``--mesh pod | multipod`` / ``--multi-pod``
-(item 10).  ``main`` returns the trainer and its final state.
+An MoE backbone adds ``aux_loss_weight`` (0.01) x its load-balance
+loss to the contrastive loss and logs it as ``moe_aux_loss``.  Not
+ported yet, and raising: an ``--arch`` outside the LM encoders (ROADMAP
+queue 1 item 8), llama4-maverick at full width and ``--mesh pod |
+multipod`` / ``--multi-pod`` (item 10).  ``main`` returns the trainer and its final state.
 """
 
 from __future__ import annotations
@@ -48,14 +51,14 @@ def main(argv=None):
     from repro_torch.data.synthetic import make_retrieval_dataset
     from repro_torch.data.tokenizer import HashTokenizer
     from repro_torch.device import resolve_device
-    from repro_torch.launch.serve import lm_config
+    from repro_torch.launch.serve import ARCH_HELP, lm_config
     from repro_torch.models.encoder import DefaultEncoder
     from repro_torch.models.retriever import BiEncoderRetriever
     from repro_torch.training.trainer import RetrievalTrainer
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="trove-base",
-                    help="trove-base, qwen2-0.5b, stablelm-3b or gemma-7b")
+                    help=ARCH_HELP)
     ap.add_argument("--data-dir",
                     default=os.path.join(tempfile.gettempdir(),
                                          "trove_data"))

@@ -45,7 +45,7 @@ def get_encoder(alias: str, *args, **kw) -> PretrainedEncoder:
 
 
 class DefaultEncoder(PretrainedEncoder):
-    """LM-transformer encoder (dense backbone)."""
+    """LM-transformer encoder (dense or MoE backbone)."""
 
     _alias = "lm"
 
@@ -58,6 +58,13 @@ class DefaultEncoder(PretrainedEncoder):
     def encode(self, params, batch):
         return transformer.encode(self.cfg, params, batch["tokens"],
                                   batch["mask"])
+
+    def encode_with_aux(self, params, batch):
+        """(embeddings, aux loss): an MoE backbone's load-balance loss, so
+        the retriever can weight it in (0.0 for a dense one)."""
+        hidden, aux = transformer.forward_hidden(
+            self.cfg, params, batch["tokens"], batch["mask"])
+        return transformer.pool(self.cfg, hidden, batch["mask"]), aux
 
 
 class EncoderWithInstruction(DefaultEncoder):

@@ -1,12 +1,13 @@
-"""LM transformer backbone for retrieval encoders: the dense path.
+"""LM transformer backbone for retrieval encoders, dense and MoE.
 
-The port's counterpart of ``repro.models.transformer`` for dense stacks:
+The port's counterpart of ``repro.models.transformer``:
 ``forward_hidden`` (embed, N × [norm, QKV, RoPE, masked softmax
 attention, FFN], final norm), ``pool`` and ``encode``, plus
 ``init_params`` from a ``torch.Generator``.  Parameters keep the
 reference's layout — a dict with ``embed`` (V, d), ``final_ln`` (d,)
-and ``blocks`` stacked over layers (``wq`` (L, d, h, hd), ``wo``
-(L, h, hd, d), ``wi_up`` (L, d, f), ...) — so the reference's
+and ``blocks`` / ``moe_blocks`` stacked over layers (``wq`` (L, d, h,
+hd), ``wo`` (L, h, hd, d), ``wi_up`` (L, d, f), ``router`` (L, d, E),
+``we_up`` (L, E, d, f), ...) — so the reference's
 parameters carry across unchanged (``models.convert``).
 
 Numerics follow the reference where frameworks differ:
@@ -38,12 +39,34 @@ forward runs the same ops on the same inputs, so the gradients are the
 same bits with and without it.  Under ``no_grad`` (every encode, serve
 and prefill path) nothing is checkpointed.
 
+The MoE FFN (``moe``) is the reference's ``_moe_ffn``: token-choice
+top-k routing over ``n_experts`` with a per-row capacity, gather
+dispatch and combine, and the Switch aux loss (:func:`_route`,
+:func:`_moe_ffn`).  ``moe_every=1`` makes every layer MoE
+(``moe_blocks``); ``moe_every=2`` interleaves dense and MoE layers,
+dense first (``blocks`` and ``moe_blocks``, half the depth each);
+``n_shared_experts`` adds a dense GLU of ``moe_d_ff * n_shared_experts``
+beside the routed experts.  Three rules are copied exactly, because they
+decide which tokens overflow:
+  * ties among equal probabilities go to the lower expert index
+    (``lax.top_k``'s rule; ``torch.topk`` promises no order, so the top k
+    come from a stable descending sort);
+  * the capacity is ``max(ceil(S * top_k / E * capacity_factor), 1)`` a
+    row, with S the padded length, so a token's output depends on its
+    row's padded length (padded positions route and take slots too;
+    padding is on the right, so it never displaces a real token);
+  * a slot's rank within its expert counts the (s, k) pairs s-major.
+The forward uses no atomics: the dispatch index is a scatter whose only
+duplicates land on a sentinel column that is then dropped.  The
+gathers' backward adds into rows on CUDA, so two backward passes are
+bitwise equal only under ``torch.use_deterministic_algorithms(True)``.
+
 The reference's mesh and compile knobs have no counterpart here, since
 torch runs eagerly on one card: ``scan_layers``, ``seq_shard_attn``,
 ``seq_shard_acts``, ``inline_mask``, ``dus_cache_update`` and
-``moe_impl``; nor has ``max_seq_len``, which the reference declares and
-never reads.  The MoE FFN and the KV-cache decode step come with later
-slices (item 8).
+``moe_impl`` (its ``shardmap`` form of the MoE); nor has
+``max_seq_len``, which the reference declares and never reads.  The
+KV-cache decode step comes with a later slice (item 8c).
 """
 
 from __future__ import annotations
@@ -75,36 +98,73 @@ class LMConfig:
     activation: str = "swiglu"      # swiglu | geglu | gelu
     norm: str = "rmsnorm"           # rmsnorm | layernorm
     qkv_bias: bool = False
+    # MoE
+    moe: bool = False
+    n_experts: int = 0
+    top_k: int = 0
+    moe_every: int = 1              # 1: every layer MoE; 2: dense / MoE
+    n_shared_experts: int = 0
+    moe_d_ff: int = 0               # per-expert hidden dim
+    capacity_factor: float = 1.25
     rope_theta: float = 10000.0
     pooling: str = "last"           # last | mean | first
     dtype: torch.dtype = torch.bfloat16
     attn_chunk: int = 0             # > 0: query-chunked attention
     remat: bool = True              # checkpoint each layer under autograd
 
+    @property
+    def n_dense_layers(self) -> int:
+        if not self.moe:
+            return self.n_layers
+        return 0 if self.moe_every == 1 else self.n_layers // 2
+
+    @property
+    def n_moe_layers(self) -> int:
+        return self.n_layers - self.n_dense_layers if self.moe else 0
+
     def param_count(self) -> int:
         """Parameters of :func:`param_shapes` (the reference's
         ``LMConfig.param_count()``)."""
         return sum(math.prod(s) for s in leaves(param_shapes(self)))
 
+    def active_param_count(self) -> int:
+        """Parameters a token touches: the MoE layers' unchosen experts
+        left out (the reference's ``active_param_count()``)."""
+        per_expert = 3 * self.d_model * self.moe_d_ff
+        return self.param_count() - self.n_moe_layers * per_expert * (
+            self.n_experts - self.top_k)
+
 
 def param_shapes(cfg: LMConfig) -> dict:
-    """Nested dict of parameter shapes, the reference's layout."""
+    """Nested dict of parameter shapes, the reference's layout: the dense
+    layers stacked in ``blocks``, the MoE layers in ``moe_blocks``."""
     d, h, kv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim, cfg.d_ff)
-    block = {"wq": (d, h, hd), "wk": (d, kv, hd), "wv": (d, kv, hd),
-             "wo": (h, hd, d), "ln1": (d,), "ln2": (d,)}
+    attn = {"wq": (d, h, hd), "wk": (d, kv, hd), "wv": (d, kv, hd),
+            "wo": (h, hd, d), "ln1": (d,), "ln2": (d,)}
     if cfg.qkv_bias:
-        block.update({"bq": (h, hd), "bk": (kv, hd), "bv": (kv, hd)})
+        attn.update({"bq": (h, hd), "bk": (kv, hd), "bv": (kv, hd)})
     if cfg.norm == "layernorm":
-        block.update({"ln1_b": (d,), "ln2_b": (d,)})
+        attn.update({"ln1_b": (d,), "ln2_b": (d,)})
+    dense = dict(attn)
     if cfg.activation in ("swiglu", "geglu"):
-        block.update({"wi_gate": (d, f), "wi_up": (d, f), "wo_ffn": (f, d)})
+        dense.update({"wi_gate": (d, f), "wi_up": (d, f), "wo_ffn": (f, d)})
     else:
-        block.update({"wi_up": (d, f), "wo_ffn": (f, d)})
-    shapes = {"embed": (cfg.vocab_size, d), "final_ln": (d,),
-              "blocks": {k: (cfg.n_layers,) + s for k, s in block.items()}}
+        dense.update({"wi_up": (d, f), "wo_ffn": (f, d)})
+    e, fe = cfg.n_experts, cfg.moe_d_ff
+    moe = dict(attn, router=(d, e), we_gate=(e, d, fe), we_up=(e, d, fe),
+               we_down=(e, fe, d))
+    if cfg.n_shared_experts:
+        fs = fe * cfg.n_shared_experts
+        moe.update({"ws_gate": (d, fs), "ws_up": (d, fs),
+                    "ws_down": (fs, d)})
+    shapes = {"embed": (cfg.vocab_size, d), "final_ln": (d,)}
     if cfg.norm == "layernorm":
         shapes["final_ln_b"] = (d,)
+    for stack, depth, block in (("blocks", cfg.n_dense_layers, dense),
+                                ("moe_blocks", cfg.n_moe_layers, moe)):
+        if depth:
+            shapes[stack] = {k: (depth,) + s for k, s in block.items()}
     return shapes
 
 
@@ -241,13 +301,113 @@ def _dense_ffn(cfg: LMConfig, lp: Params, x):
     return x + _glu(cfg, h, lp.get("wi_gate"), lp["wi_up"], lp["wo_ffn"])
 
 
-def _layer(cfg: LMConfig, lp: Params, x, positions, mask):
+def capacity(cfg: LMConfig, s: int) -> int:
+    """Slots each expert has in a row of ``s`` (padded) tokens."""
+    return max(math.ceil(s * cfg.top_k / cfg.n_experts
+                         * cfg.capacity_factor), 1)
+
+
+def _route(cfg: LMConfig, h: torch.Tensor, router: torch.Tensor):
+    """Token-choice top-k routing of normed rows ``h`` (B, S, d) over
+    ``router`` (d, E): ``(gates, choice, slot, keep, aux)``.
+
+    ``gates`` (B, S, k) float32 are the chosen probabilities divided by
+    their sum, ``choice`` (B, S, k) the experts (equal probabilities go
+    to the lower index), ``slot`` (B, S * k) each (s, k) pair's place
+    ``expert * cap + rank`` in the dispatch buffer, or the sentinel
+    ``E * cap`` where ``keep`` is false (the expert's ``cap`` slots were
+    taken by earlier pairs, counted s-major), and ``aux`` the Switch
+    load-balance loss ``E * sum_e density_e * mean_prob_e`` over every
+    position, padding included."""
+    b, s, _ = h.shape
+    e, kk = cfg.n_experts, cfg.top_k
+    cap = capacity(cfg, s)
+    # the product in the model dtype, then float32, as the reference
+    logits = torch.einsum("bsd,de->bse", h, router).float()
+    probs = torch.softmax(logits, dim=-1)
+    gates, choice = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, choice = gates[..., :kk], choice[..., :kk]
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    density = F.one_hot(choice[..., 0], e).float().mean((0, 1))
+    aux = e * (density * probs.mean((0, 1))).sum()
+    e_flat = choice.reshape(b, s * kk)
+    onehot = F.one_hot(e_flat, e)
+    pos = (onehot.cumsum(1) - onehot).gather(-1, e_flat[..., None])[..., 0]
+    keep = pos < cap
+    slot = torch.where(keep, e_flat * cap + pos,
+                       torch.full_like(e_flat, e * cap))
+    return gates, choice, slot, keep, aux
+
+
+def _moe_ffn(cfg: LMConfig, lp: Params, x):
+    """The MoE FFN of one layer: ``(x + ffn(norm(x)), aux)``."""
+    b, s, d = x.shape
+    e, kk = cfg.n_experts, cfg.top_k
+    cap = capacity(cfg, s)
+    h = _norm(x, lp["ln2"], lp.get("ln2_b"), cfg.norm)
+    gates, _, slot, _, aux = _route(cfg, h, lp["router"])
+    # dispatch: each kept slot's token index (s, a zero row, elsewhere);
+    # the dropped pairs all write the sentinel column, which is cut off
+    tok = torch.arange(s * kk, device=x.device).div(
+        kk, rounding_mode="floor").expand(b, -1)
+    dest = torch.full((b, e * cap + 1), s, dtype=torch.long,
+                      device=x.device)
+    dest = dest.scatter(1, slot, tok)[:, : e * cap]
+    h_pad = torch.cat([h, h.new_zeros(b, 1, d)], dim=1)
+    xin = h_pad.gather(1, dest[..., None].expand(-1, -1, d)).reshape(
+        b, e, cap, d)
+    hidden = _act(torch.einsum("becd,edf->becf", xin, lp["we_gate"]),
+                  cfg.activation) * torch.einsum("becd,edf->becf", xin,
+                                                 lp["we_up"])
+    out = torch.einsum("becf,efd->becd", hidden, lp["we_down"])
+    # combine: each (s, k) pair's expert output (a zero row if dropped),
+    # weighted by its gate in the model dtype
+    out_pad = torch.cat([out.reshape(b, e * cap, d),
+                         out.new_zeros(b, 1, d)], dim=1)
+    back = out_pad.gather(1, slot[..., None].expand(-1, -1, d)).reshape(
+        b, s, kk, d)
+    y = (back * gates[..., None].to(back.dtype)).sum(2)
+    if cfg.n_shared_experts:
+        y = y + _glu(cfg, h, lp["ws_gate"], lp["ws_up"], lp["ws_down"])
+    return x + y.to(x.dtype), aux
+
+
+def _dense_layer(cfg: LMConfig, lp: Params, x, positions, mask):
     return _dense_ffn(cfg, lp, _attn_block(cfg, lp, x, positions, mask))
 
 
+def _moe_layer(cfg: LMConfig, lp: Params, x, positions, mask):
+    return _moe_ffn(cfg, lp, _attn_block(cfg, lp, x, positions, mask))
+
+
+def _unstack(stack: Params) -> list[Params]:
+    """One view per layer of each stacked weight: unbind's backward
+    stacks the layers' gradients once, where indexing would write a
+    zero-filled stack per layer and sum the stacks."""
+    return [dict(zip(stack, ws)) for ws in zip(
+        *(w.unbind(0) for w in stack.values()))]
+
+
+def _stack_order(cfg: LMConfig, params: Params) -> list:
+    """(is_moe, layer params) in the order the layers run: all dense,
+    all MoE (``moe_every=1``), or dense / MoE pairs (``moe_every=2``:
+    layer i is ``blocks[i // 2]`` when i is even, ``moe_blocks[i // 2]``
+    when odd)."""
+    dense = _unstack(params["blocks"]) if "blocks" in params else []
+    moe = _unstack(params["moe_blocks"]) if "moe_blocks" in params else []
+    if not cfg.moe:
+        return [(False, lp) for lp in dense[: cfg.n_layers]]
+    if cfg.moe_every == 1:
+        return [(True, lp) for lp in moe[: cfg.n_layers]]
+    return [(i % 2 == 1, (moe if i % 2 else dense)[i // 2])
+            for i in range(cfg.n_layers)]
+
+
 def forward_hidden(cfg: LMConfig, params: Params, tokens: torch.Tensor,
-                   attn_mask: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) int, attn_mask (B, S) {0,1} -> hidden (B, S, d)."""
+                   attn_mask: torch.Tensor):
+    """tokens (B, S) int, attn_mask (B, S) {0,1} -> (hidden (B, S, d), the
+    MoE aux loss summed over layers: a float32 scalar, 0.0 for a dense
+    stack)."""
     b, s = tokens.shape
     x = params["embed"][tokens.long()].to(cfg.dtype)
     if cfg.name.startswith("gemma"):
@@ -257,20 +417,23 @@ def forward_hidden(cfg: LMConfig, params: Params, tokens: torch.Tensor,
     causal = torch.tril(torch.ones((s, s), dtype=torch.bool,
                                    device=tokens.device))
     mask = causal[None] & attn_mask[:, None, :].bool()
-    blocks = params["blocks"]
-    # one view per layer of each stacked weight: unbind's backward stacks
-    # the layers' gradients once, where indexing would write a zero-filled
-    # stack per layer and sum the stacks
-    layers = [dict(zip(blocks, ws)) for ws in zip(
-        *(w.unbind(0) for w in blocks.values()))][: cfg.n_layers]
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
-    for lp in layers:
+    for is_moe, lp in _stack_order(cfg, params):
+        layer = _moe_layer if is_moe else _dense_layer
         if remat:
-            x = checkpoint(_layer, cfg, lp, x, positions, mask,
-                           use_reentrant=False, preserve_rng_state=False)
+            # a MoE layer's aux is an output of its checkpoint
+            out = checkpoint(layer, cfg, lp, x, positions, mask,
+                             use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _layer(cfg, lp, x, positions, mask)
-    return _norm(x, params["final_ln"], params.get("final_ln_b"), cfg.norm)
+            out = layer(cfg, lp, x, positions, mask)
+        if is_moe:
+            x, a = out
+            aux = aux + a
+        else:
+            x = out
+    return (_norm(x, params["final_ln"], params.get("final_ln_b"),
+                  cfg.norm), aux)
 
 
 def pool(cfg: LMConfig, hidden: torch.Tensor,
@@ -292,5 +455,5 @@ def pool(cfg: LMConfig, hidden: torch.Tensor,
 def encode(cfg: LMConfig, params: Params, tokens: torch.Tensor,
            attn_mask: torch.Tensor) -> torch.Tensor:
     """Retrieval embedding: (B, S) -> (B, d) L2-normalized float32."""
-    return pool(cfg, forward_hidden(cfg, params, tokens, attn_mask),
+    return pool(cfg, forward_hidden(cfg, params, tokens, attn_mask)[0],
                 attn_mask)

@@ -23,9 +23,11 @@ uninterrupted one), ``inject_failure_at`` fails once (the reference's
 fails again each time the resumed loop reaches that step), and a restore
 resumes at the restored state's own step count.
 
-The mesh, ``dp_mode="shard_map"`` with its compressed gradient
-all-reduce and the MoE aux loss wait for later items (ROADMAP queue 1
-items 8 and 10).  The state's ``rng`` leaf is a uint32 (2,) array under
+An MoE encoder's load-balance loss enters the retriever's loss as
+``aux_loss_weight`` (0.01) times it, logged as ``moe_aux_loss`` (0.0
+for a dense encoder), as in the reference.  The mesh and
+``dp_mode="shard_map"`` with its compressed gradient all-reduce wait
+for ROADMAP queue 1 item 10.  The state's ``rng`` leaf is a uint32 (2,) array under
 the reference's key, so the reference's restore templates find every
 leaf they ask for; it holds the reference's initial key data (threefry
 ``key(seed + 1)``) and is not advanced by a step, so its values are not

@@ -64,7 +64,10 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.configs.base", "repro_torch.configs.lm_arch",
             "repro_torch.configs.qwen2_0_5b",
             "repro_torch.configs.stablelm_3b",
-            "repro_torch.configs.gemma_7b"} <= set(out["imported"])
+            "repro_torch.configs.gemma_7b",
+            "repro_torch.configs.granite_moe_3b_a800m",
+            "repro_torch.configs.llama4_maverick_400b_a17b"} <= set(
+                out["imported"])
     leaked = [m for m in out["loaded"]
               if m in ("jax", "repro") or m.startswith(("jax.", "repro."))]
     assert leaked == []

@@ -323,7 +323,7 @@ def test_evalsuite_cli_refusals(tmp_path):
     that brings it (qwen2-0.5b is one now: test_evalsuite_cli_lm_arch);
     no card and no ``--device cpu`` raises instead of moving to the
     CPU."""
-    for arch in ("granite-moe-3b-a800m", "deepfm"):
+    for arch in ("graphsage-reddit", "deepfm"):
         with pytest.raises(NotImplementedError, match="queue 1 item 8"):
             evalsuite.main(["--arch", arch, "--device", "cpu",
                             "--data-root", str(tmp_path / "data")])

@@ -171,12 +171,13 @@ def test_unported_parts_raise():
     tb = arch.smoke_inputs("serve_p99", np.random.default_rng(0), "cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         recsys.forward(arch.cfg, params, tb, mesh=object())
-    # gemma-7b is an LM encoder of the port now (tests/test_torch_lm_
-    # encoders.py); the MoE archs name their ROADMAP item
+    # gemma-7b and the MoE archs are LM encoders of the port now
+    # (tests/test_torch_lm_encoders.py, tests/test_torch_moe.py); the GNN
+    # arch names its ROADMAP item
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
     with pytest.raises(NotImplementedError, match="item 8"):
-        get_arch("granite-moe-3b-a800m")
+        get_arch("graphsage-reddit")
 
 
 def test_init_params_follow_reference_rule():

@@ -144,10 +144,11 @@ def test_serve_main_ivf_resolves_every_request(tmp_path_factory, mode):
 # --resilient / --chaos / --round-deadline-s (item 4), --index-impl ivf
 # (item 6) and --ckpt-dir (item 7, test_serve_main_ckpt_dir_serves_the_
 # trained_params) are ported now and left this list; the other cases keep
-# their ids
+# their ids (the MoE archs are ported too, so "moe-item 8" now names the
+# GNN arch, which still raises)
 @pytest.mark.parametrize("extra,match", (
     pytest.param(["--arch", "deepfm"], "item 8", id="extra5-item 8"),
-    pytest.param(["--arch", "granite-moe-3b-a800m"], "item 8",
+    pytest.param(["--arch", "graphsage-reddit"], "item 8",
                  id="moe-item 8"),
 ))
 def test_unported_flags_raise_naming_their_item(tmp_path, extra, match):

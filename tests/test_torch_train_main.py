@@ -69,7 +69,7 @@ def test_default_device_is_the_card(tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", (
-    (["--arch", "granite-moe-3b-a800m"], "item 8"),
+    (["--arch", "graphsage-reddit"], "item 8"),
     (["--arch", "deepfm"], "item 8"),
     (["--mesh", "pod"], "item 10"),
     (["--multi-pod"], "item 10"),

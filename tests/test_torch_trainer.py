@@ -95,9 +95,8 @@ def test_first_steps_match_reference(retrieval_data, tmp_path):
     port.train(state)
     assert [r["step"] for r in port.logs] == [0, 1, 2]
     for got, want in zip(port.logs, ref.logs):
-        # the reference's dense encoder reports a zero MoE aux loss (the
-        # port's dense encoder has no MoE, item 8)
-        assert want.pop("moe_aux_loss") == 0.0
+        # both dense encoders report a zero MoE aux loss
+        assert got["moe_aux_loss"] == want["moe_aux_loss"] == 0.0
         assert set(got) == set(want)
         for key in ("loss", "grad_norm", "contrastive_loss"):
             np.testing.assert_allclose(got[key], want[key], rtol=RTOL,
