@@ -26,16 +26,21 @@ Phases, each printing its own lines:
       train_batch's shapes (DeepFM's ids at D = 10 and 1, Wide&Deep's at
       D = 1; DeepFM's with 5 % of each field on one hot row) and at the
       edges (padding, ids repeated in a bag, all padded, L = 0, B = 0,
-      ids >= V, non-finite gradients and weights under padding), on two
-      launches and at block sizes of 32, 96 and 1024;
+      ids >= V, non-finite gradients and weights under padding, V off
+      and below one tile, ids only in the first and last rows, a run of
+      40,000 equal ids, runs of 31 / 32 / 33, an out 20 bytes into its
+      storage), its output filled with NaN before each launch, on two
+      launches and at four forced plans (tile bytes x threads x grid x
+      an entry's work, K4T_PLANS);
       then each kernel's time, its plain version's, one library call's
       for the same function, and its bound (K1 and K2 at three shapes
       each, K4 at serve_p99, serve_bulk and retrieval_cand for D = 10 and
       1, with the plan each wrapper chose, K4T at train_batch, uniform
-      and skewed, with its zero fill, sort and kernel timed apart and its
-      longest run of equal ids; K2, where it splits, at half, one and two
-      blocks per SM; each two-stage kernel's stages' device time from
-      torch.profiler comes after phase (f));
+      and skewed, with its sort and kernel timed apart and its longest
+      run of equal ids, and DeepFM's pair of K4T calls with and without
+      one shared sort (``ops.BagKeys``); K2, where it splits, at half,
+      one and two blocks per SM; each two-stage kernel's stages' device
+      time from torch.profiler comes after phase (f));
   (c) trove-base at full width (12 x 768, bf16, seeded random weights) on
       a synthetic dataset through ``RetrievalEvaluator.evaluate`` /
       ``search`` / ``mine_hard_negatives`` with the backend pairs
@@ -1177,9 +1182,16 @@ def k4_timings(dev, deepfm, normal) -> list:
 
 # -- (b) K4T, K4's backward ---------------------------------------------------
 
-# K4T's forced plans (block sizes through the C entry point), and the
-# share of each field's ids that its skewed draw sends to one hot row.
-K4T_PLANS = (32, 96, 1024)
+# K4T's forced plans through the C entry point: (tile bytes, threads a
+# block, grid or None for the persistent count, an entry's work in bytes
+# or None for the wrapper's).  Tiny tiles of 32-entry batches (runs of 33
+# cross batches), rows shared out by bytes alone; 61 blocks that each
+# walk many tiles of 1000 bytes, rows shared out by entries almost alone;
+# the widest block on 32 KB tiles; the wrapper's tiles in 4,224 blocks
+# (four or eight times its grid at train_batch).  The share of each
+# field's ids that the skewed draw sends to one hot row.
+K4T_PLANS = ((64, 32, None, 1), (1000, 96, 61, 100_000),
+             (32 * 1024, 1024, None, 128), (16 * 1024, 256, 4224, None))
 HOT_SHARE = 0.05
 
 
@@ -1197,44 +1209,63 @@ def hot_ids(arch, idx, g):
     return torch.where(hot, offs.expand_as(idx), idx).contiguous()
 
 
-def k4t_at_plan(dev, out, grad, idx, weights, threads: int) -> None:
-    """K4T through its C entry point at block size ``threads``, into
-    ``out`` (filled with zeros first, as the wrapper does); the wrapper
-    always takes BACKWARD_THREADS, so this is how phase (b) reaches other
-    plans.  Counts no launch."""
+def k4t_plan(dev, out, plan) -> tuple:
+    """A forced K4T plan's (tile rows, threads, grid, entry work) for
+    ``out``: the grid at most one block a row."""
+    from repro_torch.kernels import embedding_bag as bag
+    from repro_torch.kernels import topk
+    tile_bytes, threads, grid, entry_work = plan
+    v, d = out.shape
+    rows, threads, full = bag.backward_plan(
+        v, d, out.element_size(), topk.sm_count(dev), tile_bytes=tile_bytes,
+        threads=threads)
+    return (rows, threads, min(v, grid or full),
+            entry_work or bag.backward_entry_work(d))
+
+
+def k4t_at_plan(dev, out, grad, idx, weights, plan, keys=None) -> None:
+    """K4T through its C entry point at a forced ``plan`` (K4T_PLANS), into
+    ``out``, filled with NaN first: the kernel must write every row.  The
+    wrapper always takes its own plan, so this is how phase (b) reaches
+    others.  ``keys`` are the ids' sorted (keys, order), sorted here if
+    None.  Counts no launch."""
     import torch
 
     from repro_torch.kernels import _build
     from repro_torch.kernels import embedding_bag as bag
-    out.zero_()
-    keys, order = bag.backward_keys(idx)
+    out.fill_(float("nan"))
+    keys, order = bag.backward_keys(idx) if keys is None else keys
+    rows, threads, grid, entry_work = k4t_plan(dev, out, plan)
     b, n_slots = idx.shape
     code = _build.load_library().repro_embedding_bag_backward(
         grad.data_ptr(), int(grad.dtype == torch.bfloat16), idx.data_ptr(),
         None if weights is None else weights.data_ptr(), keys.data_ptr(),
         order.data_ptr(), b * n_slots, n_slots, out.shape[0], out.shape[1],
-        threads, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        rows, threads, grid, entry_work, out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     if code != 0:
-        fail(f"repro_embedding_bag_backward at {threads} threads: CUDA "
-             f"error {code}")
+        fail(f"repro_embedding_bag_backward at plan {plan}: CUDA error "
+             f"{code}")
 
 
 def phase_bag_backward(dev) -> dict:
     """(b) for K4T: the kernel against its plain version at the training
     shape and at the edges, bitwise on every input (it adds each row's
     contributions in the plain version's order: the stated tolerance on
-    random floats is 0), bitwise equal to itself across two launches and
-    across block sizes; then its time at the training shape beside the
-    sort and fill the wrapper runs before it."""
+    random floats is 0), with ``out`` filled with NaN before every launch
+    (the kernel writes every row; no fill precedes it), bitwise equal to
+    itself across two launches and across forced plans; then its time at
+    the training shape beside the sort the wrapper runs before it."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import embedding_bag as bag
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ref, topk
 
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     deepfm, wide = get_arch("deepfm"), get_arch("wide-deep")
+    sms = topk.sm_count(dev)
 
     def ints(*shape, lo=-3, hi=4):
         return torch.randint(lo, hi, shape, generator=g, device=dev).float()
@@ -1249,29 +1280,42 @@ def phase_bag_backward(dev) -> dict:
             out[torch.rand(b, n_slots, generator=g, device=dev) < pad] = -1
         return out
 
-    def case(name, grad, idx, w, n_rows=1000):
+    def case(name, grad, idx, w, n_rows=1000, view=False):
         """The wrapper against the plain version, bitwise, twice, and at
-        every forced block size."""
+        every forced plan, ``out`` NaN before each launch.  ``view``: out
+        is rows 1.. of a larger tensor (a storage offset of one row),
+        whose row 0 must stay untouched."""
         want = ref.embedding_bag_backward_ref(grad, idx, n_rows, w)
-        out = torch.full((n_rows, grad.shape[1]), float("nan"),
-                         dtype=grad.dtype, device=dev)
+        d = grad.shape[1]
+        whole = torch.empty((n_rows + view, d), dtype=grad.dtype,
+                            device=dev)
+        out = whole[1:] if view else whole
+        keys = bag.backward_keys(idx)
         for rep in range(2):
+            whole.fill_(float("nan"))
             bag.embedding_bag_backward_(out, grad, idx, w)
             torch.cuda.synchronize()
             bag_compare(f"{name} (launch {rep + 1})", out, want, "K4T")
         first = out.clone()
-        for threads in K4T_PLANS:
-            out.fill_(float("nan"))
-            k4t_at_plan(dev, out, grad, idx, w, threads)
+        for plan in K4T_PLANS:
+            whole.fill_(float("nan"))
+            k4t_at_plan(dev, out, grad, idx, w, plan, keys)
             torch.cuda.synchronize()
             if not torch.equal(bits(out), bits(first)):
-                fail(f"K4T {name} at {threads} threads is not bitwise "
-                     f"equal to {bag.BACKWARD_THREADS}")
+                fail(f"K4T {name} at plan {plan} is not bitwise equal to "
+                     f"the wrapper's")
+            if view and not torch.isnan(whole[0]).all():
+                fail(f"K4T {name} at plan {plan} wrote before its out")
+        rows, threads, grid = bag.backward_plan(n_rows, d,
+                                                grad.element_size(), sms)
         print(f"[b] K4T {name}: B={idx.shape[0]} L={idx.shape[1]} "
-              f"V={n_rows} D={grad.shape[1]} {str(grad.dtype)[6:]} "
-              f"{'weighted' if w is not None else 'unweighted'}: bitwise "
-              f"equal to the plain version on two launches and at "
-              f"{list(K4T_PLANS)} threads a block")
+              f"V={n_rows} D={d} {str(grad.dtype)[6:]} "
+              f"{'weighted' if w is not None else 'unweighted'}"
+              f"{', out at a storage offset of one row' if view else ''}: "
+              f"bitwise equal to the plain version on two launches "
+              f"(plan: {rows} rows a tile, {threads} threads, {grid} "
+              f"blocks) and at the forced plans {list(K4T_PLANS)}, out "
+              f"NaN before each")
 
     # the path's shapes: DeepFM's train_batch ids over its 34.3 M rows
     # (FM sum D = 10, linear term D = 1), and Wide&Deep's (wide term)
@@ -1289,9 +1333,14 @@ def phase_bag_backward(dev) -> dict:
          wide.cfg.total_vocab)
     case(f"train_batch, {HOT_SHARE:.0%} of each field on one hot row, D=10",
          normal(b, 10), hot_ids(deepfm, idx, g), None, v)
-    # edges, on 1000-row tables: padding, ids repeated in one bag (8 rows
-    # for 39 slots), all padded, L = 0, B = 0, bf16, ids >= V, non-finite
-    # gradients and weights under padding, other widths, long bags
+    # edges, on 1000-row tables unless named: padding, ids repeated in one
+    # bag (8 rows for 39 slots), all padded, L = 0, B = 0, bf16, ids >= V,
+    # non-finite gradients and weights under padding, other widths, long
+    # bags; V off the tile (4099 rows: 10 tiles of 408 and 19 rows), V
+    # below one tile (1 and 5 rows), ids only in the first and last rows,
+    # one run of 40,000 equal ids, runs of 31 / 32 / 33 (across the forced
+    # 32-entry batches), and an out 20 bytes into its storage (bf16 D =
+    # 10: its tiles start off the 16-byte boundary)
     case("padding", ints(4099, 10), uni(4099, 39, 0.1), ints(4099, 39))
     case("ids repeated in one bag", ints(513, 10), uni(513, 39, 0.05, 8),
          None)
@@ -1316,6 +1365,24 @@ def phase_bag_backward(dev) -> dict:
     case("D=7", normal(3001, 7), uni(3001, 39, 0.1), normal(3001, 39))
     case("D=32", normal(3001, 32), uni(3001, 39, 0.1), None)
     case("L=200", normal(700, 10), uni(700, 200, 0.1), normal(700, 200))
+    case("V=4099, off the tile", normal(2000, 10),
+         uni(2000, 39, 0.1, 4099), None, 4099)
+    case("V=1", ints(300, 10), uni(300, 39, 0.2, 1), ints(300, 39), 1)
+    case("V=5", normal(300, 10), uni(300, 39, 0.2, 5), None, 5)
+    ends = torch.where(uni(1000, 39, 0.1, 2) == 1, 99_999, uni(1000, 39, 0.1,
+                                                               1))
+    case("ids only in the first and last rows", normal(1000, 10), ends,
+         normal(1000, 39), 100_000)
+    case("one run of 40,000 equal ids", normal(1000, 10),
+         torch.full((1000, 40), 7, dtype=torch.int32, device=dev), None)
+    runs = torch.repeat_interleave(
+        torch.tensor([10, 11, 12], device=dev),
+        torch.tensor([31, 32, 33], device=dev))
+    runs = runs[torch.randperm(96, generator=g, device=dev)]
+    case("runs of 31 / 32 / 33", normal(96, 10),
+         runs.to(torch.int32).reshape(96, 1), None, 64)
+    case("bf16 D=10, out 20 bytes into its storage",
+         normal(4099, 10).bfloat16(), uni(4099, 39, 0.1), None, view=True)
 
     timings = k4t_timings(dev, deepfm, wide, normal, g)
     head = timings[0]                        # train_batch, D = 10 (FM sum)
@@ -1331,21 +1398,24 @@ def phase_bag_backward(dev) -> dict:
 def k4t_timings(dev, deepfm, wide, normal, g) -> list:
     """K4T's time at the training shape (DeepFM's train_batch ids, D = 10
     and 1; Wide&Deep's wide term, D = 1; and DeepFM's at D = 10 with a hot
-    row a field, ``hot_ids``: one thread a column walks each run, so the
-    longest run sets the kernel's time): the wrapper's whole call (ms),
-    and apart its zero fill of the (V, D) gradient, its stable sort of
-    the ids and the kernel alone; beside the plain version, the backward
-    of one F.embedding_bag(mode="sum") on the same ids (autograd.grad of
-    its output, the graph kept), and the bound (bytes: the ids, the
-    gradient and the dense (V, D) output written once, over the memory
-    rate; operations: 2 B L D over the float32 rate)."""
+    row a field, ``hot_ids``): the wrapper's whole call (ms: its stable
+    sort of the ids, then the kernel, which writes the whole (V, D)
+    gradient; no fill), and apart the sort and the kernel alone; beside
+    the plain version, the backward of one F.embedding_bag(mode="sum") on
+    the same ids (autograd.grad of its output, the graph kept), and the
+    bound (bytes: the ids, the gradient and the dense (V, D) output
+    written once, over the memory rate; operations: 2 B L D over the
+    float32 rate).  Then DeepFM's pair, the D = 10 and D = 1 backwards of
+    one step: each sorting its own ids, and sharing one ``BagKeys`` (its
+    sorts counted: one), and the D = 1 call alone on ids already
+    sorted."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import _build
     from repro_torch.kernels import embedding_bag as bag
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref, topk
 
     def nothing():
         pass
@@ -1371,23 +1441,24 @@ def k4t_timings(dev, deepfm, wide, normal, g) -> list:
         t_ops = 2 * b * n_slots * d / F32_FLOPS * 1e3
         lib = _build.load_library()
         stream = torch.cuda.current_stream(dev).cuda_stream
+        rows, threads, grid = bag.backward_plan(v, d, 4, topk.sm_count(dev))
 
         def kernel_only():
             lib.repro_embedding_bag_backward(
                 grad.data_ptr(), 0, idx.data_ptr(), None, keys.data_ptr(),
-                order.data_ptr(), b * n_slots, n_slots, v, d,
-                bag.BACKWARD_THREADS, out.data_ptr(), stream)
+                order.data_ptr(), b * n_slots, n_slots, v, d, rows, threads,
+                grid, bag.backward_entry_work(d), out.data_ptr(), stream)
 
         runs = torch.unique_consecutive(keys, return_counts=True)[1]
         t = {"shape": f"{label} {TRAIN_SHAPE} B={b} L={n_slots} V={v} "
                       f"D={d}",
+             "plan": [rows, threads, grid, bag.backward_entry_work(d)],
              "distinct_rows": int(runs.numel()),
              "longest_run": int(runs.max()),
              "ms": median_ms(lambda: bag.embedding_bag_backward_(
                  out, grad, idx), nothing),
-             "fill_ms": median_ms(out.zero_, nothing),
              "sort_ms": median_ms(lambda: bag.backward_keys(idx), nothing),
-             "kernel_ms": median_ms(kernel_only, out.zero_),
+             "kernel_ms": median_ms(kernel_only, nothing),
              "plain_ms": median_ms(lambda: ref.embedding_bag_backward_ref(
                  grad, idx, v), nothing, n=5),
              "library_ms": median_ms(lambda: torch.autograd.grad(
@@ -1397,14 +1468,62 @@ def k4t_timings(dev, deepfm, wide, normal, g) -> list:
         timings.append(t)
         print(f"[b] embedding_bag_backward at {t['shape']} "
               f"({t['distinct_rows']} distinct rows, longest run "
-              f"{t['longest_run']}): whole call "
-              f"{t['ms']:.4f} ms = fill {t['fill_ms']:.4f} + sort "
-              f"{t['sort_ms']:.4f} + kernel {t['kernel_ms']:.4f} (each "
-              f"timed apart), plain {t['plain_ms']:.4f} ms, library "
-              f"(F.embedding_bag backward) {t['library_ms']:.4f} ms, bound "
-              f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {nbytes} bytes)")
+              f"{t['longest_run']}; plan {rows} rows a tile, {threads} "
+              f"threads, {grid} blocks): whole call {t['ms']:.4f} ms = "
+              f"sort {t['sort_ms']:.4f} + kernel {t['kernel_ms']:.4f} "
+              f"(each timed apart; no fill), plain {t['plain_ms']:.4f} ms, "
+              f"library (F.embedding_bag backward) {t['library_ms']:.4f} "
+              f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}, {nbytes} "
+              f"bytes)")
         del out, lib_table, lib_out, keys, order, grad
         torch.cuda.empty_cache()
+
+    # DeepFM's pair of backwards in one step: the FM sum (D = 10) and the
+    # linear term (D = 1) over the same ids
+    idx = deepfm.smoke_inputs(TRAIN_SHAPE, np.random.default_rng(SEED),
+                              dev)["sparse_idx"]
+    b, v = idx.shape[0], deepfm.cfg.total_vocab
+    grads = {d: normal(b, d).mul_(1e-3) for d in (10, 1)}
+    outs = {d: torch.empty((v, d), device=dev) for d in (10, 1)}
+    sorts = [0]
+    plain_keys = bag.backward_keys
+
+    def counted(ids):
+        sorts[0] += 1
+        return plain_keys(ids)
+
+    def pair(shared):
+        keys = ops.BagKeys(idx) if shared else None
+        for d in (10, 1):
+            bag.embedding_bag_backward_(outs[d], grads[d], idx, keys=keys)
+
+    bag.backward_keys = counted
+    try:
+        pair(True)
+        if sorts[0] != 1:
+            fail(f"DeepFM's pair of K4T calls with one BagKeys sorted "
+                 f"{sorts[0]} times")
+        pair(False)
+        if sorts[0] != 3:
+            fail(f"DeepFM's pair of K4T calls without a BagKeys sorted "
+                 f"{sorts[0] - 1} times")
+    finally:
+        bag.backward_keys = plain_keys
+    sorted_keys = ops.BagKeys(idx)
+    sorted_keys.sorted()
+    t = {"shape": f"DeepFM pair {TRAIN_SHAPE} B={b} V={v} D=10 then D=1",
+         "pair_ms": median_ms(lambda: pair(False), nothing),
+         "pair_shared_ms": median_ms(lambda: pair(True), nothing),
+         "linear_shared_ms": median_ms(lambda: bag.embedding_bag_backward_(
+             outs[1], grads[1], idx, keys=sorted_keys), nothing),
+         "sorts_shared": 1}
+    timings.append(t)
+    print(f"[b] embedding_bag_backward, DeepFM's pair at {t['shape']}: each "
+          f"sorting its ids {t['pair_ms']:.4f} ms, sharing one BagKeys "
+          f"{t['pair_shared_ms']:.4f} ms (one sort, counted), the D=1 call "
+          f"on ids already sorted {t['linear_shared_ms']:.4f} ms")
+    del outs, grads, sorted_keys
+    torch.cuda.empty_cache()
     return timings
 
 

@@ -42,8 +42,8 @@ _SIGNATURES = {
     "repro_embedding_bag": ([_P, _I, _P, _P, _I, _I, ctypes.c_longlong, _I,
                              _I, _I, _P, _P], _I),
     "repro_embedding_bag_backward": ([_P, _I, _P, _P, _P, _P, _I, _I,
-                                      ctypes.c_longlong, _I, _I, _P, _P],
-                                     _I),
+                                      ctypes.c_longlong, _I, _I, _I, _I, _I,
+                                      _P, _P], _I),
 }
 
 

@@ -8,17 +8,23 @@ padding, accumulated in float32 and written in the table's dtype.  K4T
 :func:`embedding_bag_backward_` is its backward, the table's gradient,
 which the reference leaves to XLA's scatter-add (it has no Pallas
 backward).  The source notes in ``csrc/`` say what bounds each kernel on
-an H100 and what its design does about it.
+an H100 and what its design does about it.  K4T is bound by writing the
+dense (V, D) gradient: it writes every row exactly once (no fill before
+it), in one launch; the wrapper's only other work is the stable sort of
+the ids, which :class:`BagKeys` lets bag sums over the same ids share.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else.  For CPU tensors it runs the plain version
 (``kernels/ref.py``); for CUDA tensors it launches the kernel on the
-current stream (K4 in the tiles and slot passes of :func:`bag_plan`), or
-raises — there is no fallback.  Each launch adds one to its kernel's
-entry of :data:`LAUNCHES`.
+current stream (K4 in the tiles and slot passes of :func:`bag_plan`, K4T
+in the row tiles of :func:`backward_plan`), or raises — there is no
+fallback.  Each launch adds one to its kernel's entry of
+:data:`LAUNCHES`.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -40,9 +46,24 @@ TILE_BAGS = 24
 # Shared memory a tile's ids and weights may take (long bags).
 TILE_SMEM = 48 * 1024
 
-# K4T's block size (csrc/embedding_bag_backward.cu: one thread per sorted
-# id and column; any multiple of 32 gives the same bits).
+# K4T's plan (csrc/embedding_bag_backward.cu; every plan gives the same
+# bits): a block's threads, the output bytes a tile of rows holds at
+# most, and the bytes a block writes from which a second wave of blocks
+# pays: the best measured on an H100 at DeepFM's and Wide&Deep's
+# train_batch (``scripts/k4t_shapes.py --sweep``; PERF.md).  A batch
+# stages at most BACKWARD_VALS float32 products (the kernel's
+# kValsFloats).
 BACKWARD_THREADS = 256
+BACKWARD_TILE_BYTES = 16 * 1024
+BACKWARD_VALS = 2560
+BACKWARD_WAVE_BYTES = 1 << 20
+# One SM's shared memory, threads and registers on sm_90 (228 KB, 1 KB of
+# it kept for each resident block; 2048 threads; 65,536 registers), and
+# K4T's registers a thread at most (its __launch_bounds__(1024)).
+SM_SMEM = 233_472
+SM_THREADS = 2048
+SM_REGS = 65_536
+BACKWARD_REGS = 64
 
 # Kernel launches since the last reset_launch_counts(), by kernel name.
 LAUNCHES = {"embedding_bag": 0, "embedding_bag_backward": 0}
@@ -142,6 +163,71 @@ def embedding_bag_(out: torch.Tensor, table: torch.Tensor, idx: torch.Tensor,
     count_launch(LAUNCHES, "embedding_bag")
 
 
+def _round16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def backward_batch(threads: int, dim: int) -> int:
+    """Entries one K4T batch takes: one per thread, fewer where their
+    products (``dim`` float32 each) would pass BACKWARD_VALS."""
+    return min(threads, max(1, BACKWARD_VALS // dim))
+
+
+def backward_smem(tile_rows: int, threads: int, dim: int) -> int:
+    """Shared memory of a K4T block (the kernel's ``layout``): the tile's
+    float32 sums (4 spare for the alignment shift), the batch's products,
+    keys and run starts, and the warps' run counts."""
+    batch = backward_batch(threads, dim)
+    return (_round16(4 * (tile_rows * dim + 4)) + _round16(4 * batch * dim)
+            + _round16(4 * batch) + _round16(4 * (batch + 1))
+            + _round16(4 * 32))
+
+
+def backward_tile_rows(v: int, dim: int, elt_bytes: int,
+                       tile_bytes: int = BACKWARD_TILE_BYTES) -> int:
+    """Rows of one K4T tile: as many as ``tile_bytes`` of output hold, a
+    multiple of the rows that make whole 16-byte pieces (so every tile
+    starts at the same alignment as the first), at most V."""
+    row = dim * elt_bytes
+    quantum = 16 // math.gcd(row, 16)
+    return min(v, max(quantum, tile_bytes // row // quantum * quantum))
+
+
+def backward_entry_work(dim: int) -> int:
+    """How K4T's persistent blocks share the rows out: each gets an equal
+    share of V * D * elt bytes plus this many for every entry (an entry's
+    gathers and adds take about as long as writing that many bytes; the
+    best of a half, one and two times this at D = 1 and 10, measured on an
+    H100 with ``scripts/k4t_shapes.py --sweep``)."""
+    return 160 + 10 * dim
+
+
+def backward_plan(v: int, dim: int, elt_bytes: int, sms: int, *,
+                  tile_bytes: int = BACKWARD_TILE_BYTES,
+                  threads: int = BACKWARD_THREADS) -> tuple[int, int, int]:
+    """K4T's (tile rows, threads, grid) for a (V, D) gradient of
+    ``elt_bytes`` elements on a card of ``sms`` SMs.
+
+    The blocks are persistent: as many as fit on every SM at once (by
+    threads, registers and :func:`backward_smem`), twice as many where
+    each would write BACKWARD_WAVE_BYTES or more (a second wave, which
+    the card's scheduler hands to the SMs that finish first, evens out
+    blocks the kernel's split left uneven), at most one per tile.  Each
+    walks a contiguous run of rows in tiles of :func:`backward_tile_rows`
+    rows, the runs balanced by work in the kernel (a row's bytes,
+    :func:`backward_entry_work` an entry).
+    """
+    threads = max(threads, 32 * -(-dim // 32))    # a thread a column
+    rows = backward_tile_rows(v, dim, elt_bytes, tile_bytes)
+    smem = backward_smem(rows, threads, dim)
+    per_sm = max(1, min(SM_THREADS // threads,
+                        SM_REGS // (BACKWARD_REGS * threads),
+                        SM_SMEM // (smem + 1024), 32))
+    resident = sms * per_sm
+    waves = 2 if v * dim * elt_bytes >= resident * BACKWARD_WAVE_BYTES else 1
+    return rows, threads, min(-(-v // rows), resident * waves)
+
+
 def backward_keys(idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """K4T's index preparation: the (B, L) ids' rows, padding read as row
     0, sorted stably, and each sorted entry's flat position ``b * L + l``
@@ -151,20 +237,67 @@ def backward_keys(idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return keys, order.to(torch.int32)
 
 
+class BagKeys:
+    """One (B, L) idx's :func:`backward_keys`, sorted at first use and kept,
+    so bag sums over the same ids (DeepFM's linear term and FM sum) share
+    one sort in their backward.  Nothing sorts until a backward on the
+    card asks (:meth:`sorted`): a forward under ``no_grad``, serving, and
+    the plain path on the CPU never do.
+
+    ``idx`` is normalised as :func:`repro_torch.kernels.ops.embedding_bag`
+    normalises its ids (int32, contiguous); :meth:`ids_for` hands that
+    tensor back for ``idx`` itself and raises for any other ids.
+    """
+
+    def __init__(self, idx: torch.Tensor):
+        self.source = idx
+        self.idx = idx.to(torch.int32).contiguous()
+        self._sorted: tuple[torch.Tensor, torch.Tensor] | None = None
+        self._version = -1
+
+    def ids_for(self, idx: torch.Tensor) -> torch.Tensor:
+        """The holder's int32 ids, if ``idx`` is the tensor it was built on
+        (or that tensor's normalised form); raises ValueError otherwise."""
+        if idx is self.source or idx is self.idx:
+            return self.idx
+        same = (isinstance(idx, torch.Tensor) and idx.dtype == torch.int32
+                and idx.device == self.idx.device
+                and idx.shape == self.idx.shape and idx.is_contiguous()
+                and idx.data_ptr() == self.idx.data_ptr())
+        if not same:
+            raise ValueError("BagKeys was built on other ids than these")
+        return self.idx
+
+    def sorted(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(keys, order) of :func:`backward_keys`, sorted on the first call;
+        raises if the ids changed in place since."""
+        if self._sorted is None:
+            self._sorted = backward_keys(self.idx)
+            self._version = self.idx._version
+        elif self.idx._version != self._version:
+            raise RuntimeError("the ids of a BagKeys changed in place after "
+                               "they were sorted")
+        return self._sorted
+
+
 def embedding_bag_backward_(out: torch.Tensor, grad_out: torch.Tensor,
                             idx: torch.Tensor,
-                            weights: torch.Tensor | None = None) -> None:
+                            weights: torch.Tensor | None = None, *,
+                            keys: BagKeys | None = None) -> None:
     """K4T, into ``out``: the gradient of :func:`embedding_bag_` with
     respect to its table, ``out[r] = sum over idx[b, l] = r of
     grad_out[b] * weights[b, l]``.
 
     grad_out (B, D) float32 or bfloat16; idx (B, L) int32, -1 = padding;
     weights (B, L) float32 or None (all ones); out (V, D) in grad_out's
-    dtype, V >= 1, written whole (rows no id touches are 0).  Edge
-    semantics and the order of each row's sum are the plain version's
+    dtype, V >= 1, written whole (rows no id touches are 0: the kernel
+    writes every row once, so ``out`` needs no fill, and B = 0 or L = 0
+    give zeros from the same launch).  Edge semantics and the order of
+    each row's sum are the plain version's
     (:func:`repro_torch.kernels.ref.embedding_bag_backward_ref`).  On the
-    card the wrapper fills ``out`` with zeros and sorts the ids
-    (:func:`backward_keys`) before the launch.
+    card the ids are sorted first (:func:`backward_keys`), by ``keys`` (a
+    :class:`BagKeys` of ``idx``, shared with other calls on the same ids)
+    where given; the plain path ignores ``keys``.
     """
     if not isinstance(grad_out, torch.Tensor) or (
             grad_out.dtype not in TABLE_DTYPES):
@@ -187,6 +320,8 @@ def embedding_bag_backward_(out: torch.Tensor, grad_out: torch.Tensor,
         if weights.shape != idx.shape:
             raise ValueError(f"weights {tuple(weights.shape)} != idx "
                              f"{tuple(idx.shape)}")
+    if keys is not None:
+        keys.ids_for(idx)
     if dev.type == "cpu":
         out.copy_(ref.embedding_bag_backward_ref(grad_out, idx, v, weights))
         return
@@ -195,17 +330,25 @@ def embedding_bag_backward_(out: torch.Tensor, grad_out: torch.Tensor,
     n = b * n_slots
     if n >= 2 ** 31:
         raise ValueError(f"B*L = {n} ids: flat positions pass int32")
-    out.zero_()
-    if n * d == 0:
+    if d == 0:
         return
-    keys, order = backward_keys(idx)
+    if d > 1024:
+        raise ValueError(f"D={d}: K4T adds a row's columns with a thread "
+                         f"each, at most 1024")
+    elt = grad_out.element_size()
+    rows, threads, grid = backward_plan(v, d, elt, sm_count(dev))
+    if backward_smem(rows, threads, d) > _MAX_SMEM:
+        raise ValueError(f"D={d}: one row of K4T's tile passes a block's "
+                         f"{_MAX_SMEM} bytes of shared memory")
+    sorted_keys, order = (keys.sorted() if keys is not None
+                          else backward_keys(idx))
     from repro_torch.kernels._build import load_library
     lib = load_library()
     with torch.cuda.device(dev):
         _launch(lib.repro_embedding_bag_backward, grad_out.data_ptr(),
                 int(grad_out.dtype == torch.bfloat16), idx.data_ptr(),
                 None if weights is None else weights.data_ptr(),
-                keys.data_ptr(), order.data_ptr(), n, n_slots, v, d,
-                BACKWARD_THREADS, out.data_ptr(),
+                sorted_keys.data_ptr(), order.data_ptr(), n, n_slots, v, d,
+                rows, threads, grid, backward_entry_work(d), out.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     count_launch(LAUNCHES, "embedding_bag_backward")

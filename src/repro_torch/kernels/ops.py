@@ -3,7 +3,8 @@
 The counterparts of ``repro.kernels.ops``: :func:`fused_score_topk`,
 :func:`topk_update` and :func:`superchunk_update` over the streaming
 top-k kernels (K1, K2), and :func:`embedding_bag` over K4 (its table's
-gradient through K4's backward kernel, K4T), with the
+gradient through K4's backward kernel, K4T; :class:`BagKeys` shares
+that backward's sort between bag sums over the same ids), with the
 reference's rules — an empty docs slice yields an empty (-inf, -1)
 state, and a superchunk carries per-step ``offsets`` / ``n_valids`` with
 padded steps at ``n_valid == 0``.  The TPU's alignment padding (Q and the
@@ -122,48 +123,59 @@ def superchunk_update(vals: torch.Tensor, ids: torch.Tensor,
         merge_(vals, ids, scores, torch.where(valid, row + offsets[s], -1))
 
 
+BagKeys = _bag.BagKeys
+
+
 class _EmbeddingBag(torch.autograd.Function):
     """K4 forward, K4T backward (the table's gradient).  On CPU tensors
     both wrappers run their plain versions, so autograd sees the same
     function there."""
 
     @staticmethod
-    def forward(ctx, table, idx, weights):
+    def forward(ctx, table, idx, weights, keys):
         out = torch.empty((idx.shape[0], table.shape[1]), dtype=table.dtype,
                           device=table.device)
         _bag.embedding_bag_(out, table, idx, weights)
         ctx.save_for_backward(idx, weights)
         ctx.n_rows = table.shape[0]
+        ctx.keys = keys
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
         idx, weights = ctx.saved_tensors
+        # written whole by K4T (or the plain version): no fill
         d_table = torch.empty((ctx.n_rows, grad_out.shape[1]),
                               dtype=grad_out.dtype, device=grad_out.device)
         # a strided gradient (DeepFM's ``[:, 0]`` of a (B, 1) sum) is made
         # contiguous for the kernel
         _bag.embedding_bag_backward_(d_table, grad_out.contiguous(), idx,
-                                     weights)
-        return d_table, None, None
+                                     weights, keys=ctx.keys)
+        return d_table, None, None, None
 
 
 def embedding_bag(table: torch.Tensor, idx: torch.Tensor,
-                  weights: torch.Tensor | None = None) -> torch.Tensor:
+                  weights: torch.Tensor | None = None, *,
+                  keys: BagKeys | None = None) -> torch.Tensor:
     """Fused gather + bag sum (K4): table (V, D), idx (B, L) with idx < 0
     as padding, optional weights (B, L) -> (B, D) in the table's dtype.
 
     Differentiable in the table: the backward is K4T (one launch per
-    backward on the card), the gradient of the plain version.  A
-    gradient for ``weights`` is not implemented.  B = 0 returns (0, D)
-    without a launch.
+    backward on the card), the gradient of the plain version.  ``keys``,
+    a :class:`BagKeys` built on ``idx``, lets bag sums over the same ids
+    share the backward's sort of them (it raises for other ids); without
+    it each backward sorts its own.  A gradient for ``weights`` is not
+    implemented.  B = 0 returns (0, D) without a launch.
     """
     if weights is not None and weights.requires_grad:
         raise NotImplementedError(
             "embedding_bag has no gradient for weights (K4T gives the "
             "table's only)")
-    idx = idx.to(torch.int32).contiguous()
+    if keys is not None:
+        idx = keys.ids_for(idx)
+    else:
+        idx = idx.to(torch.int32).contiguous()
     if weights is not None:
         weights = weights.float().contiguous()
-    return _EmbeddingBag.apply(table.contiguous(), idx, weights)
+    return _EmbeddingBag.apply(table.contiguous(), idx, weights, keys)

@@ -195,8 +195,10 @@ def forward(cfg: RecSysConfig, params: Params,
     emb = embedding_lookup(params["table"], idx)           # (B, F, D)
     b = idx.shape[0]
     if cfg.kind == "deepfm":
-        lin = ops.embedding_bag(params["linear_table"], idx)[:, 0]
-        sum_v = ops.embedding_bag(params["table"], idx)    # (B, D)
+        # the two bag sums' backwards share one sort of the ids
+        keys = ops.BagKeys(idx)
+        lin = ops.embedding_bag(params["linear_table"], idx, keys=keys)[:, 0]
+        sum_v = ops.embedding_bag(params["table"], idx, keys=keys)  # (B, D)
         fm = 0.5 * ((sum_v * sum_v) - (emb * emb).sum(1)).sum(-1)
         deep = _mlp(params, emb.reshape(b, -1), _n_mlp(cfg))[:, 0]
         return lin + fm + deep + params["bias"][0]

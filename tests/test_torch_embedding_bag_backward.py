@@ -237,3 +237,115 @@ def test_wrapper_validates_and_counts_nothing_on_cpu():
         bag.embedding_bag_backward_(torch.empty((0, 4)), g, idx)
     assert bag.LAUNCHES == {"embedding_bag": 0, "embedding_bag_backward": 0}
     assert ops.launch_counts()["embedding_bag_backward"] == 0
+
+
+# -- one sort per DeepFM backward (ops.BagKeys) -------------------------------
+
+def _recsys_grads(name, monkeypatch, shared=True, no_grad=False,
+                  serve=False):
+    """One forward (and, unless ``no_grad`` or ``serve``, one backward) of
+    a reduced recsys arch on the CPU, with the K4T wrapper standing in for
+    the card's path (it sorts the ids before the plain version runs, by
+    the BagKeys where one is given) and every sort counted.  Returns the
+    gradients by name and the number of sorts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import recsys
+    from repro_torch.models.losses import BCELoss
+
+    arch = get_arch(name).reduced()
+    params = recsys.init_params(arch.cfg, torch.Generator().manual_seed(0),
+                                "cpu")
+    rng = np.random.default_rng(3)
+    batch = arch.smoke_inputs("train_batch", rng, "cpu")
+    sorts = []
+    plain_keys, plain_backward = bag.backward_keys, bag.embedding_bag_backward_
+
+    def counted_keys(idx):
+        sorts.append(idx.shape)
+        return plain_keys(idx)
+
+    def card_like(out, grad_out, idx, weights=None, *, keys=None):
+        if keys is not None:
+            keys.sorted()
+        else:
+            bag.backward_keys(idx)
+        plain_backward(out, grad_out, idx, weights, keys=keys)
+
+    monkeypatch.setattr(bag, "backward_keys", counted_keys)
+    monkeypatch.setattr(bag, "embedding_bag_backward_", card_like)
+    if not shared:
+        monkeypatch.setattr(ops, "BagKeys", lambda idx: None)
+    if serve:
+        arch.build_cell("serve_p99", device="cpu").fn(params, batch)
+        return {}, len(sorts)
+    leaves = {k: p.detach().requires_grad_(not no_grad)
+              for k, p in params.items()}
+    if no_grad:
+        with torch.no_grad():
+            recsys.forward(arch.cfg, leaves, batch)
+        return {}, len(sorts)
+    loss = BCELoss()(recsys.forward(arch.cfg, leaves, batch),
+                     batch["labels"])
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return dict(zip(leaves, grads)), len(sorts)
+
+
+def test_deepfm_step_gradients_bitwise_with_and_without_shared_keys(
+        monkeypatch):
+    """DeepFM's two bag sums share one BagKeys: every gradient of its loss
+    is bitwise what it is with a sort per bag sum."""
+    with_keys, _ = _recsys_grads("deepfm", monkeypatch)
+    monkeypatch.undo()
+    without, _ = _recsys_grads("deepfm", monkeypatch, shared=False)
+    assert with_keys.keys() == without.keys()
+    for name, g in with_keys.items():
+        assert torch.equal(g.view(torch.int32),
+                           without[name].view(torch.int32)), name
+    assert with_keys["linear_table"].any() and with_keys["table"].any()
+
+
+@pytest.mark.parametrize("case,want", [
+    ("deepfm backward", 1), ("deepfm backward, no BagKeys", 2),
+    ("wide-deep backward", 1), ("deepfm no_grad forward", 0),
+    ("deepfm serve_p99", 0), ("wide-deep serve_p99", 0)])
+def test_backward_sorts_once_per_deepfm_backward_and_never_without_one(
+        case, want, monkeypatch):
+    """The card's path sorts the ids once per DeepFM backward (both bag
+    sums share the BagKeys), once per Wide&Deep backward (one bag sum), and
+    never in a forward under no_grad or in serving."""
+    name = case.split()[0]
+    _, sorts = _recsys_grads(name, monkeypatch,
+                             shared="no BagKeys" not in case,
+                             no_grad="no_grad" in case,
+                             serve="serve" in case)
+    assert sorts == want
+
+
+def test_bag_keys_built_on_other_ids_raise():
+    rng = np.random.default_rng(16)
+    idx = torch.from_numpy(rng.integers(-1, 9, (6, 4)).astype(np.int32))
+    other = idx.clone()
+    keys = ops.BagKeys(idx)
+    table = torch.zeros((9, 3), requires_grad=True)
+    g = torch.ones((6, 3))
+    out = torch.empty((9, 3))
+    # the ids it was built on, and their int64 source, are taken
+    ops.embedding_bag(table, idx, keys=keys).sum().backward()
+    wide = idx.long()
+    assert ops.BagKeys(wide).ids_for(wide).dtype == torch.int32
+    bag.embedding_bag_backward_(out, g, idx, keys=keys)
+    # equal values in another tensor are other ids
+    with pytest.raises(ValueError, match="other ids"):
+        ops.embedding_bag(table, other, keys=keys)
+    with pytest.raises(ValueError, match="other ids"):
+        bag.embedding_bag_backward_(out, g, other, keys=keys)
+    with pytest.raises(ValueError, match="other ids"):
+        bag.embedding_bag_backward_(out, g[:3], idx[:3], keys=ops.BagKeys(
+            idx[:3].clone()))
+    # sorted once, then changed in place: the sort is stale
+    first = keys.sorted()
+    assert keys.sorted() is first
+    assert torch.equal(first[0], bag.backward_keys(idx)[0])
+    idx[0, 0] = 5
+    with pytest.raises(RuntimeError, match="changed in place"):
+        keys.sorted()
