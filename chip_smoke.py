@@ -67,8 +67,9 @@ Phases, each printing its own lines:
       serving path of (d), each recsys cell of (f), each cached path of
       (g), each W > 1 path of (h), each fault path of (i), each data
       path of (j), each IVF path of (k), each training path of (l) and
-      each recsys training path of (m) and each LM encoder path of (n),
-      and read just after; each kernel
+      each recsys training path of (m), each LM encoder path of (n),
+      each LM training path of (o), each MoE path of (p) and each
+      decode path of (q), and read just after; each kernel
       of that path must have launched exactly as
       often as predicted (``ShardedSearchDriver.stats`` on (c) / (g) /
       (h), summed over ranks, and on (d) and (i) over every round of the
@@ -299,7 +300,29 @@ Phases, each printing its own lines:
       then qwen2-0.5b's cell at 2 x 1024 tokens with remat on and off
       under deterministic algorithms: gradients and updated parameters
       bitwise equal.  Launches: 0 on the training paths, the driver's
-      prediction on the scoring paths.
+      prediction on the scoring paths;
+  (p) the MoE encoders at published widths: granite-moe-3b-a800m
+      evaluated, mined, trained (launcher, ``train_4k``, remat on vs
+      off) and llama4-maverick cut to one (dense, MoE) pair evaluated;
+      the launchers;
+  (q) the KV-cache decode, run inside each LM arch's turn of (n) and (p)
+      on the weights already drawn (qwen2-0.5b, stablelm-3b, gemma-7b,
+      granite-moe-3b-a800m, llama4-maverick's pair): the ``LMArch``
+      serve cells ``decode_32k`` and ``long_500k`` at the cuts of
+      ``Q_CUTS`` (batch for decode_32k, depth for long_500k), a cache of
+      seeded N(0, 1) values stepped 4 times through the cell to its last
+      position: step ms (CUDA events), tokens/s, the cache's GB/s, the
+      bound (cache and weights read over 3.35 TB/s; for an MoE only the
+      chosen experts), peak GiB against its reckoning; (q2) rows 0 and
+      B - 1 against batch-1 steps on their slices of the cache, (q3)
+      sampled positions other than ``len`` unchanged and ``len`` one
+      more, (q4) finite (B, V) logits; qwen2-0.5b's decode_32k step
+      traced (idle share, the costliest device operations); (q1)
+      2 x 64 tokens decoded teacher-forced from an empty cache against
+      ``lm_logits(forward_hidden)``, in bf16 at full depth and in
+      float32 on 4 layers (TF32 off, the reference test's tolerance),
+      an MoE's capacity factor raised until its prefill drops nothing.
+      Launches: 0 on every (q) path.
 Each phase's wall seconds follow it (``[a] (x) ...: N s``), all of them
 on one ``[a] seconds by phase`` line at the end.
 The second-to-last line is the ``kernels`` JSON object; the last line is
@@ -1511,18 +1534,32 @@ def k4t_timings(dev, deepfm, wide, normal, g) -> list:
         bag.backward_keys = plain_keys
     sorted_keys = ops.BagKeys(idx)
     sorted_keys.sorted()
+    # the library's pair: the backwards of two F.embedding_bag(mode="sum")
+    # over the same ids (D = 10, then D = 1), graphs kept
+    lib_tables = {d: torch.zeros((v, d), device=dev, requires_grad=True)
+                  for d in (10, 1)}
+    lib_outs = {d: F.embedding_bag(idx.long(), lib_tables[d], mode="sum")
+                for d in (10, 1)}
+
+    def library_pair():
+        for d in (10, 1):
+            torch.autograd.grad(lib_outs[d], lib_tables[d], grads[d],
+                                retain_graph=True)
+
     t = {"shape": f"DeepFM pair {TRAIN_SHAPE} B={b} V={v} D=10 then D=1",
          "pair_ms": median_ms(lambda: pair(False), nothing),
          "pair_shared_ms": median_ms(lambda: pair(True), nothing),
          "linear_shared_ms": median_ms(lambda: bag.embedding_bag_backward_(
              outs[1], grads[1], idx, keys=sorted_keys), nothing),
+         "library_ms": median_ms(library_pair, nothing),
          "sorts_shared": 1}
     timings.append(t)
     print(f"[b] embedding_bag_backward, DeepFM's pair at {t['shape']}: each "
           f"sorting its ids {t['pair_ms']:.4f} ms, sharing one BagKeys "
           f"{t['pair_shared_ms']:.4f} ms (one sort, counted), the D=1 call "
-          f"on ids already sorted {t['linear_shared_ms']:.4f} ms")
-    del outs, grads, sorted_keys
+          f"on ids already sorted {t['linear_shared_ms']:.4f} ms; library "
+          f"(the two F.embedding_bag backwards) {t['library_ms']:.4f} ms")
+    del outs, grads, sorted_keys, lib_tables, lib_outs
     torch.cuda.empty_cache()
     return timings
 
@@ -3216,11 +3253,13 @@ def phase_faults(dev, card: str, trove: dict) -> dict:
 
 # (j1)-(j3): two datasets of J_QUERIES queries and J_DOCS docs each, written
 # by the launcher's make_synthetic_suite (seeds 100 and 101, ids "d0-" and
-# "d1-"); their union is (c)'s 256 x 8192.  (j4): the launcher at
+# "d1-"); their union is 256 x 2048, a quarter of (c)'s corpus (4096 docs
+# each until the decode phase (q) needed the room; PERF.md §4).  (j4): the
+# launcher at
 # J4_QUERIES x J4_DOCS per dataset.  (j5): benchmarks/bench_memory.py's
 # sizes: J5_DOCS docs of J5_DOC_LEN words (J5_QUERIES queries), and two
 # parts of J5_PART_DOCS docs and J5_PART_QUERIES queries.
-J_QUERIES, J_DOCS, J_TOPICS = 128, 4096, 64
+J_QUERIES, J_DOCS, J_TOPICS = 128, 1024, 64
 J_PAIRS = (("fused", "kernel"), ("torch", "kernel"))
 J4_QUERIES, J4_DOCS = 64, 1024
 J5_DOCS, J5_QUERIES, J5_DOC_LEN = 150_000, 8_000, 80
@@ -6295,6 +6334,7 @@ def phase_lm_encoders(dev, card: str) -> tuple[dict, list]:
         lm_evaluate(dev, card, name, lm, trove, paths)
         lm_prefill(dev, card, name, lm, paths, checks)
         lm_precision(dev, card, name, lm, trove, paths, checks)
+        decode_turn(dev, card, name, lm, paths, "(n) LM encoders")
         del lm
         gc.collect()
         torch.cuda.empty_cache()
@@ -7058,6 +7098,7 @@ def phase_moe(dev, card: str) -> tuple[dict, list]:
         moe_header(P_GRANITE, lm, card)
         moe_evaluate(dev, card, P_GRANITE, lm, troves["p1"], paths, "(p1)")
         moe_ties(dev, card, lm, troves["p1"])
+        decode_turn(dev, card, P_GRANITE, lm, paths, "(p) MoE")
         d = lm["cfg"].d_model
         del lm
         freed()
@@ -7092,6 +7133,7 @@ def phase_moe(dev, card: str) -> tuple[dict, list]:
               f"beside the bf16 weights)")
         moe_evaluate(dev, card, P_LLAMA4, lm, troves["p3"], paths, "(p3)",
                      pairs=P3_PAIRS)
+        decode_turn(dev, card, P_LLAMA4, lm, paths, "(p) MoE", consume=True)
         del lm
         freed()
         timings.append(k1_held(dev, Q, S, cfg.d_model, "(p3)", timed=True))
@@ -7102,6 +7144,432 @@ def phase_moe(dev, card: str) -> tuple[dict, list]:
         print(f"[p] (p4): {time.perf_counter() - t0:.1f} s")
     freed()
     return paths, timings
+
+
+# -- (q) the KV-cache decode ---------------------------------------------------
+
+# Each serve cell's cache holds seeded N(0, 1) values (a zeroed cache makes
+# every softmax uniform) and steps Q_STEPS times from len = s - Q_STEPS, the
+# tokens after the first greedy: one warm-up step, then Q_STEPS - 1 timed,
+# so the last step attends to all s positions.  Cuts where a cache at the
+# published shape does not fit beside the weights (cache bytes = layers x 2
+# x KV heads x head_dim x 2 x B x S, at most 40 GiB where cut; PERF.md §4):
+# decode_32k keeps its 32,768 positions and cuts its batch, long_500k keeps
+# its 524,288 and cuts its depth; llama4 runs at (p3)'s one (dense, MoE)
+# pair.  Q_CUTS: name -> shape -> (batch, layers; None for the model's).
+Q_STEPS = 4
+Q_SEQ = {"decode_32k": 32768, "long_500k": 524288}
+Q_CUTS = {
+    "qwen2-0.5b": {"decode_32k": (128, None), "long_500k": (1, None)},
+    "stablelm-3b": {"decode_32k": (4, None), "long_500k": (1, 8)},
+    "gemma-7b": {"decode_32k": (2, None), "long_500k": (1, 5)},
+    "granite-moe-3b-a800m": {"decode_32k": (20, None),
+                             "long_500k": (1, None)},
+    "llama4-maverick-400b-a17b": {"decode_32k": (32, None),
+                                  "long_500k": (1, None)},
+}
+# the card's memory rate for the bound (the H100 SXM's published HBM3
+# bandwidth)
+HBM_BYTES_PER_S = 3.35e12
+# (q1): Q1_ROWS x Q1_LEN tokens decoded teacher-forced from an empty cache
+# against lm_logits(forward_hidden) of the same tokens; the float32 run on
+# float32 copies of the first Q1_F32_LAYERS layers (TF32 off), held to the
+# reference test's tolerance (tests/test_models.py); an MoE's capacity
+# factor raised to n_experts / top_k, so the prefill drops nothing
+Q1_ROWS, Q1_LEN, Q1_F32_LAYERS = 2, 64, 4
+Q1_RTOL, Q1_ATOL = 2e-2, 2e-4
+# (q2): rows 0 and B - 1 of the batch-B step against a batch-1 step on the
+# row's slice of the cache, the logits and the K / V written at len each
+# within Q2_TOL of the row's largest magnitude (bf16 activations: cuBLAS
+# sums other shapes in other orders, a bf16 ulp is 2^-8 of a value, and
+# 24-32 layers carry it; a wrong row or position is off by O(1))
+Q2_TOL = 5e-2
+# (q) seconds, by the phase whose turn ran them
+DECODE_SECONDS: dict = {}
+
+
+def cut_depth(cfg, params, layers: int):
+    """``cfg`` and ``params`` cut to their first ``layers`` layers (views
+    of the same weights)."""
+    import dataclasses
+    cut = dataclasses.replace(cfg, n_layers=layers)
+    out = dict(params)
+    for stack, depth in (("blocks", cut.n_dense_layers),
+                         ("moe_blocks", cut.n_moe_layers)):
+        if stack in params:
+            out[stack] = {k: t[:depth] for k, t in params[stack].items()}
+    return cut, out
+
+
+def weight_bytes(params, experts_read: float, cfg) -> float:
+    """Bytes of weights one decode step reads: every leaf once, less the
+    MoE experts no token chose (``experts_read``: the distinct experts of
+    the step summed over its MoE layers)."""
+    from repro_torch.training import tree
+    total = sum(t.nbytes for t in tree.leaves(params))
+    if "moe_blocks" in params:
+        routed = sum(params["moe_blocks"][k].nbytes
+                     for k in ("we_gate", "we_up", "we_down"))
+        per_expert = routed / (cfg.n_moe_layers * cfg.n_experts)
+        total += experts_read * per_expert - routed
+    return total
+
+
+class ExpertLog:
+    """The experts each ``transformer._moe_token`` call chose (``choices``,
+    (tokens, k) each) and how many distinct ones it read (``calls``),
+    recorded by wrapping it in the script: the route recomputed from its
+    inputs (the same product, softmax and stable sort) and kept on the
+    card, read only after the steps."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import transformer
+        self.calls, self.choices = [], []
+        inner = self.inner = transformer._moe_token
+
+        def wrapped(cfg, lp, h):
+            probs = torch.softmax((h.reshape(-1, h.shape[-1])
+                                   @ lp["router"]).float(), -1)
+            choice = torch.sort(probs, dim=-1, descending=True,
+                                stable=True).indices[:, : cfg.top_k]
+            seen = torch.zeros(cfg.n_experts, device=h.device)
+            self.calls.append(seen.index_fill_(0, choice.flatten(), 1).sum())
+            self.choices.append(choice)
+            return inner(cfg, lp, h)
+
+        transformer._moe_token = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer
+        transformer._moe_token = self.inner
+
+    def per_step(self, steps: int) -> float:
+        return sum(float(c) for c in self.calls) / steps if steps else 0.0
+
+
+def trace_decode(cell, params, cache, tokens, card: str, tag: str) -> None:
+    """One more decode step (len set back one) under torch.profiler's CUDA
+    activity: wall ms against the device's busy ms (so its idle share) and
+    the device operations that took the most time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cache["len"].sub_(1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cell.fn(params, cache, tokens)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ops = sorted((e for e in prof.key_averages()
+                  if e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in ops) / 1e3
+    if busy <= 0:
+        print(f"[q] {tag} traced step on {card}: {wall:.3f} ms, device "
+              f"time not measured (the profiler recorded none)")
+        return
+    top = "; ".join(f"{e.key[:60]} x{e.count} "
+                    f"{e.self_device_time_total / 1e3:.3f} ms"
+                    for e in ops[:6])
+    print(f"[q] {tag} traced step (torch.profiler) on {card}: {wall:.3f} "
+          f"ms wall, device busy {busy:.3f} ms (idle share "
+          f"{1 - busy / wall:.3f}), {sum(e.count for e in ops)} device "
+          f"operations; the most time: {top}")
+
+
+def decode_cell(dev, card: str, name: str, cfg, params, shape: str,
+                paths: dict, checks: list, trace: bool = False) -> None:
+    """One serve cell at its cut (Q_CUTS): Q_STEPS steps through the
+    LMArch cell from seeded cache values, timed in CUDA events; (q2) rows
+    0 and B - 1 of the last step against batch-1 steps on their slices of
+    the cache, (q3) sampled positions other than len unchanged and len
+    advanced, (q4) finite (B, V) logits on every step."""
+    import torch
+
+    from repro_torch.configs.lm_arch import LM_SHAPES, LMArch
+    from repro_torch.models import transformer
+    from repro_torch.training import tree
+
+    cuda = dev.type == "cuda"
+    b, layers = Q_CUTS[name][shape]
+    full_b = LM_SHAPES[shape]["global_batch"]
+    s = Q_SEQ[shape]
+    whole, whole_params = cfg.n_layers, params
+    if layers is not None:
+        cfg, params = cut_depth(cfg, params, layers)
+    tag = f"(q) {name} {shape}"
+    arch = LMArch(cfg, shapes={shape: dict(kind="serve", seq_len=s,
+                                           global_batch=b)})
+    cell = arch.build_cell(shape, dev)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    # alive before the cell: the weights, and what the phase around it
+    # holds
+    base = torch.cuda.memory_allocated(dev) if cuda else 0
+    cache, tokens = arch.smoke_inputs(
+        shape, torch.Generator(device=dev).manual_seed(SEED), dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    cache["k"].normal_(generator=g)
+    cache["v"].normal_(generator=g)
+    cache["len"].fill_(s - Q_STEPS)
+    cache_bytes = cache["k"].nbytes + cache["v"].nbytes
+    per_token = cache_bytes / (b * s)
+    param_bytes = sum(t.nbytes for t in tree.leaves(params))
+    # a cut model's weights are views: the whole model stays alive
+    alive_bytes = sum(t.nbytes for t in tree.leaves(whole_params))
+    base = base or alive_bytes
+    scores = b * cfg.n_heads * s * 4
+    transient = max(2 * scores + 2 * transformer.DECODE_CHUNK_BYTES,
+                    transformer.LOGIT_BLOCK_BYTES
+                    + 2 * b * cfg.vocab_size * 4)
+    reckoned = base + cache_bytes + transient
+    print(f"[q] {tag}: {cfg.n_layers} of {whole} layers, B = {b}, S = {s}: "
+          f"cache {per_token:,.0f} B a token x {b} x {s} = "
+          f"{gib(cache_bytes):.2f} GiB (whole shape: "
+          f"{gib(per_token / cfg.n_layers * whole * full_b * s):,.1f}"
+          f" GiB), weights {gib(param_bytes):.2f} GiB; alive before the "
+          f"cell {gib(base):.2f} GiB (the whole model's weights "
+          f"{gib(alive_bytes):.2f}); peak reckoned "
+          f"{gib(reckoned):.2f} GiB (+ float32 scores and probabilities "
+          f"{gib(2 * scores):.3f}, a float32 K / V chunk "
+          f"{gib(transformer.DECODE_CHUNK_BYTES):.2f} x 2, or the logits "
+          f"and a vocabulary block)")
+    samples = sorted({0, 1, s // 2, s - 2})
+    state = {}
+
+    def run():
+        toks, ms, logits = tokens, [], None
+        with ExpertLog() as experts:
+            for i in range(Q_STEPS):
+                if i == Q_STEPS - 1:
+                    state["before"] = [(cache["k"][:, :, p].clone(),
+                                        cache["v"][:, :, p].clone())
+                                       for p in samples]
+                    state["tokens"] = toks
+                    mark = len(experts.choices)
+                if cuda:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                t0 = time.perf_counter()
+                logits, out = cell.fn(params, cache, toks)
+                if cuda:
+                    end.record()
+                    torch.cuda.synchronize()
+                    ms.append(start.elapsed_time(end))
+                else:
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                if out is not cache:
+                    checks.append(f"{tag}: the step returned another cache")
+                if logits.shape != (b, cfg.vocab_size) or not bool(
+                        torch.isfinite(logits).all()):
+                    checks.append(f"{tag}: step {i} logits "
+                                  f"{tuple(logits.shape)}, not finite "
+                                  f"(B, V)")
+                toks = logits.argmax(-1).to(torch.int32)
+        state["experts"] = experts.per_step(Q_STEPS)
+        state["routes"] = experts.choices[mark:]
+        return ms, logits
+
+    ms, logits = on_path(paths, tag, None, run, no_launches)
+    peak = gib(torch.cuda.max_memory_allocated(dev)) if cuda else 0.0
+    step = statistics.median(ms[1:])
+    # (q3): positions other than len untouched; len one more
+    pos = s - 1
+    moved = [p for p, (k, v) in zip(samples, state["before"])
+             if not (torch.equal(cache["k"][:, :, p], k)
+                     and torch.equal(cache["v"][:, :, p], v))]
+    if moved or int(cache["len"]) != s:
+        checks.append(f"{tag} (q3): positions {moved} changed, len "
+                      f"{int(cache['len'])} (want {s})")
+    # (q2): rows 0 and B - 1 against batch-1 steps on their slices.  An
+    # MoE row whose route differs somewhere between the two steps (bf16
+    # sums in other orders move a router logit across the k-th expert's)
+    # computes another function from that layer on: its K / V are held up
+    # to and including the first such layer (computed before its FFN),
+    # its logits only where no layer's route differs
+    written = (cache["k"][:, :, pos].clone(), cache["v"][:, :, pos].clone())
+    moe_layers = [i for i, (m, _) in enumerate(
+        transformer._stack_order(cfg, params)) if m]
+    worst = {"logits": 0.0, "kv": 0.0}
+    agree, flipped = 0, {}
+    for r in sorted({0, b - 1}):
+        row = {"k": cache["k"][:, r: r + 1], "v": cache["v"][:, r: r + 1],
+               "len": torch.tensor(pos, dtype=torch.int32, device=dev)}
+        with ExpertLog() as one_log:
+            one, _ = cell.fn(params, row, state["tokens"][r: r + 1])
+        flips = [layer for layer, mine, theirs in zip(
+            moe_layers, one_log.choices, state["routes"])
+            if set(mine[0].tolist()) != set(theirs[r].tolist())]
+        flipped[r] = flips
+        upto = flips[0] + 1 if flips else cfg.n_layers
+        agree += int(one[0].argmax() == logits[r].argmax())
+        if not flips:
+            worst["logits"] = max(worst["logits"], float(
+                (one[0] - logits[r]).abs().max()) / float(
+                    logits[r].abs().max()))
+        for got, want in zip((row["k"][:upto, 0, pos],
+                              row["v"][:upto, 0, pos]),
+                             (written[0][:upto, r], written[1][:upto, r])):
+            worst["kv"] = max(worst["kv"], float(
+                (got.float() - want.float()).abs().max()) / float(
+                    want.float().abs().max()))
+    if not max(worst.values()) <= Q2_TOL:
+        checks.append(f"{tag} (q2): batch-1 rows off by {worst} (routes "
+                      f"differing at MoE layers {flipped})")
+    experts = state["experts"]
+    read = weight_bytes(params, experts, cfg) if cfg.moe else param_bytes
+    bound = (cache_bytes + read) / HBM_BYTES_PER_S * 1e3
+    print(f"[q] {tag} on {card}: step {step:.3f} ms (median of "
+          f"{len(ms) - 1}, {'CUDA events' if cuda else 'host clock'}; "
+          f"warm-up {ms[0]:.3f}), {b / step * 1e3:,.1f} tokens/s, cache "
+          f"read at {cache_bytes / step / 1e6:,.1f} GB/s; bound "
+          f"{bound:.3f} ms (cache {gib(cache_bytes):.2f} GiB + weights "
+          f"read {gib(read):.2f} GiB"
+          + (f", {experts:.1f} distinct experts a step over "
+             f"{cfg.n_moe_layers} MoE layers" if cfg.moe else "")
+          + f", at 3.35 TB/s), {step / bound:.1f}x it; peak {peak:.2f} GiB "
+          f"(reckoned {gib(reckoned):.2f})")
+    routes = ("" if not cfg.moe else
+              f", routes differing at MoE layers {flipped} (the logits of "
+              f"such a row not held, its K / V up to the first)")
+    print(f"[q] {tag} (q2) rows {sorted({0, b - 1})} against batch-1 steps "
+          f"on their cache slices: logits off by {worst['logits']:.3g}, "
+          f"K / V at len by {worst['kv']:.3g} of the row's largest (tol "
+          f"{Q2_TOL}){routes}, argmax equal {agree} of {len({0, b - 1})}; (q3) "
+          f"{len(samples)} sampled positions unchanged, len {s - 1} -> "
+          f"{int(cache['len'])}; (q4) {Q_STEPS} steps' logits finite "
+          f"({b}, {cfg.vocab_size})")
+    if trace and cuda:
+        trace_decode(cell, params, cache, state["tokens"], card, tag)
+    del cache
+
+
+def decode_vs_prefill(dev, card: str, name: str, cfg, params, paths: dict,
+                      checks: list, f32: bool) -> None:
+    """(q1): Q1_ROWS x Q1_LEN seeded tokens decoded teacher-forced through
+    the serve cell from an empty cache, against lm_logits of
+    forward_hidden over the same tokens; ``f32``: float32 copies of the
+    first Q1_F32_LAYERS layers (those of ``params`` itself where it is
+    float32 already), held to Q1_RTOL / Q1_ATOL."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.lm_arch import LMArch
+    from repro_torch.models import transformer
+
+    if cfg.moe:
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        if transformer.capacity(cfg, Q1_LEN) < Q1_LEN:
+            fail(f"(q1) {name}: capacity {transformer.capacity(cfg, Q1_LEN)}"
+                 f" drops at {Q1_LEN} tokens")
+    if f32:
+        if cfg.n_layers > Q1_F32_LAYERS:
+            cfg, params = cut_depth(cfg, params, Q1_F32_LAYERS)
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+        params = {k: ({n: t.float() for n, t in v.items()}
+                      if isinstance(v, dict) else v.float())
+                  for k, v in params.items()}
+    kind = "float32" if f32 else str(cfg.dtype).replace("torch.", "")
+    arch = LMArch(cfg, shapes={"decode_32k": dict(
+        kind="serve", seq_len=Q1_LEN, global_batch=Q1_ROWS)})
+    cell = arch.build_cell("decode_32k", dev)
+    toks = torch.randint(3, cfg.vocab_size, (Q1_ROWS, Q1_LEN),
+                         generator=torch.Generator(device=dev).manual_seed(
+                             SEED), device=dev, dtype=torch.int32)
+
+    def run():
+        cache = transformer.init_cache(cfg, Q1_ROWS, Q1_LEN, dev)
+        steps = [cell.fn(params, cache, toks[:, t])[0]
+                 for t in range(Q1_LEN)]
+        with torch.no_grad():
+            hidden, _ = transformer.forward_hidden(cfg, params, toks,
+                                                   torch.ones_like(toks))
+            full = transformer.lm_logits(cfg, params, hidden)
+        return torch.stack(steps, 1), full
+
+    dec, full = on_path(paths, f"(q1) {name} {kind} decode vs prefill",
+                        None, run, no_launches)
+    diff = (dec - full).abs()
+    agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+    line = (f"[q] (q1) {name} {kind}, {cfg.n_layers} layers"
+            + (f", capacity factor {cfg.capacity_factor:g}"
+               if cfg.moe else "")
+            + f": {Q1_ROWS} x {Q1_LEN} tokens decoded from an empty cache "
+            f"against the prefill's logits on {card}: largest |diff| "
+            f"{float(diff.max()):.3g} (logits up to "
+            f"{float(full.abs().max()):.3g}), argmax equal at {agree:.4f} "
+            f"of the positions")
+    if f32:
+        ok = bool((diff <= Q1_ATOL + Q1_RTOL * full.abs()).all())
+        print(f"{line} (tol rtol {Q1_RTOL}, atol {Q1_ATOL}: "
+              f"{'within' if ok else 'OUTSIDE'})")
+        if not ok:
+            checks.append(f"(q1) {name} float32: decode off the prefill by "
+                          f"{float(diff.max())}")
+    else:
+        print(line)
+        if not bool(torch.isfinite(dec).all()):
+            checks.append(f"(q1) {name} {kind}: logits not finite")
+
+
+def decode_turn(dev, card: str, name: str, lm: dict, paths: dict,
+                phase: str, consume: bool = False) -> None:
+    """(q) for one arch while its weights are alive in another phase's
+    turn: both serve cells (qwen2-0.5b's decode_32k traced), then (q1) in
+    the model dtype at full depth and in float32.  ``consume``: the
+    float32 copy replaces the bf16 weights leaf by leaf, so both never
+    exist at once (llama4's pair: 65 GiB in float32); ``lm`` is spent
+    then.  Its seconds are kept apart under "(q) decode"."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    cuda = dev.type == "cuda"
+    cfg, params = lm["cfg"], lm["params"]
+    checks: list = []
+    parts = {}
+    for shape in Q_SEQ:
+        t = time.perf_counter()
+        decode_cell(dev, card, name, cfg, params, shape, paths, checks,
+                    trace=name == "qwen2-0.5b" and shape == "decode_32k")
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        parts[shape] = time.perf_counter() - t
+    t = time.perf_counter()
+    decode_vs_prefill(dev, card, name, cfg, params, paths, checks,
+                      f32=False)
+    parts["(q1) bf16"] = time.perf_counter() - t
+    t = time.perf_counter()
+    if consume:
+        gc.collect()
+        for stack in params.values():
+            if isinstance(stack, dict):
+                for k in list(stack):
+                    stack[k] = stack[k].float()
+        for k in [k for k, v in params.items() if not isinstance(v, dict)]:
+            params[k] = params[k].float()
+        if cuda:
+            torch.cuda.empty_cache()
+    decode_vs_prefill(dev, card, name, cfg, params, paths, checks, f32=True)
+    if cuda:
+        torch.cuda.empty_cache()
+    parts["(q1) float32"] = time.perf_counter() - t
+    seconds = time.perf_counter() - t0
+    DECODE_SECONDS[phase] = DECODE_SECONDS.get(phase, 0.0) + seconds
+    print(f"[q] {name}: {seconds:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + ")")
+    if checks:
+        fail("; ".join(checks))
 
 
 def main() -> int:
@@ -7186,6 +7654,12 @@ def main() -> int:
             trace()
 
     timed("profiles", profile)
+    # (q) ran inside the (n) and (p) turns: its seconds are counted apart
+    for label, q in DECODE_SECONDS.items():
+        seconds[label] -= q
+    seconds["(q) decode"] = sum(DECODE_SECONDS.values())
+    print(f"[a] (q) decode: {seconds['(q) decode']:.1f} s, inside "
+          f"{json.dumps(DECODE_SECONDS)} and taken out of them")
     print(f"[a] seconds by phase: {json.dumps(seconds)}")
     for name, info in kernels.items():
         info["launches_by_path"] = {p: c[name] for p, c in paths.items()}

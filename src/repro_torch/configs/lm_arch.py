@@ -2,17 +2,18 @@
 
 The counterpart of ``repro.configs.base.LMArch`` for the LM encoders
 (trove-base, qwen2-0.5b, stablelm-3b, gemma-7b, and the MoE stacks
-granite-moe-3b-a800m and llama4-maverick-400b-a17b).  Of the
-reference's four shapes the port runs two kinds: ``train_4k``, the
-contrastive bi-encoder step at 4k tokens (forward, backward and the
-arch's optimizer through ``configs.base.make_train_cell``: Adafactor at
-full width, AdamW in ``reduced()``, the reference's defaults), and
-``prefill_32k``, the ``encode`` kind (``transformer.encode`` over a
-batch of token rows, the corpus-encoding prefill).  ``decode_32k`` and
-``long_500k`` are the KV-cache decode (ROADMAP queue 1 item 8c) and
-raise; so does a mesh (item 10).  At full width the reference runs
-``train_4k`` at 256 x 4096 on a mesh; one card takes a cut batch (its
-reckoning is in ``PERF.md``).
+granite-moe-3b-a800m and llama4-maverick-400b-a17b).  The reference's
+four shapes are three kinds: ``train_4k``, the contrastive bi-encoder
+step at 4k tokens (forward, backward and the arch's optimizer through
+``configs.base.make_train_cell``: Adafactor at full width, AdamW in
+``reduced()``, the reference's defaults); ``prefill_32k``, the
+``encode`` kind (``transformer.encode`` over a batch of token rows, the
+corpus-encoding prefill); and ``decode_32k`` / ``long_500k``, the
+``serve`` kind (``transformer.decode_step``: one token a row against a
+KV cache of the shape's length).  A mesh raises (ROADMAP queue 1 item
+10).  At full width the reference runs ``train_4k`` at 256 x 4096 on a
+mesh, and its serve shapes' caches (up to 1,792 GiB) on one too; one
+card takes a cut batch or depth (the reckonings are in ``PERF.md``).
 """
 
 from __future__ import annotations
@@ -109,19 +110,26 @@ class LMArch:
         from ``configs.base.init_train_state``, updated in place.
         ``encode`` gives a cell whose ``fn(params, batch)`` is
         ``transformer.encode`` of ``batch["tokens"]`` / ``batch["mask"]``
-        without gradients."""
+        without gradients.  ``serve`` gives a cell whose ``fn(params,
+        cache, tokens)`` is ``transformer.decode_step`` without
+        gradients: ``(logits (B, V) float32, cache)``, the cache written
+        in place (the reference donates it)."""
         resolve_device(device)
         if mesh is not None:
             raise _not_ported(shape_name, "10", "a device mesh across cards")
         kind = self.shapes[shape_name]["kind"]
-        if kind == "serve":
-            raise _not_ported(shape_name, "8c",
-                              "the KV-cache decode step")
         if kind == "train":
             return make_train_cell(self.name, shape_name,
                                    loss_fn=self._contrastive_loss(),
                                    optimizer=self.optimizer)
         cfg = self.cfg
+        if kind == "serve":
+            def serve_fn(params, cache, tokens):
+                with torch.no_grad():
+                    return transformer.decode_step(cfg, params, cache,
+                                                   tokens)
+
+            return Cell(self.name, shape_name, "serve", serve_fn)
 
         def encode_fn(params, batch):
             with torch.no_grad():
@@ -138,15 +146,23 @@ class LMArch:
 
     def smoke_inputs(self, shape_name: str, generator: torch.Generator,
                      device: str | torch.device = "cuda"
-                     ) -> dict[str, torch.Tensor]:
+                     ):
         """Token rows of one shape, ids in [3, vocab) drawn from
         ``generator`` on its device, every position unmasked (the
-        reference's draw; a train shape gives ``{"query", "passage"}``)."""
+        reference's draw; a train shape gives ``{"query", "passage"}``).
+        A serve shape gives the reference's ``(cache, tokens)``: a zeroed
+        cache of the shape's batch and length with ``len = seq_len - 1``,
+        and one token a row."""
         dev = resolve_device(device)
         spec = self.shapes[shape_name]
         b, s = spec["global_batch"], spec["seq_len"]
         if spec["kind"] == "serve":
-            raise _not_ported(shape_name, "8c", "the KV-cache decode step")
+            cache = transformer.init_cache(self.cfg, b, s, dev)
+            cache["len"].fill_(s - 1)
+            tokens = torch.randint(3, self.cfg.vocab_size, (b,),
+                                   generator=generator,
+                                   device=generator.device)
+            return cache, tokens.to(device=dev, dtype=torch.int32)
 
         def toks():
             t = torch.randint(3, self.cfg.vocab_size, (b, s),

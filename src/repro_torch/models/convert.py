@@ -4,7 +4,10 @@
 rankers) take ``repro``'s parameter pytree with numpy leaves (e.g.
 ``jax.tree.map(np.asarray, params)``) and return the port's parameter
 dict: same keys, same shapes, tensors of ``cfg.dtype`` on ``device``.
-Both packages then compute the same function.
+Both packages then compute the same function.  ``cache_from_jax`` carries
+a reference KV cache across in the middle of a sequence (``k`` / ``v``
+of (L, B, S, K, hd) and ``len``), and ``cache_to_numpy`` gives it back,
+so a decode can continue in either package.
 """
 
 from __future__ import annotations
@@ -55,3 +58,38 @@ def recsys_params_from_jax(tree: dict, cfg: recsys.RecSysConfig,
     params."""
     return _convert(recsys.param_shapes(cfg), tree, "", cfg.dtype,
                     resolve_device(device))
+
+
+def cache_from_jax(tree: dict, cfg: LMConfig,
+                   device: str | torch.device = "cuda") -> Params:
+    """Reference KV cache (numpy leaves: ``k`` / ``v`` (L, B, S, K, hd),
+    ``len`` 0-d) -> the port's cache: ``k`` / ``v`` in ``cfg.dtype`` and
+    ``len`` a 0-d int32 tensor, on ``device``."""
+    dev = resolve_device(device)
+    if set(tree) != {"k", "v", "len"}:
+        raise ValueError(f"cache keys {sorted(tree)} != ['k', 'len', 'v']")
+    out: Params = {}
+    for name in ("k", "v"):
+        arr = np.asarray(tree[name])
+        if (arr.ndim != 5 or arr.shape[0] != cfg.n_layers
+                or arr.shape[3:] != (cfg.n_kv_heads, cfg.head_dim)
+                or arr.shape != np.shape(tree["k"])):
+            raise ValueError(
+                f"cache {name}: shape {arr.shape} is not (L={cfg.n_layers}"
+                f", B, S, K={cfg.n_kv_heads}, hd={cfg.head_dim})")
+        out[name] = torch.from_numpy(np.array(arr, np.float32)).to(
+            device=dev, dtype=cfg.dtype)
+    length = np.asarray(tree["len"])
+    if length.shape != ():
+        raise ValueError(f"cache len: shape {length.shape} != ()")
+    out["len"] = torch.tensor(int(length), dtype=torch.int32, device=dev)
+    return out
+
+
+def cache_to_numpy(cache: Params) -> dict:
+    """The port's KV cache -> numpy leaves in the reference's layout:
+    ``k`` / ``v`` as float32 (exact for bf16, f16 and f32 values; numpy
+    has no bfloat16) and ``len`` a 0-d int32 array."""
+    return {"k": cache["k"].detach().float().cpu().numpy(),
+            "v": cache["v"].detach().float().cpu().numpy(),
+            "len": np.asarray(int(cache["len"]), dtype=np.int32)}

@@ -65,8 +65,25 @@ The reference's mesh and compile knobs have no counterpart here, since
 torch runs eagerly on one card: ``scan_layers``, ``seq_shard_attn``,
 ``seq_shard_acts``, ``inline_mask``, ``dus_cache_update`` and
 ``moe_impl`` (its ``shardmap`` form of the MoE); nor has
-``max_seq_len``, which the reference declares and never reads.  The
-KV-cache decode step comes with a later slice (item 8c).
+``max_seq_len``, which the reference declares and never reads.
+
+The KV-cache decode (the reference's serve step): :func:`init_cache`
+gives ``{"k", "v"}`` of shape (L, B, S, K, hd) in the model dtype and
+``"len"``, a 0-d int32 tensor; :func:`decode_step` embeds one token a
+row, walks the layers in :func:`_stack_order`'s order, writes each
+layer's new K/V in place at ``len`` before that layer's attention reads
+the cache (the values of the reference's ``dus_cache_update=True`` and of
+its ``where`` form alike), and returns float32 logits from the tied
+``embed`` (:func:`lm_logits`) and the same cache, ``len`` advanced by
+one in place (the reference donates its cache).  ``len`` is read on the
+host once a step, which synchronises with the card there.  Attention
+over the cache runs in chunks of positions: each chunk of K is cast to
+float32 (the reference's float32 scores), so at most one chunk's float32
+K or V is alive, never a layer's, and the query is grouped over the KV
+heads (GQA), never the cache repeated.  An MoE layer's decode FFN is
+:func:`_moe_token`: the reference's top-k with no capacity, so no token
+is dropped, computed per chosen expert (each expert's weights read once
+a step), not by gathering (t, k, d, f) weights.
 """
 
 from __future__ import annotations
@@ -457,3 +474,171 @@ def encode(cfg: LMConfig, params: Params, tokens: torch.Tensor,
     """Retrieval embedding: (B, S) -> (B, d) L2-normalized float32."""
     return pool(cfg, forward_hidden(cfg, params, tokens, attn_mask)[0],
                 attn_mask)
+
+
+# A float32 block of the vocabulary in lm_logits, and a float32 chunk of
+# one layer's K or V in the decode attention, at most this many bytes
+LOGIT_BLOCK_BYTES = 256 * 2 ** 20
+DECODE_CHUNK_BYTES = 256 * 2 ** 20
+# positions a run of the decode attention's product with V sums in one
+# product before the runs' partial sums are added
+PV_SPLIT = 1024
+
+
+def lm_logits(cfg: LMConfig, params: Params,
+              hidden: torch.Tensor) -> torch.Tensor:
+    """float32 logits (..., V) of ``hidden`` (..., d) against the tied
+    ``embed``: the reference's product with float32 accumulation.  The
+    table is cast to float32 a block of LOGIT_BLOCK_BYTES at a time, so
+    gemma-7b's 256,000-row vocabulary never has a whole float32 copy."""
+    embed = params["embed"]
+    v, d = embed.shape
+    h = hidden.reshape(-1, d).float()
+    out = torch.empty((h.shape[0], v), dtype=torch.float32,
+                      device=hidden.device)
+    rows = max(1, LOGIT_BLOCK_BYTES // (4 * d))
+    for lo in range(0, v, rows):
+        out[:, lo: lo + rows] = h @ embed[lo: lo + rows].float().T
+    return out.reshape(*hidden.shape[:-1], v)
+
+
+
+def init_cache(cfg: LMConfig, batch: int, max_len: int,
+               device: str | torch.device = "cuda") -> Params:
+    """An empty KV cache: ``k`` / ``v`` zeros of (L, B, S, K, hd) in the
+    model dtype, ``len`` a 0-d int32 0."""
+    dev = resolve_device(device)
+    kv = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(kv, dtype=cfg.dtype, device=dev),
+            "v": torch.zeros(kv, dtype=cfg.dtype, device=dev),
+            "len": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def _decode_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                      n: int) -> torch.Tensor:
+    """One query position against the first ``n`` positions of a layer's
+    cache: q (B, 1, H, hd), kc / vc (B, S, K, hd) -> (B, 1, H, hd).
+
+    The reference's ``_attn_scores_softmax`` with its mask ``<= len``:
+    the masked positions' -1e30 scores are exactly 0 after the softmax,
+    so only the first ``n`` are read.  Scores are float32 products of the
+    query and a float32 copy of a chunk of K, laid out (B, K, chunk, hd);
+    the probabilities are rounded to the cache dtype (the reference's
+    cast before its product with V) and summed against float32 chunks of
+    V in float32, each chunk split into runs of PV_SPLIT positions whose
+    partial sums are added after (a product over 524,288 positions into
+    a (G, hd) output would otherwise run on a handful of blocks)."""
+    b, _, h, hd = q.shape
+    kh = kc.shape[2]
+    qg = q.reshape(b, kh, h // kh, hd).float()
+    chunk = max(1, DECODE_CHUNK_BYTES // (4 * b * kh * hd))
+    spans = [(lo, min(n, lo + chunk)) for lo in range(0, n, chunk)]
+
+    def f32(cache, lo, hi):
+        out = torch.empty((b, kh, hi - lo, hd), dtype=torch.float32,
+                          device=cache.device)
+        return out.copy_(cache[:, lo:hi].transpose(1, 2))
+
+    scores = torch.empty((b, kh, h // kh, n), dtype=torch.float32,
+                         device=q.device)
+    for lo, hi in spans:
+        scores[..., lo:hi] = qg @ f32(kc, lo, hi).transpose(-1, -2)
+    scores.div_(math.sqrt(hd))
+    probs = torch.softmax(scores, dim=-1)
+    del scores
+    out = torch.zeros_like(qg)
+    for lo, hi in spans:
+        p = probs[..., lo:hi].to(vc.dtype).float()
+        vf = f32(vc, lo, hi)
+        runs = (hi - lo) // PV_SPLIT
+        cut = runs * PV_SPLIT
+        out += p[..., cut:] @ vf[:, :, cut:]
+        if runs:
+            pp = p[..., :cut].reshape(b, kh, h // kh, runs, PV_SPLIT)
+            vv = vf[:, :, :cut].reshape(b, kh, runs, PV_SPLIT, hd)
+            out += (pp.transpose(2, 3) @ vv).sum(2)
+    return out.to(vc.dtype).reshape(b, 1, h, hd)
+
+
+def _moe_token(cfg: LMConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
+    """The decode step's MoE FFN of normed rows ``h`` (B, S, d): the
+    reference's ``_moe_token`` (no residual; the shared expert added).
+
+    Router product in the model dtype, float32 softmax, the top k from a
+    stable descending sort (equal probabilities go to the lower index, as
+    ``lax.top_k``), gates divided by their sum clipped at 1e-9.  There is
+    no capacity: every (token, k) pair is computed, grouped by its expert
+    so each chosen expert's three weights are read once (the reference
+    gathers them per pair, (t, k, d, f) each); the pairs' outputs are
+    summed over k weighted by the gates in the model dtype.  The experts'
+    pair counts are read on the host, once a layer."""
+    b, s, d = h.shape
+    kk = cfg.top_k
+    hh = h.reshape(b * s, d)
+    probs = torch.softmax((hh @ lp["router"]).float(), dim=-1)
+    gates, choice = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, choice = gates[:, :kk], choice[:, :kk]
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    flat = choice.reshape(-1)
+    order = torch.sort(flat, stable=True).indices
+    counts = torch.bincount(flat, minlength=cfg.n_experts).tolist()
+    out = hh.new_empty((b * s * kk, d))
+    lo = 0
+    for e, n in enumerate(counts):
+        if not n:
+            continue
+        pairs = order[lo: lo + n]
+        lo += n
+        x = hh[pairs.div(kk, rounding_mode="floor")]
+        hidden = _act(x @ lp["we_gate"][e], cfg.activation) * (
+            x @ lp["we_up"][e])
+        out[pairs] = hidden @ lp["we_down"][e]
+    y = (out.reshape(b * s, kk, d) * gates[..., None].to(out.dtype)).sum(1)
+    y = y.reshape(b, s, d)
+    if cfg.n_shared_experts:
+        y = y + _glu(cfg, h, lp["ws_gate"], lp["ws_up"], lp["ws_down"])
+    return y
+
+
+def decode_step(cfg: LMConfig, params: Params, cache: Params,
+                tokens: torch.Tensor):
+    """One decode step: tokens (B,) int -> (logits (B, V) float32, cache).
+
+    Each row's token sits at position ``len``: per layer, its K / V are
+    written into the cache at ``len`` in place, then it attends to
+    positions ``0..len``.  The cache returned is the one passed in, its
+    ``len`` advanced by one in place.  ``len`` is read on the host here
+    (a sync with the card once a step)."""
+    b = tokens.shape[0]
+    pos = int(cache["len"])
+    max_len = cache["k"].shape[2]
+    if not 0 <= pos < max_len:
+        raise ValueError(f"cache len {pos} outside [0, {max_len})")
+    x = params["embed"][tokens.long()[:, None]].to(cfg.dtype)
+    if cfg.name.startswith("gemma"):
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    positions = torch.full((b, 1), pos, dtype=torch.int32,
+                           device=tokens.device)
+    for i, (is_moe, lp) in enumerate(_stack_order(cfg, params)):
+        hn = _norm(x, lp["ln1"], lp.get("ln1_b"), cfg.norm)
+        q = torch.einsum("bsd,dhk->bshk", hn, lp["wq"])
+        k = torch.einsum("bsd,dhk->bshk", hn, lp["wk"])
+        v = torch.einsum("bsd,dhk->bshk", hn, lp["wv"])
+        if cfg.qkv_bias:
+            q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+        q = _rope(q, positions, cfg.rope_theta)
+        k = _rope(k, positions, cfg.rope_theta)
+        kc, vc = cache["k"][i], cache["v"][i]
+        kc[:, pos] = k[:, 0]
+        vc[:, pos] = v[:, 0]
+        out = _decode_attention(q, kc, vc, pos + 1)
+        x = x + torch.einsum("bshk,hkd->bsd", out, lp["wo"])
+        hn = _norm(x, lp["ln2"], lp.get("ln2_b"), cfg.norm)
+        if is_moe:
+            x = x + _moe_token(cfg, lp, hn)
+        else:
+            x = x + _glu(cfg, hn, lp.get("wi_gate"), lp["wi_up"],
+                         lp["wo_ffn"])
+    x = _norm(x, params["final_ln"], params.get("final_ln_b"), cfg.norm)
+    cache["len"].add_(1)
+    return lm_logits(cfg, params, x)[:, 0], cache

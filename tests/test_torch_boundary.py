@@ -56,6 +56,7 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.index.kmeans",
             "repro_torch.index.ivf", "repro_torch.models.losses",
             "repro_torch.models.retriever", "repro_torch.training.tree",
+            "repro_torch.models.transformer",
             "repro_torch.training.optimizer",
             "repro_torch.training.grad_compression",
             "repro_torch.training.checkpoint",

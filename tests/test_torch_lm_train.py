@@ -211,15 +211,23 @@ def test_train_4k_state_after_the_steps(runs):
 @pytest.mark.parametrize("name", ARCHS)
 def test_arch_optimizers_and_refusals(name):
     """Adafactor at full width, AdamW reduced (the reference's defaults);
-    a mesh raises naming item 10, the decode shapes item 8c."""
+    a mesh raises naming item 10; the reduced decode cell builds and
+    steps."""
     arch, jarch = get_arch(name), ref_get_arch(name)
     assert arch.optimizer == jarch.optimizer == "adafactor"
     assert arch.reduced().optimizer == jarch.reduced().optimizer == "adamw"
     assert arch.cfg.remat and not arch.reduced().cfg.remat
     with pytest.raises(NotImplementedError, match="item 10"):
         arch.reduced().build_cell("train_4k", device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        arch.reduced().build_cell("decode_32k", device="cpu")
+    small = arch.reduced()
+    cache, tokens = small.smoke_inputs("decode_32k", torch.Generator(),
+                                       device="cpu")
+    params = tf.init_params(small.cfg, torch.Generator().manual_seed(0),
+                            "cpu")
+    logits, cache = small.build_cell("decode_32k", device="cpu").fn(
+        params, cache, tokens)
+    assert logits.shape == (4, small.cfg.vocab_size)
+    assert torch.isfinite(logits).all() and int(cache["len"]) == 64
 
 
 # -- remat -------------------------------------------------------------------
