@@ -322,7 +322,37 @@ Phases, each printing its own lines:
       ``lm_logits(forward_hidden)``, in bf16 at full depth and in
       float32 on 4 layers (TF32 off, the reference test's tolerance),
       an MoE's capacity factor raised until its prefill drops nothing.
-      Launches: 0 on every (q) path.
+      Launches: 0 on every (q) path;
+  (r) the GNN, graphsage-reddit (2 x 128, mean, float32, seeded weights
+      drawn on the card): (r1) its four ``GNNArch`` train cells at
+      published shape — full_graph_sm (3,072 x 1,433 padded, 10,752
+      edges, 1,024 pairs), minibatch_lg (1,024 anchors and their
+      positives, 15 x 10 blocks sampled by the port's ``NeighborSampler``
+      over ``make_random_graph(232,965, 25)``, d 602), ogb_products
+      (2,449,408 x 100, 61,859,328 edges, 8,192 pairs) and molecule (128
+      graphs of 30 nodes and 64 edges, d 64), inputs drawn on the card: a
+      warm-up and 3 timed steps, twice from one seed, the losses and
+      parameters of the two runs bitwise equal (a full graph's run builds
+      its neighbour table once and carries it in the batch; a molecule
+      step builds its views' tables); step ms split forward and loss /
+      backward / clip + AdamW, peak GiB against its reckoning, the
+      neighbour table's slots against the edges; one more ogb_products
+      step traced after the last phase; (r2) K4 and K4T at every shape
+      (r1) gave them (recorded by wrapping the wrappers,
+      ``chip_smoke.BagCalls``), on that shape's first inputs, bitwise equal
+      to their plain versions (K4T's whole call, on the path's kept sort,
+      on every gradient row, 262,144 rows at a time), each timed beside
+      its plain version, the library's
+      ``F.embedding_bag`` (forward, or its backward) and its bound; (r3)
+      ``GNNEncoder.encode`` over ogb_products with (r1)'s trained weights,
+      256 query nodes searched over all 2,449,408 through
+      ``ShardedSearchDriver`` at (fused, kernel), k = 100, S = 64, C = 32,
+      against an exact float64 top-k computed on the card, K1 held and
+      timed at d = 128; on full_graph_sm's nodes the nine score x heap
+      pairs (each score's kernel heap bitwise its torch heap, its python
+      heap equal off exact ties).  Launches: K4 per layer mean and for
+      the pairs' rows, K4T per mean past layer 0 and for the pairs' rows,
+      0 on minibatch_lg; the search's K1 as the driver predicts.
 Each phase's wall seconds follow it (``[a] (x) ...: N s``), all of them
 on one ``[a] seconds by phase`` line at the end.
 The second-to-last line is the ``kernels`` JSON object; the last line is
@@ -7572,6 +7602,657 @@ def decode_turn(dev, card: str, name: str, lm: dict, paths: dict,
         fail("; ".join(checks))
 
 
+# -- (r) the GNN: graphsage-reddit's train cells, its kernels, node search ----
+
+R_ARCH = "graphsage-reddit"
+R_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
+# (r1): a warm-up step, then timed steps, in each of two runs from SEED
+R_WARM, R_STEPS = 1, 3
+# minibatch_lg's graph: Reddit's node count with 25 in-edges a node (the
+# published 114.6 M edges would take ~7 GB of host memory in
+# make_random_graph's candidate array)
+R_REDDIT_NODES, R_REDDIT_DEGREE = 232_965, 25
+# (r2): K4T's plain version builds a (D,) product for each entry whose id
+# is below its rows (ogb_products' 61.9 M entries would take 32 GB twice
+# over), so the whole call is held against it on ranges of this many
+# gradient rows; timed calls at the largest shapes
+R_HELD_ROWS, R_BIG_BYTES, R_BIG_N = 1 << 18, 1 << 30, 5
+# (r3): query nodes (the first anchors of ``pairs``) searched over every
+# node of ogb_products, and the exact top-k's row block
+R_QUERIES, R_EXACT_BLOCK = 256, 1 << 18
+# the cell one more step of which is traced after the last phase
+R_TRACED = "ogb_products"
+
+
+def gnn_launches(mode: str, n_layers: int, steps: int) -> dict:
+    """Each kernel's launches on a GNN path: K4 per neighbour mean (one a
+    layer a graph) and for the ``pairs`` rows of a full graph; K4T per
+    mean of a layer past the first (whose input, the features, takes no
+    gradient) and for the ``pairs`` rows; the minibatch none; K1, K2
+    never."""
+    graphs = {"full": 1, "batched": 2, "minibatch": 0}[mode]
+    pairs = int(mode == "full")
+    return {"fused_score_topk": 0, "topk_update": 0,
+            "embedding_bag": steps * (graphs * n_layers + pairs),
+            "embedding_bag_backward": steps * (graphs * (n_layers - 1)
+                                               + pairs)}
+
+
+class BagCalls:
+    """The inputs of the first K4 / K4T call at each shape a path makes,
+    recorded by wrapping ``embedding_bag.embedding_bag_`` and
+    ``embedding_bag_backward_`` here, in the script (the wrappers still
+    count each launch once): {(kernel, B, L, V, D, weighted): (table or
+    gradient, idx, weights, V, K4T's ``keys`` or None)}.  The tensors are
+    held, not copied."""
+
+    def __init__(self):
+        self.calls: dict = {}
+
+    def __enter__(self):
+        from repro_torch.kernels import embedding_bag as bag
+        self._orig = fwd, bwd = (bag.embedding_bag_,
+                                 bag.embedding_bag_backward_)
+
+        def k4(out, table, idx, weights=None):
+            key = ("K4", *idx.shape, table.shape[0], table.shape[1],
+                   weights is not None)
+            self.calls.setdefault(key, (table, idx, weights,
+                                        table.shape[0], None))
+            return fwd(out, table, idx, weights)
+
+        def k4t(out, grad_out, idx, weights=None, *, keys=None):
+            key = ("K4T", *idx.shape, out.shape[0], out.shape[1],
+                   weights is not None)
+            self.calls.setdefault(key, (grad_out, idx, weights,
+                                        out.shape[0], keys))
+            return bwd(out, grad_out, idx, weights, keys=keys)
+
+        bag.embedding_bag_, bag.embedding_bag_backward_ = k4, k4t
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import embedding_bag as bag
+        bag.embedding_bag_, bag.embedding_bag_backward_ = self._orig
+
+
+def gnn_batch(dev, arch, shape: str) -> tuple[dict, dict]:
+    """One cell's inputs at the published shape, drawn on the card: a
+    full graph's or the batched graphs' from ``smoke_inputs`` with a
+    seeded ``torch.Generator``; the minibatch's sampled by the port's
+    ``NeighborSampler`` (the anchors, their positives by
+    ``positive_pairs``, both 2-hop blocks) over ``make_random_graph(
+    R_REDDIT_NODES, R_REDDIT_DEGREE)``, its features drawn on the card and
+    gathered there by the sampled ids.  Returns (batch, notes)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import graph
+
+    spec = arch.shapes[shape]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    if spec["mode"] != "minibatch":
+        return arch.smoke_inputs(shape, g, dev), {}
+    t0 = time.perf_counter()
+    src, dst, _ = graph.make_random_graph(R_REDDIT_NODES, R_REDDIT_DEGREE,
+                                          SEED)
+    csr = graph.CSRGraph.from_edges(src, dst, R_REDDIT_NODES)
+    sampler = graph.NeighborSampler(csr, spec["fanouts"], SEED)
+    anchors = np.random.default_rng(SEED).choice(
+        R_REDDIT_NODES, spec["batch_nodes"], replace=False)
+    positives = sampler.positive_pairs(anchors)
+    x = torch.randn((R_REDDIT_NODES, spec["d_feat"]), generator=g,
+                    device=dev)
+    batch = {}
+    for side, nodes in (("a", anchors), ("p", positives)):
+        for k, f in enumerate(sampler.sample_block(x, nodes)):
+            batch[f"{side}{k}"] = f
+    del x
+    return batch, {"graph_edges": int(src.size),
+                   "host_s": time.perf_counter() - t0}
+
+
+def gnn_reckoned(arch, shape: str, batch: dict, width: int) -> float:
+    """Peak bytes reckoned before a run, for a graph of N nodes (each view
+    of the batched graphs alike): the inputs; the neighbour table (its
+    int32 ids, and K4T's sorted keys and order); the tensors the backward
+    keeps (layer 0's mean over the features, each later layer's mean, each
+    layer's output, z: 4 (N, d)); and at the first backward the largest
+    transient, four (N, d) gradients beside the stable sort of the ids
+    (int32 keys, int64 order, the sort's double buffers: ~24 bytes a
+    slot).  AdamW's state and the minibatch's blocks are small beside
+    their inputs."""
+    cfg = arch.shape_cfg(shape)
+    spec = arch.shapes[shape]
+    held = sum(t.numel() * t.element_size() for t in batch.values())
+    if spec["mode"] == "minibatch":
+        b, (f1, _) = spec["batch_nodes"], spec["fanouts"]
+        return held + 2 * 4 * 4 * b * (1 + f1) * cfg.d_hidden
+    if spec["mode"] == "full":
+        n, sides = batch["x"].shape[0], 1
+    else:
+        n, sides = spec["n_graphs"] * spec["n_nodes"], 2
+    nd = 4 * n * cfg.d_hidden
+    per_graph = (12 * n * width + 4 * n * cfg.d_feat + 4 * nd
+                 + 4 * nd + 24 * n * width)
+    return held + sides * per_graph
+
+
+def gnn_runs(dev, card: str, arch, shape: str, paths: dict,
+             calls: BagCalls) -> dict:
+    """(r1) one cell: R_WARM + R_STEPS steps in each of two runs from
+    SEED (weights drawn on the card), the second run's parameters and
+    losses bitwise the first's; step ms split by StepMarks (the forward's
+    end is the loss's), peak GiB against its reckoning.  A full graph's
+    runs each build its neighbour table once and carry it in the batch,
+    as a caller of the cell keeps it; the batched graphs' steps build
+    theirs, as a step over new graphs must.  Returns the first run's
+    parameters, its batch and the table width."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import init_train_state
+    from repro_torch.models import gnn
+    from repro_torch.models.losses import InfoNCELoss
+
+    spec = arch.shapes[shape]
+    cfg = arch.shape_cfg(shape)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # what the phase holds before the cell ((r)'s kept graphs, the traced
+    # cell) counts in the peak too
+    before = torch.cuda.memory_allocated()
+    batch, notes = gnn_batch(dev, arch, shape)
+
+    def with_table():
+        if spec["mode"] != "full":
+            return batch
+        t0 = time.perf_counter()
+        table = gnn.neighbor_table(batch["edge_src"], batch["edge_dst"],
+                                   batch["x"].shape[0])
+        torch.cuda.synchronize()
+        notes["table_s"] = time.perf_counter() - t0
+        return {**batch, "table": table}
+
+    width, first = 0, with_table()
+    if spec["mode"] == "full":
+        t = first["table"]
+        width = t.idx.shape[1]
+        print(f"[r] (r1) {shape}: N = {t.n_nodes:,} nodes, E = "
+              f"{t.n_edges:,} edges, neighbour table {t.n_nodes:,} x "
+              f"{width} = {t.slots:,} slots ({t.slots / t.n_edges:.3f} a "
+              f"edge, {t.slots * 4 / 1e9:.3f} GB of int32 ids), built in "
+              f"{notes['table_s'] * 1e3:.3f} ms (host clock, once a run)")
+        del t
+    elif spec["mode"] == "batched":
+        t = gnn.batched_table(batch["aedges"], batch["aemask"],
+                              spec["n_nodes"])
+        width = t.idx.shape[1]
+        print(f"[r] (r1) {shape}: {spec['n_graphs']} graphs x "
+              f"{spec['n_nodes']} nodes, a view's table {t.n_nodes} x "
+              f"{width} = {t.slots} slots for {t.n_edges} edges")
+        del t
+    else:
+        print(f"[r] (r1) {shape}: {spec['batch_nodes']} anchors and their "
+              f"positives, fanouts {spec['fanouts']}, sampled over "
+              f"{R_REDDIT_NODES:,} nodes / {notes['graph_edges']:,} edges "
+              f"(graph, CSR and sampling {notes['host_s']:.2f} s on the "
+              f"host)")
+    reckoned = before + gnn_reckoned(arch, shape, batch, width)
+    print(f"[r] (r1) {shape}: peak reckoned {gib(reckoned):.2f} GiB (the "
+          f"{gib(before):.2f} GiB held before the cell included; run 2 "
+          f"also holds run 1's first K4 / K4T inputs for (r2)"
+          + (" and its table)" if spec["mode"] == "full" else ")"))
+    steps = R_WARM + R_STEPS
+    runs = []
+    for run_no in (1, 2):
+        run_batch = first if run_no == 1 else with_table()
+        torch.cuda.reset_peak_memory_stats()
+        params = gnn.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+        cell = arch.build_cell(shape, dev)
+        state = init_train_state(cell, params)
+        marks = StepMarks(forward=(InfoNCELoss, "__call__"))
+
+        def run(cell=cell, state=state, marks=marks, run_batch=run_batch):
+            with marks:
+                out = train_steps(cell, state, run_batch, steps, marks)
+            torch.cuda.synchronize()
+            return out
+
+        path = f"(r1) gnn train {shape} run {run_no} x {steps}"
+        with calls if run_no == 1 else contextlib.nullcontext():
+            metrics = on_path(
+                paths, path, None if spec["mode"] == "minibatch"
+                else "embedding_bag", run,
+                lambda _: gnn_launches(spec["mode"], cfg.n_layers, steps))
+        loss = [float(m["loss"]) for m in metrics]
+        if not np.isfinite(loss).all():
+            fail(f"{path}: losses {loss} not finite")
+        split = {"forward": [], "backward": [], "update": [], "total": []}
+        for s0, f, c, s1 in marks.splits[R_WARM:]:
+            split["forward"].append(s0.elapsed_time(f))
+            split["backward"].append(f.elapsed_time(c))
+            split["update"].append(c.elapsed_time(s1))
+            split["total"].append(s0.elapsed_time(s1))
+        med = {k: statistics.median(v) for k, v in split.items()}
+        peak = torch.cuda.max_memory_allocated()
+        per_step = {k: v // steps for k, v in paths[path].items() if v}
+        print(f"[r] (r1) {shape} run {run_no} on {card}: losses "
+              f"{[round(x, 6) for x in loss]}; step median "
+              f"{med['total']:.3f} ms (CUDA events, steps "
+              f"{R_WARM + 1}-{steps}: forward and loss "
+              f"{med['forward']:.3f} + backward {med['backward']:.3f} + clip "
+              f"and AdamW {med['update']:.3f}), steps ms "
+              f"{[round(x, 3) for x in split['total']]}; peak "
+              f"{gib(peak):.2f} GiB (reckoned {gib(reckoned):.2f}); "
+              f"launches a step {json.dumps(per_step)}")
+        runs.append((loss, {k: v.clone() for k, v in
+                            state["params"].items()}))
+        del state, cell, marks, metrics, run_batch
+    (l1, p1), (l2, p2) = runs
+    differ = [k for k in p1 if not torch.equal(p1[k], p2[k])]
+    if l1 != l2 or differ:
+        fail(f"(r1) {shape}: two runs from seed {SEED} differ: losses "
+             f"{l1} / {l2}, parameters {differ}")
+    print(f"[r] (r1) {shape}: two runs of {steps} steps from seed {SEED}: "
+          f"losses and all {len(p1)} parameters bitwise equal (no "
+          f"deterministic-algorithms switch)")
+    if shape == R_TRACED:
+        cell = arch.build_cell(shape, dev)
+        state = init_train_state(cell, {k: v.clone() for k, v in
+                                        p1.items()})
+        cell.fn(state, first)          # a warm-up on run 1's table
+        STEP_TRACES.append(lambda: gnn_trace(cell, state, first, card,
+                                             shape))
+    return {"params": p1, "batch": first, "width": width}
+
+
+def gnn_trace(cell, state, batch, card: str, shape: str) -> None:
+    """One more step of a GNN cell under torch.profiler's CUDA activity
+    (after the last phase, with the other traces): wall ms against the
+    device's busy ms (its idle share) and the device operations that took
+    the most time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cell.fn(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ops = sorted((e for e in prof.key_averages()
+                  if e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in ops) / 1e3
+    if busy <= 0:
+        print(f"[r] (r1) {shape} traced step on {card}: {wall:.3f} ms, "
+              f"device time not measured (the profiler recorded none)")
+        return
+    top = "; ".join(f"{e.key[:60]} x{e.count} "
+                    f"{e.self_device_time_total / 1e3:.3f} ms"
+                    for e in ops[:8])
+    print(f"[r] (r1) {shape} traced step (torch.profiler) on {card}: "
+          f"{wall:.3f} ms wall, device busy {busy:.3f} ms (idle share "
+          f"{1 - busy / wall:.3f}), {sum(e.count for e in ops)} device "
+          f"operations; the most time: {top}")
+
+
+def k4_bag_timing(dev, key, table, idx, weights) -> dict:
+    """K4 at one recorded GNN shape: the wrapper's call, its plain
+    version, one F.embedding_bag (sum, ``per_sample_weights`` the slot
+    weights where there are any) and the bound (bytes: the ids and
+    weights, the rows they touch and the output; operations: 2 D a slot,
+    padding included, which reads the zero row)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import embedding_bag as bag
+    from repro_torch.kernels import ref, topk
+    b, n_slots = idx.shape
+    v, d = table.shape
+    out = torch.empty((b, d), dtype=table.dtype, device=dev)
+    lib_idx = idx.long()
+    rows = int(torch.unique(idx[(idx >= 0) & (idx < v)]).numel())
+    nbytes = 4 * (idx.numel() * (2 if weights is not None else 1)
+                  + rows * d + b * d)
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = 2 * b * n_slots * d / F32_FLOPS * 1e3
+    n = R_BIG_N if b * d * 4 >= R_BIG_BYTES // 8 else 30
+
+    def nothing():
+        pass
+
+    t = {"shape": f"GNN {key[0]} B={b} L={n_slots} V={v} D={d}"
+                  f"{' weighted' if weights is not None else ''}",
+         "plan": list(bag.bag_plan(b, n_slots, d, 4, topk.sm_count(dev))),
+         "slots": b * n_slots,
+         "ms": median_ms(lambda: bag.embedding_bag_(out, table, idx,
+                                                   weights), nothing, n=n),
+         "plain_ms": median_ms(lambda: ref.embedding_bag_ref(
+             table, idx, weights), nothing, n=min(n, 3)),
+         "library_ms": median_ms(lambda: F.embedding_bag(
+             lib_idx, table, mode="sum", per_sample_weights=weights),
+             nothing, n=n),
+         "bound_ms": max(t_bytes, t_ops), "bound_bytes": nbytes,
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print(f"[r] (r2) embedding_bag at {t['shape']} ({rows} distinct rows, "
+          f"{b * n_slots:,} slots, padding included, plan "
+          f"{t['plan']}): kernel {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms, library (F.embedding_bag) "
+          f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']})")
+    return t
+
+
+def rows_of(idx, lo: int, hi: int):
+    """``idx`` with every id outside gradient rows [lo, hi) moved past
+    them (K4T's plain version drops such ids; padding, id < 0, adds to
+    row 0 and stays where lo = 0) and the rest shifted by lo: the plain
+    version on it gives rows [lo, hi) of the whole gradient, adding each
+    row's entries in the same flat order."""
+    import torch
+    inside = (idx < hi) & ((idx >= lo) | (lo == 0))
+    return torch.where(inside, idx - lo, hi - lo)
+
+
+def k4t_held(name: str, got, grad, idx, weights, v: int) -> None:
+    """K4T's whole gradient ``got`` (V, D) against its plain version,
+    bitwise, R_HELD_ROWS rows at a time (each range's plain call builds
+    only its own entries)."""
+    from repro_torch.kernels import ref
+    for lo in range(0, v, R_HELD_ROWS):
+        hi = min(v, lo + R_HELD_ROWS)
+        sub = idx if (lo, hi) == (0, v) else rows_of(idx, lo, hi)
+        bag_compare(f"{name} rows {lo}-{hi}", got[lo:hi],
+                    ref.embedding_bag_backward_ref(grad, sub, hi - lo,
+                                                   weights), kernel="K4T")
+
+
+def k4t_bag_timing(dev, key, grad, idx, weights, v: int, nonpad: int,
+                   keys) -> dict:
+    """K4T at one recorded GNN shape: the wrapper's whole call (its sort
+    of the ids, then the kernel, which writes the (V, D) gradient once),
+    the sort alone and the call on the path's kept ``BagKeys`` (what a
+    full graph's train step pays: the caller sorts a graph once), beside
+    its plain version (on gradient rows [0, R_HELD_ROWS) of the whole
+    call where V is larger), the backward of one F.embedding_bag over the
+    whole ids (autograd.grad, graph kept) and the bound (bytes: the ids
+    and weights, the gradient read and the dense output written once;
+    operations: 2 D a slot that is not padding, which the kernel
+    skips)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import embedding_bag as bag
+    from repro_torch.kernels import ops, ref, topk
+    b, n_slots = idx.shape
+    d = grad.shape[1]
+    out = torch.empty((v, d), dtype=grad.dtype, device=dev)
+    nbytes = 4 * (idx.numel() * (2 if weights is not None else 1)
+                  + b * d + v * d)
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = 2 * nonpad * d / F32_FLOPS * 1e3
+    n = R_BIG_N if v * d * 4 >= R_BIG_BYTES // 8 else 30
+
+    def nothing():
+        pass
+
+    # the library's table holds the zero row the padding ids (V) point at
+    lib_table = torch.zeros((v + 1, d), device=dev, requires_grad=True)
+    lib_out = F.embedding_bag(idx.long(), lib_table, mode="sum",
+                              per_sample_weights=weights)
+    if keys is None:
+        keys = ops.BagKeys(idx)
+    keys.sorted()
+    t = {"shape": f"GNN {key[0]} B={b} L={n_slots} V={v} D={d}"
+                  f"{' weighted' if weights is not None else ''}",
+         "plan": list(bag.backward_plan(v, d, 4, topk.sm_count(dev))),
+         "slots": b * n_slots, "not_padding": nonpad,
+         "ms": median_ms(lambda: bag.embedding_bag_backward_(
+             out, grad, idx, weights), nothing, n=n),
+         "sort_ms": median_ms(lambda: bag.backward_keys(idx), nothing, n=n),
+         "shared_sort_ms": median_ms(lambda: bag.embedding_bag_backward_(
+             out, grad, idx, weights, keys=keys), nothing, n=n),
+         "library_ms": median_ms(lambda: torch.autograd.grad(
+             lib_out, lib_table, grad, retain_graph=True), nothing, n=n),
+         "bound_ms": max(t_bytes, t_ops), "bound_bytes": nbytes,
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    del lib_out, lib_table
+    rows = min(v, R_HELD_ROWS)
+    sub = idx if rows == v else rows_of(idx, 0, rows)
+    t["plain_ms"] = median_ms(lambda: ref.embedding_bag_backward_ref(
+        grad, sub, rows, weights), nothing, n=min(n, 3))
+    if rows < v:
+        t["plain_rows"] = rows
+    print(f"[r] (r2) embedding_bag_backward at {t['shape']} ({nonpad:,} of "
+          f"{b * n_slots:,} slots not padding, plan {t['plan']}): whole "
+          f"call {t['ms']:.4f} ms (its sort alone {t['sort_ms']:.4f}; the "
+          f"call on the path's kept sort, as a full graph's train step "
+          f"makes it, {t['shared_sort_ms']:.4f}), library (F.embedding_bag "
+          f"backward, dense) {t['library_ms']:.4f} ms, bound "
+          f"{t['bound_ms']:.4f} ms ({t['bound_by']}); plain "
+          f"{t['plain_ms']:.4f} ms"
+          + (f" on gradient rows [0, {rows:,}) of the whole call"
+             if rows < v else ""))
+    return t
+
+
+def gnn_kernels_held(dev, calls: BagCalls) -> tuple[list, list]:
+    """(r2) K4 and K4T at every shape (r1) gave them, on the inputs of
+    that shape's first call: bitwise equal to the plain version (phase
+    (b)'s rule, tolerance 0).  K4T's whole call as the path makes it
+    (every bag, the path's kept ``BagKeys``) is held on every gradient
+    row, R_HELD_ROWS rows at a time, and the call that sorts its own ids
+    gives the same bits; then each timed.  Returns (K4 timings, K4T
+    timings)."""
+    import torch
+
+    from repro_torch.kernels import embedding_bag as bag
+    from repro_torch.kernels import ref
+    k4, k4t = [], []
+    for key, (x, idx, weights, v, keys) in sorted(
+            calls.calls.items(), key=lambda kv: str(kv[0])):
+        kind, b, n_slots = key[:3]
+        name = f"(r2) GNN {kind} B={b} L={n_slots} V={v} D={key[4]}"
+        if kind == "K4":
+            got = torch.empty((b, x.shape[1]), dtype=x.dtype, device=dev)
+            bag.embedding_bag_(got, x, idx, weights)
+            bag_compare(name, got, ref.embedding_bag_ref(x, idx, weights))
+            torch.cuda.synchronize()
+            print(f"[r] {name}: bitwise equal to the plain version")
+            del got
+            k4.append(k4_bag_timing(dev, key, x, idx, weights))
+        else:
+            got = torch.empty((v, x.shape[1]), dtype=x.dtype, device=dev)
+            bag.embedding_bag_backward_(got, x, idx, weights, keys=keys)
+            k4t_held(name, got, x, idx, weights, v)
+            own = torch.empty_like(got)
+            bag.embedding_bag_backward_(own, x, idx, weights)
+            if not torch.equal(bits(own), bits(got)):
+                fail(f"K4T {name}: the call that sorts its own ids differs "
+                     f"from the call on the path's kept sort")
+            torch.cuda.synchronize()
+            print(f"[r] {name}: the whole call on the path's "
+                  f"{'kept' if keys is not None else 'own'} sort bitwise "
+                  f"equal to the plain version on all {v:,} gradient rows"
+                  + (f" ({R_HELD_ROWS:,} at a time)" if v > R_HELD_ROWS
+                     else "") + ", and to the call that sorts its own ids")
+            del got, own
+            # K4T skips the padding, ids past its V rows
+            nonpad = int((idx < v).sum())
+            k4t.append(k4t_bag_timing(dev, key, x, idx, weights, v, nonpad,
+                                      keys))
+        torch.cuda.empty_cache()
+    return k4, k4t
+
+
+def exact_topk_device(q, rows, k: int):
+    """Exact float64 top-k of ``q @ rows.T`` on the card, in blocks of
+    R_EXACT_BLOCK rows -> (ids, values as float32), numpy."""
+    import torch
+    q64 = q.double()
+    best_v = best_i = None
+    for lo in range(0, rows.shape[0], R_EXACT_BLOCK):
+        s = q64 @ rows[lo:lo + R_EXACT_BLOCK].double().T
+        v, i = torch.topk(s, min(k, s.shape[1]), dim=1)
+        i = i + lo
+        if best_v is not None:
+            v, pos = torch.topk(torch.cat([best_v, v], 1), k, dim=1)
+            i = torch.gather(torch.cat([best_i, i], 1), 1, pos)
+        best_v, best_i = v, i
+    return best_i.cpu().numpy(), best_v.float().cpu().numpy()
+
+
+def gnn_search(dev, card: str, arch, ogb: dict, small: dict,
+               paths: dict) -> list:
+    """(r3) node retrieval: ``GNNEncoder.encode`` over ogb_products' graph
+    with (r1)'s trained parameters, then R_QUERIES query nodes searched
+    over every node through ``ShardedSearchDriver`` at (fused, kernel), k =
+    K, S, C: the ids against an exact float64 top-k where separated, the
+    scores within TOL; K1 held at each shape the search gave it and timed
+    at d = 128.  On full_graph_sm's nodes, all nine score x heap pairs:
+    each score's three heaps bitwise equal, each within TOL of the exact
+    top-k.  Returns K1's timing rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.sharded_search import ShardedSearchDriver
+    from repro_torch.models.encoder import GNNEncoder
+
+    shape = "ogb_products"
+    cfg = arch.shape_cfg(shape)
+    b = ogb["batch"]                     # with (r1)'s neighbour table
+    enc = GNNEncoder(cfg)
+    t0 = time.perf_counter()
+
+    def encode():
+        with torch.no_grad():
+            z = enc.encode(ogb["params"], b)
+        torch.cuda.synchronize()
+        return z
+
+    # no pairs gathered and no backward: K4 once a layer
+    z = on_path(paths, f"(r3) GNNEncoder.encode {shape}", "embedding_bag",
+                encode, lambda _: {**gnn_launches("minibatch", 0, 0),
+                                   "embedding_bag": cfg.n_layers})
+    enc_s = time.perf_counter() - t0
+    norms = z.norm(dim=1)
+    zero = int((norms == 0).sum())
+    if (z.shape != (b["x"].shape[0], cfg.d_hidden)
+            or not bool(torch.isfinite(z).all())
+            or float((norms[norms > 0] - 1).abs().max()) > TOL):
+        fail(f"(r3) encode: z {tuple(z.shape)} not finite unit rows")
+    print(f"[r] (r3) GNNEncoder.encode over {shape}'s {z.shape[0]:,} nodes "
+          f"with (r1)'s trained parameters: {enc_s:.3f} s (host clock), z "
+          f"{tuple(z.shape)} finite, unit rows ({zero} all-zero rows)")
+    torch.cuda.empty_cache()
+    q = z[b["pairs"][:R_QUERIES, 0].long()].contiguous()
+    drv = ShardedSearchDriver(score_impl="fused", heap_impl="kernel",
+                              chunk_size=C, superchunk_size=S, device=dev)
+
+    def search():
+        out = drv.search(q, z.shape[0], lambda lo, hi: z[lo:hi], K)
+        torch.cuda.synchronize()
+        return out
+
+    t0 = time.perf_counter()
+    with K1Calls() as k1:
+        vals, ids = on_path(paths, f"(r3) node search {shape} (fused, "
+                            f"kernel)", "fused_score_topk", search,
+                            lambda _: predict([drv.stats], "fused",
+                                              "kernel"))
+    search_s = time.perf_counter() - t0
+    want_i, want_v = exact_topk_device(q, z, K)
+    err = check_exact("(r3) node search vs exact float64 top-k", ids, vals,
+                      want_i, want_v)
+    self_hits = float((ids[:, 0] == b["pairs"][:R_QUERIES, 0].cpu().numpy()
+                       ).mean())
+    print(f"[r] (r3) {R_QUERIES} query nodes over {z.shape[0]:,} nodes, k = "
+          f"{K}, S = {S}, C = {C}: {drv.stats['dispatch_rounds']} K1 calls, "
+          f"{search_s:.3f} s (host clock); ids equal the exact float64 "
+          f"top-k where separated, max score error {err:.3g} (tol {TOL}); "
+          f"each query's own node first in {self_hits:.4f} of the rows; K1 "
+          f"shapes {sorted(k1.shapes)}")
+    timings = []
+    for (qn, s, c, d, k) in sorted(k1.shapes):
+        t = k1_held(dev, qn, s, d, "(r3)", timed=(qn, s) == (R_QUERIES, S),
+                    k=k)
+        if t is not None:
+            timings.append(t)
+    del z, q, drv
+    torch.cuda.empty_cache()
+
+    # full_graph_sm: every score x heap pair on the trained small graph
+    cfg = arch.shape_cfg("full_graph_sm")
+    sb = small["batch"]
+    with torch.no_grad():
+        zs = GNNEncoder(cfg).encode(small["params"], sb)
+    qs = zs[sb["pairs"][:R_QUERIES, 0].long()].contiguous()
+    want_i, want_v = exact_topk_device(qs, zs, K)
+    ties = 0
+    for score in ("numpy", "torch", "fused"):
+        outs = {heap: ShardedSearchDriver(
+            score_impl=score, heap_impl=heap, chunk_size=C,
+            superchunk_size=S, device=dev).search(
+                qs, zs.shape[0], lambda lo, hi: zs[lo:hi], K)
+            for heap in ("python", "torch", "kernel")}
+        (v, i), (pv, pi) = outs["torch"], outs["python"]
+        if not (np.array_equal(outs["kernel"][0], v)
+                and np.array_equal(outs["kernel"][1], i)):
+            fail(f"(r3) full_graph_sm ({score}, kernel) != ({score}, torch) "
+                 f"bitwise")
+        # heapq keeps the larger id on an exact tie (core/result_heap.py),
+        # the device heaps the earlier candidate: ids equal where unique
+        tied = np.zeros(v.shape, bool)
+        tied[:, 1:] |= v[:, 1:] == v[:, :-1]
+        tied[:, :-1] |= v[:, :-1] == v[:, 1:]
+        if not (np.array_equal(pv, v) and np.array_equal(pi[~tied],
+                                                         i[~tied])):
+            fail(f"(r3) full_graph_sm ({score}, python) differs from "
+                 f"({score}, torch) in values or in ids off exact ties")
+        ties = max(ties, int(tied.sum()))
+        check_exact(f"(r3) full_graph_sm {score} vs exact", i, v, want_i,
+                    want_v)
+    print(f"[r] (r3) full_graph_sm's {zs.shape[0]:,} nodes, {R_QUERIES} "
+          f"queries, k = {K}: for each score impl its kernel heap == its "
+          f"torch heap bitwise, and its python heap equal in values and in "
+          f"ids off exact ties (up to {ties} tied slots: z is sparse after "
+          f"ReLU); each score impl within {TOL} of the exact float64 "
+          f"top-k, ids equal where separated")
+    return timings
+
+
+def phase_gnn(dev, card: str) -> tuple[dict, dict]:
+    """(r) graphsage-reddit: (r1) its four train cells at published shape,
+    (r2) K4 and K4T at every shape they gave, (r3) node search.  Returns
+    (each path's launch counts, {kernel: timing rows})."""
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    arch = get_arch(R_ARCH)
+    paths: dict = {}
+    k4, k4t = [], []
+    kept = {}
+    for shape in R_SHAPES:
+        calls = BagCalls()
+        kept[shape] = gnn_runs(dev, card, arch, shape, paths, calls)
+        a, b = gnn_kernels_held(dev, calls)
+        k4 += a
+        k4t += b
+        del calls
+        if shape not in ("ogb_products", "full_graph_sm"):
+            del kept[shape]
+        torch.cuda.empty_cache()
+    k1 = gnn_search(dev, card, arch, kept["ogb_products"],
+                    kept["full_graph_sm"], paths)
+    del kept
+    torch.cuda.empty_cache()
+    return paths, {"embedding_bag": k4, "embedding_bag_backward": k4t,
+                   "fused_score_topk": k1}
+
+
 def main() -> int:
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
@@ -7644,6 +8325,10 @@ def main() -> int:
     moe_paths, moe_timings = timed("(p) MoE", phase_moe, dev, card)
     paths.update(moe_paths)
     kernels["fused_score_topk"]["timings"] += moe_timings
+    gnn_paths, gnn_timings = timed("(r) GNN", phase_gnn, dev, card)
+    paths.update(gnn_paths)
+    for name, rows in gnn_timings.items():
+        kernels[name]["timings"] += rows
 
     def profile():
         for t, call, reset, names in PROFILED:

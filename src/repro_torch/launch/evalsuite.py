@@ -25,9 +25,10 @@ The port of ``repro.launch.evalsuite``, with the port's backend names
 ``--device cpu`` is given).  The encoder is ``--arch``: trove-base (the
 default), qwen2-0.5b, stablelm-3b, gemma-7b, or the MoE stacks
 granite-moe-3b-a800m and llama4-maverick-400b-a17b (``--smoke``: its
-``reduced()`` form in float32), with seeded random weights; any other
-architecture raises naming its ROADMAP item, and so does llama4-maverick
-at full width (item 10).  The shared embedding cache
+``reduced()`` form in float32), with seeded random weights; another
+family's arch raises a ValueError (the launchers drive LM encoders only,
+as the reference's do), and llama4-maverick at full width names ROADMAP
+queue 1 item 10.  The shared embedding cache
 is the encoder's own, ``DATA_ROOT/emb_cache/ARCH[-smoke]``
 (``launch.serve.cache_dir``).  Each scenario runs
 through ``RetrievalEvaluator`` -> ``ShardedSearchDriver``, so

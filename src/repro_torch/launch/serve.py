@@ -13,9 +13,11 @@ The port of ``repro.launch.serve``, with the port's backend names
 ``--device cpu`` is given).  ``--arch`` names the encoder: trove-base
 (the default), qwen2-0.5b, stablelm-3b, gemma-7b, or the MoE stacks
 granite-moe-3b-a800m and llama4-maverick-400b-a17b (``--smoke``: its
-``reduced()`` form in float32); any other architecture raises naming
-its ROADMAP item, before any work, and so does llama4-maverick at full
-width (its weights need a mesh across cards, item 10).  The weights are seeded, or with
+``reduced()`` form in float32).  Another family's arch (the GNN, the
+recsys rankers) raises a ValueError before any work: the launchers
+drive LM encoders only, as the reference's do.  llama4-maverick at full
+width raises naming its ROADMAP item (its weights need a mesh across
+cards, item 10).  The weights are seeded, or with
 ``--ckpt-dir DIR`` the ``params`` of the latest checkpoint in ``DIR`` (a
 trainer's ``OUTPUT_DIR/checkpoints``, written by either package).
 The embedding cache is kept per encoder, under
@@ -96,16 +98,18 @@ CARD_BYTES = 80e9
 def lm_config(arch: str, smoke: bool):
     """The encoder config ``--arch`` names: an LM arch of
     ``repro_torch.configs`` (``smoke``: its ``reduced()`` form, float32).
-    Any other family raises naming ROADMAP queue 1 item 8, and a config
-    whose weights alone exceed one card's 80 GB (llama4-maverick at full
-    width, 739 GiB in bf16) item 10, before anything is allocated."""
+    Any other family raises a ValueError (the reference's launchers drive
+    LM encoders only: ``repro/launch/train.py:57`` asserts
+    ``arch.family == "lm"``), and a config whose weights alone exceed one
+    card's 80 GB (llama4-maverick at full width, 739 GiB in bf16) names
+    ROADMAP queue 1 item 10, before anything is allocated."""
     from repro_torch.configs import get_arch
     found = get_arch(arch)
     if found.family != "lm":
-        raise _not_ported(f"--arch {arch}", 8,
-                          f"a retrieval encoder ({arch} is a "
-                          f"{found.family} arch; the port's encoders are "
-                          f"the LM archs)")
+        raise ValueError(
+            f"--arch {arch} is a {found.family} arch: the launchers drive "
+            f"LM encoders only, as the reference's do "
+            f"(repro/launch/train.py:57 asserts arch.family == 'lm')")
     cfg = (found.reduced() if smoke else found).cfg
     n_bytes = cfg.param_count() * cfg.dtype.itemsize
     if n_bytes > CARD_BYTES:

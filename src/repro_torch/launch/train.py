@@ -21,10 +21,12 @@ Every other ``--field value`` goes through ``parse_cli`` to
 configs checkpoint each layer in the backward (``remat``).
 
 An MoE backbone adds ``aux_loss_weight`` (0.01) x its load-balance
-loss to the contrastive loss and logs it as ``moe_aux_loss``.  Not
-ported yet, and raising: an ``--arch`` outside the LM encoders (ROADMAP
-queue 1 item 8), llama4-maverick at full width and ``--mesh pod |
-multipod`` / ``--multi-pod`` (item 10).  ``main`` returns the trainer and its final state.
+loss to the contrastive loss and logs it as ``moe_aux_loss``.  An
+``--arch`` outside the LM encoders (the GNN, the recsys rankers) raises
+a ValueError, as the reference's launcher drives LM encoders only.  Not
+ported yet, and raising: llama4-maverick at full width and ``--mesh pod
+| multipod`` / ``--multi-pod`` (ROADMAP queue 1 item 10).  ``main``
+returns the trainer and its final state.
 """
 
 from __future__ import annotations

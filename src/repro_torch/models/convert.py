@@ -1,7 +1,8 @@
 """Carry the reference package's parameters across to the port.
 
-``params_from_jax`` (encoder) and ``recsys_params_from_jax`` (recsys
-rankers) take ``repro``'s parameter pytree with numpy leaves (e.g.
+``params_from_jax`` (encoder), ``recsys_params_from_jax`` (recsys
+rankers) and ``gnn_params_from_jax`` (GraphSAGE) take ``repro``'s
+parameter pytree with numpy leaves (e.g.
 ``jax.tree.map(np.asarray, params)``) and return the port's parameter
 dict: same keys, same shapes, tensors of ``cfg.dtype`` on ``device``.
 Both packages then compute the same function.  ``cache_from_jax`` carries
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import recsys
+from repro_torch.models import gnn, recsys
 from repro_torch.models.transformer import LMConfig, Params, param_shapes
 
 
@@ -57,6 +58,14 @@ def recsys_params_from_jax(tree: dict, cfg: recsys.RecSysConfig,
     """Reference recsys parameter dict (numpy leaves) -> the port's
     params."""
     return _convert(recsys.param_shapes(cfg), tree, "", cfg.dtype,
+                    resolve_device(device))
+
+
+def gnn_params_from_jax(tree: dict, cfg: gnn.SAGEConfig,
+                        device: str | torch.device = "cuda") -> gnn.Params:
+    """Reference GraphSAGE parameter dict (numpy leaves) -> the port's
+    params."""
+    return _convert(gnn.param_shapes(cfg), tree, "", cfg.dtype,
                     resolve_device(device))
 
 

@@ -1,7 +1,9 @@
 """Encoder wrappers + registry (paper §3.3 / Appendix B).
 
 An encoder bundles ``encode(params, batch) -> (B, d)`` embeddings, input
-formatting callbacks and parameter construction.  Subclasses register
+formatting callbacks and parameter construction: the LM encoders over a
+transformer backbone, and :class:`GNNEncoder` (alias ``"gnn"``) over
+GraphSAGE.  Subclasses register
 under ``_alias`` so experiments swap encoders by name; any object with
 the same duck-type also works.
 """
@@ -12,7 +14,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import gnn, transformer
 
 ENCODER_REGISTRY: dict[str, type["PretrainedEncoder"]] = {}
 
@@ -85,3 +87,36 @@ class MeanPoolEncoder(DefaultEncoder):
 
     def __init__(self, cfg: transformer.LMConfig):
         super().__init__(dataclasses.replace(cfg, pooling="mean"))
+
+
+class GNNEncoder(PretrainedEncoder):
+    """GraphSAGE node / graph encoder for graph retrieval.  ``encode``
+    takes the reference's batches: ``feats0`` / ``feats1`` / ``feats2``
+    (sampled blocks), ``x`` / ``edges`` / ``edge_mask`` / ``node_mask``
+    (batched small graphs) or ``x`` / ``edge_src`` / ``edge_dst`` (one
+    full graph, with an optional prebuilt ``table``, its
+    ``gnn.neighbor_table``)."""
+
+    _alias = "gnn"
+
+    def __init__(self, cfg: gnn.SAGEConfig):
+        self.cfg = cfg
+
+    def param_shapes(self) -> dict[str, tuple[int, ...]]:
+        return gnn.param_shapes(self.cfg)
+
+    def init_params(self, generator, device="cuda"):
+        return gnn.init_params(self.cfg, generator, device)
+
+    def encode(self, params, batch):
+        if "feats2" in batch:
+            return gnn.forward_minibatch(
+                self.cfg, params, batch["feats0"], batch["feats1"],
+                batch["feats2"])
+        if "node_mask" in batch:
+            return gnn.forward_batched_graphs(
+                self.cfg, params, batch["x"], batch["edges"],
+                batch["edge_mask"], batch["node_mask"])
+        return gnn.forward_full(
+            self.cfg, params, batch["x"], batch["edge_src"],
+            batch["edge_dst"], batch.get("table"))

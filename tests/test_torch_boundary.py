@@ -67,7 +67,10 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.configs.stablelm_3b",
             "repro_torch.configs.gemma_7b",
             "repro_torch.configs.granite_moe_3b_a800m",
-            "repro_torch.configs.llama4_maverick_400b_a17b"} <= set(
+            "repro_torch.configs.llama4_maverick_400b_a17b",
+            "repro_torch.configs.gnn_arch",
+            "repro_torch.configs.graphsage_reddit",
+            "repro_torch.models.gnn", "repro_torch.data.graph"} <= set(
                 out["imported"])
     leaked = [m for m in out["loaded"]
               if m in ("jax", "repro") or m.startswith(("jax.", "repro."))]

@@ -319,12 +319,13 @@ def test_evalsuite_cli_workers_and_no_cache(tmp_path):
 
 
 def test_evalsuite_cli_refusals(tmp_path):
-    """An arch that is no LM encoder of the port names the ROADMAP item
-    that brings it (qwen2-0.5b is one now: test_evalsuite_cli_lm_arch);
-    no card and no ``--device cpu`` raises instead of moving to the
-    CPU."""
+    """An arch of another family than the LM encoders (the GNN, a recsys
+    ranker) raises a ValueError before any work, as the reference's
+    launchers drive LM encoders only (qwen2-0.5b is one:
+    test_evalsuite_cli_lm_arch); no card and no ``--device cpu`` raises
+    instead of moving to the CPU."""
     for arch in ("graphsage-reddit", "deepfm"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        with pytest.raises(ValueError, match="LM encoders only"):
             evalsuite.main(["--arch", arch, "--device", "cpu",
                             "--data-root", str(tmp_path / "data")])
     assert not os.path.exists(tmp_path / "data")

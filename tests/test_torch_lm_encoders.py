@@ -143,10 +143,14 @@ def test_trove_base_is_an_lm_arch_too():
     assert arch.reduced().cfg == trove_base.reduced()
 
 
-@pytest.mark.parametrize("name,item", [("graphsage-reddit", "8d")])
-def test_unported_archs_name_their_item(name, item):
-    with pytest.raises(NotImplementedError, match=f"item 8, {item}"):
-        get_arch(name)
+def test_every_reference_arch_is_ported():
+    """Every architecture of ``repro.configs`` has the port's, the GNN
+    included (``tests/test_torch_gnn.py`` holds it against the
+    reference)."""
+    from repro.configs import ARCH_MODULES as REF_MODULES
+    from repro_torch.configs import ARCH_MODULES
+    assert set(ARCH_MODULES) == set(REF_MODULES)
+    assert get_arch("graphsage-reddit").family == "gnn"
 
 
 @pytest.mark.parametrize("name", ARCHS)

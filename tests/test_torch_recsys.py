@@ -172,12 +172,11 @@ def test_unported_parts_raise():
     with pytest.raises(NotImplementedError, match="mesh"):
         recsys.forward(arch.cfg, params, tb, mesh=object())
     # gemma-7b and the MoE archs are LM encoders of the port now
-    # (tests/test_torch_lm_encoders.py, tests/test_torch_moe.py); the GNN
-    # arch names its ROADMAP item
+    # (tests/test_torch_lm_encoders.py, tests/test_torch_moe.py), and the
+    # GNN is ported too (tests/test_torch_gnn.py)
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        get_arch("graphsage-reddit")
+    assert get_arch("graphsage-reddit").family == "gnn"
 
 
 def test_init_params_follow_reference_rule():

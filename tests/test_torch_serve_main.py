@@ -144,15 +144,18 @@ def test_serve_main_ivf_resolves_every_request(tmp_path_factory, mode):
 # --resilient / --chaos / --round-deadline-s (item 4), --index-impl ivf
 # (item 6) and --ckpt-dir (item 7, test_serve_main_ckpt_dir_serves_the_
 # trained_params) are ported now and left this list; the other cases keep
-# their ids (the MoE archs are ported too, so "moe-item 8" now names the
-# GNN arch, which still raises)
-@pytest.mark.parametrize("extra,match", (
-    pytest.param(["--arch", "deepfm"], "item 8", id="extra5-item 8"),
-    pytest.param(["--arch", "graphsage-reddit"], "item 8",
-                 id="moe-item 8"),
+# their ids (the MoE archs are ported too, so "moe-item 8" names the GNN
+# arch; the GNN is ported now as well, and a recsys or GNN arch raises a
+# ValueError, as the reference's launchers drive LM encoders only)
+@pytest.mark.parametrize("extra,error,match", (
+    pytest.param(["--arch", "deepfm"], ValueError,
+                 "recsys arch.*LM encoders only", id="extra5-item 8"),
+    pytest.param(["--arch", "graphsage-reddit"], ValueError,
+                 "gnn arch.*LM encoders only", id="moe-item 8"),
 ))
-def test_unported_flags_raise_naming_their_item(tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_unported_flags_raise_naming_their_item(tmp_path, extra, error,
+                                                match):
+    with pytest.raises(error, match=match):
         serve.main(SMOKE + ["--data-dir", str(tmp_path), *extra])
     assert not os.listdir(tmp_path)          # raised before any work
 
