@@ -68,8 +68,9 @@ Phases, each printing its own lines:
       (g), each W > 1 path of (h), each fault path of (i), each data
       path of (j), each IVF path of (k), each training path of (l) and
       each recsys training path of (m), each LM encoder path of (n),
-      each LM training path of (o), each MoE path of (p) and each
-      decode path of (q), and read just after; each kernel
+      each LM training path of (o), each MoE path of (p), each
+      decode path of (q), each GNN path of (r) and each card path of (s),
+      and read just after; each kernel
       of that path must have launched exactly as
       often as predicted (``ShardedSearchDriver.stats`` on (c) / (g) /
       (h), summed over ranks, and on (d) and (i) over every round of the
@@ -255,7 +256,7 @@ Phases, each printing its own lines:
       qwen2-0.5b (24 x 896, GQA 14 / 2, QKV biases), stablelm-3b (32 x
       2560, head_dim 80, LayerNorm) and gemma-7b (28 x 3072, 16 x 256,
       GeGLU, the bf16 sqrt(d) embedding scale): (n1) ``evaluate`` over
-      (c)'s recipe at 4096 docs (256 queries) on (fused, kernel), (torch,
+      (c)'s recipe at N1_DOCS docs (256 queries) on (fused, kernel), (torch,
       kernel) and (torch, torch), (torch, kernel) == (torch, torch)
       bitwise, fused within
       TOL of torch, K1's scores within TOL of a float64 host product of
@@ -352,7 +353,23 @@ Phases, each printing its own lines:
       pairs (each score's kernel heap bitwise its torch heap, its python
       heap equal off exact ties).  Launches: K4 per layer mean and for
       the pairs' rows, K4T per mean past layer 0 and for the pairs' rows,
-      0 on minibatch_lg; the search's K1 as the driver predicts.
+      0 on minibatch_lg; the search's K1 as the driver predicts;
+  (s) the analysis tools (``repro_torch.launch.{dryrun,roofline,memmodel,
+      report}``): (s1) ``dryrun.run_cell`` for all 40 (arch x shape) cells
+      at published shape on meta, on the host (a pool of S_WORKERS
+      processes forked from a preloaded fork server; nothing reaches the
+      card), each record complete with FLOPs > 0 and the ``flops_source``
+      its step gives (``analytic: file:line`` where the step reads a
+      device value on the host: the LM serve cells, the full and batched
+      graphs), ``report.table`` printed as one line; (s2) qwen2-0.5b
+      train_4k at (o2)'s 4 x 4096, DeepFM train_batch (K4, K4T) and
+      graphsage-reddit minibatch_lg stepped on the card: a warm step, one
+      step under ``CostMode`` whose FLOPs by dtype, bytes and kernel
+      reports must equal, as integers, the meta count of the same cell at
+      the same shape, three steps in CUDA events (the peak over the last),
+      printed against the counted roofline bound, the bound with
+      ``analytic_bytes`` and the memory model's total (no ratio asserted).
+      Launches: DeepFM's K4 and K4T twice a step, 0 elsewhere.
 Each phase's wall seconds follow it (``[a] (x) ...: N s``), all of them
 on one ``[a] seconds by phase`` line at the end.
 The second-to-last line is the ``kernels`` JSON object; the last line is
@@ -394,9 +411,6 @@ TRAIN_SHAPE = "train_batch"
 # Cycles the card spins before each timed call (~0.2 ms at 1.98 GHz:
 # longer than a wrapper takes to enqueue one launch).
 SPIN_CYCLES = 400_000
-# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
-# and device memory bandwidth.
-F32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
 # (timing entry, call, reset, kernel names) of each K1 / K2 timing whose
 # two kernels torch.profiler times after the last phase: its CUDA tracing
 # may leave a cost on every launch that follows it.
@@ -828,6 +842,7 @@ def k1_time(dev, queries, tile, offs, nvs, shape: str,
     import torch
 
     from repro_torch.kernels import ops, ref, topk
+    from repro_torch.launch.roofline import bound_ms
     (q, d), s = queries.shape, tile.shape[0]
     docs = tile.view(s * C, d)[:int(nvs.sum())]
     v, i = ops.empty_state(q, K, dev)
@@ -839,9 +854,8 @@ def k1_time(dev, queries, tile, offs, nvs, shape: str,
     def call():
         topk.fused_score_topk_(v, i, queries, tile, offs, nvs)
 
-    t_bytes = (4 * (q * d + s * C * d + 2 * s) + 2 * q * K * 8) / \
-        HBM_BYTES_S * 1e3
-    t_ops = 2 * q * int(nvs.sum()) * d / F32_FLOPS * 1e3
+    bound, bound_by = bound_ms(topk.fused_cost(q, d, s, C, K,
+                                               int(nvs.sum())))
     rows, splits, span = topk.fused_split_plan(q, s * C, topk.sm_count(dev))
     t = {"shape": shape, "tile_rows": rows,
          "splits": splits, "span": span, "ms": median_ms(call, reset),
@@ -849,8 +863,7 @@ def k1_time(dev, queries, tile, offs, nvs, shape: str,
              v, i, queries, tile, offs, nvs), reset),
          "library_ms": median_ms(lambda: torch.topk(queries @ docs.T, K),
                                  reset),
-         "bound_ms": max(t_bytes, t_ops),
-         "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+         "bound_ms": bound, "bound_by": bound_by}
     PROFILED.append((t, call, reset, K1_STAGES))
     print(f"[{phase}] fused_score_topk at {t['shape']} ({splits} range(s) of "
           f"{span} rows, tiles of {rows}): kernel {t['ms']:.4f} ms, plain "
@@ -889,6 +902,7 @@ def k2_timing(dev, unit, q: int, c: int) -> dict:
     import torch
 
     from repro_torch.kernels import ops, ref, topk
+    from repro_torch.launch.roofline import bound_ms
     scores = unit(q, c)
     cids = torch.arange(c, dtype=torch.int32, device=dev)
     v, i = ops.empty_state(q, K, dev)
@@ -903,8 +917,7 @@ def k2_timing(dev, unit, q: int, c: int) -> dict:
     else:
         def library():
             return torch.topk(torch.cat([v, scores], 1), K)
-    t_bytes = (4 * (q * c + c) + 2 * q * K * 8) / HBM_BYTES_S * 1e3
-    t_ops = q * c / F32_FLOPS * 1e3           # one comparison per score
+    bound, bound_by = bound_ms(topk.update_cost(q, c, K))
     sms = topk.sm_count(dev)
     splits, span = topk.split_plan(q, c, sms)
 
@@ -916,8 +929,7 @@ def k2_timing(dev, unit, q: int, c: int) -> dict:
          "plain_ms": median_ms(lambda: ref.topk_update_ref(
              v, i, scores, cids), reset),
          "library_ms": median_ms(library, reset),
-         "bound_ms": max(t_bytes, t_ops),
-         "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+         "bound_ms": bound, "bound_by": bound_by}
     print(f"[b] topk_update at {t['shape']} ({splits} range(s) of {span} "
           f"columns): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
           f"ms, library {t['library_ms']:.4f} ms, bound "
@@ -1191,6 +1203,7 @@ def k4_timings(dev, deepfm, normal) -> list:
 
     from repro_torch.kernels import embedding_bag as bag
     from repro_torch.kernels import ops, ref, topk
+    from repro_torch.launch.roofline import bound_ms
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
 
     def cold():
@@ -1206,9 +1219,8 @@ def k4_timings(dev, deepfm, normal) -> list:
         psw = torch.ones(b, n_slots, device=dev)        # w * mask
         rows = int(torch.unique(idx[idx >= 0]).numel())
         for d, table in tables.items():
-            nbytes = 4 * (idx.numel() + rows * d + b * d)
-            t_bytes = nbytes / HBM_BYTES_S * 1e3
-            t_ops = 2 * b * n_slots * d / F32_FLOPS * 1e3
+            bound, bound_by = bound_ms(bag.bag_cost(b, n_slots, d, 4,
+                                                    False, rows))
             plan = bag.bag_plan(b, n_slots, d, 4, topk.sm_count(dev))
             t = {"shape": f"{shape} B={b} L={n_slots} D={d}",
                  "distinct_rows": rows, "plan": list(plan),
@@ -1219,8 +1231,7 @@ def k4_timings(dev, deepfm, normal) -> list:
                  "library_ms": median_ms(lambda: F.embedding_bag(
                      lib_idx, table, per_sample_weights=psw, mode="sum"),
                      cold),
-                 "bound_ms": max(t_bytes, t_ops),
-                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+                 "bound_ms": bound, "bound_by": bound_by}
             timings.append(t)
             print(f"[b] embedding_bag at {t['shape']} ({rows} distinct "
                   f"rows, plan (bags, pass) {plan}): kernel {t['ms']:.4f} "
@@ -1469,6 +1480,7 @@ def k4t_timings(dev, deepfm, wide, normal, g) -> list:
     from repro_torch.kernels import _build
     from repro_torch.kernels import embedding_bag as bag
     from repro_torch.kernels import ops, ref, topk
+    from repro_torch.launch.roofline import bound_ms
 
     def nothing():
         pass
@@ -1489,9 +1501,9 @@ def k4t_timings(dev, deepfm, wide, normal, g) -> list:
         keys, order = bag.backward_keys(idx)
         lib_table = torch.zeros((v, d), device=dev, requires_grad=True)
         lib_out = F.embedding_bag(idx.long(), lib_table, mode="sum")
-        nbytes = 4 * (idx.numel() + b * d + v * d)
-        t_bytes = nbytes / HBM_BYTES_S * 1e3
-        t_ops = 2 * b * n_slots * d / F32_FLOPS * 1e3
+        cost = bag.bag_backward_cost(b, n_slots, v, d, 4, False)
+        nbytes = cost[1]
+        bound, bound_by = bound_ms(cost)
         lib = _build.load_library()
         stream = torch.cuda.current_stream(dev).cuda_stream
         rows, threads, grid = bag.backward_plan(v, d, 4, topk.sm_count(dev))
@@ -1516,8 +1528,7 @@ def k4t_timings(dev, deepfm, wide, normal, g) -> list:
                  grad, idx, v), nothing, n=5),
              "library_ms": median_ms(lambda: torch.autograd.grad(
                  lib_out, lib_table, grad, retain_graph=True), nothing),
-             "bound_ms": max(t_bytes, t_ops), "bound_bytes": nbytes,
-             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+             "bound_ms": bound, "bound_bytes": nbytes, "bound_by": bound_by}
         timings.append(t)
         print(f"[b] embedding_bag_backward at {t['shape']} "
               f"({t['distinct_rows']} distinct rows, longest run "
@@ -5807,11 +5818,12 @@ def recsys_deterministic(dev, paths: dict) -> None:
 
 N_ARCHS = ("qwen2-0.5b", "stablelm-3b", "gemma-7b")
 N_PAIRS = (("fused", "kernel"), ("torch", "kernel"), ("torch", "torch"))
-# (n1): (c)'s recipe (Q queries, 64 topics, SEED) at a quarter of its
+# (n1): (c)'s recipe (Q queries, 64 topics, SEED) at an eighth of its
 # corpus: the encodes are host-bound, and at 8192 docs (n1)'s 12 passes
-# took 185 s of (n)'s 242 s; 4096 docs gave room to (o), 2048 to (p)
-# (PERF.md §4).  2048 docs are one superchunk of S = 64 chunks of C
-N1_DOCS = 2048
+# took 185 s of (n)'s 242 s; 4096 docs gave room to (o), 2048 to (p),
+# 1024 to (s) (PERF.md §4).  1024 docs are half a superchunk of S = 64
+# chunks of C; (p1) takes the same corpus
+N1_DOCS = 1024
 # (n3): one row of the prefill_32k cell (the reference's batch of 32 is
 # 32 x (B, H, 4096, 32768) float32 score chunks: far past one card), its
 # attention in chunks of the configs' 4096; chunked against one pass at
@@ -7198,9 +7210,6 @@ Q_CUTS = {
     "llama4-maverick-400b-a17b": {"decode_32k": (32, None),
                                   "long_500k": (1, None)},
 }
-# the card's memory rate for the bound (the H100 SXM's published HBM3
-# bandwidth)
-HBM_BYTES_PER_S = 3.35e12
 # (q1): Q1_ROWS x Q1_LEN tokens decoded teacher-forced from an empty cache
 # against lm_logits(forward_hidden) of the same tokens; the float32 run on
 # float32 copies of the first Q1_F32_LAYERS layers (TF32 off), held to the
@@ -7454,7 +7463,8 @@ def decode_cell(dev, card: str, name: str, cfg, params, shape: str,
                       f"differing at MoE layers {flipped})")
     experts = state["experts"]
     read = weight_bytes(params, experts, cfg) if cfg.moe else param_bytes
-    bound = (cache_bytes + read) / HBM_BYTES_PER_S * 1e3
+    from repro_torch.launch.roofline import HBM_BW
+    bound = (cache_bytes + read) / HBM_BW * 1e3
     print(f"[q] {tag} on {card}: step {step:.3f} ms (median of "
           f"{len(ms) - 1}, {'CUDA events' if cuda else 'host clock'}; "
           f"warm-up {ms[0]:.3f}), {b / step * 1e3:,.1f} tokens/s, cache "
@@ -7909,15 +7919,15 @@ def k4_bag_timing(dev, key, table, idx, weights) -> dict:
 
     from repro_torch.kernels import embedding_bag as bag
     from repro_torch.kernels import ref, topk
+    from repro_torch.launch.roofline import bound_ms
     b, n_slots = idx.shape
     v, d = table.shape
     out = torch.empty((b, d), dtype=table.dtype, device=dev)
     lib_idx = idx.long()
     rows = int(torch.unique(idx[(idx >= 0) & (idx < v)]).numel())
-    nbytes = 4 * (idx.numel() * (2 if weights is not None else 1)
-                  + rows * d + b * d)
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = 2 * b * n_slots * d / F32_FLOPS * 1e3
+    cost = bag.bag_cost(b, n_slots, d, 4, weights is not None, rows)
+    nbytes = cost[1]
+    bound, bound_by = bound_ms(cost)
     n = R_BIG_N if b * d * 4 >= R_BIG_BYTES // 8 else 30
 
     def nothing():
@@ -7934,8 +7944,7 @@ def k4_bag_timing(dev, key, table, idx, weights) -> dict:
          "library_ms": median_ms(lambda: F.embedding_bag(
              lib_idx, table, mode="sum", per_sample_weights=weights),
              nothing, n=n),
-         "bound_ms": max(t_bytes, t_ops), "bound_bytes": nbytes,
-         "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+         "bound_ms": bound, "bound_bytes": nbytes, "bound_by": bound_by}
     print(f"[r] (r2) embedding_bag at {t['shape']} ({rows} distinct rows, "
           f"{b * n_slots:,} slots, padding included, plan "
           f"{t['plan']}): kernel {t['ms']:.4f} ms, plain "
@@ -7986,13 +7995,14 @@ def k4t_bag_timing(dev, key, grad, idx, weights, v: int, nonpad: int,
 
     from repro_torch.kernels import embedding_bag as bag
     from repro_torch.kernels import ops, ref, topk
+    from repro_torch.launch.roofline import bound_ms
     b, n_slots = idx.shape
     d = grad.shape[1]
     out = torch.empty((v, d), dtype=grad.dtype, device=dev)
-    nbytes = 4 * (idx.numel() * (2 if weights is not None else 1)
-                  + b * d + v * d)
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = 2 * nonpad * d / F32_FLOPS * 1e3
+    cost = bag.bag_backward_cost(b, n_slots, v, d, 4, weights is not None,
+                                 nonpad)
+    nbytes = cost[1]
+    bound, bound_by = bound_ms(cost)
     n = R_BIG_N if v * d * 4 >= R_BIG_BYTES // 8 else 30
 
     def nothing():
@@ -8016,8 +8026,7 @@ def k4t_bag_timing(dev, key, grad, idx, weights, v: int, nonpad: int,
              out, grad, idx, weights, keys=keys), nothing, n=n),
          "library_ms": median_ms(lambda: torch.autograd.grad(
              lib_out, lib_table, grad, retain_graph=True), nothing, n=n),
-         "bound_ms": max(t_bytes, t_ops), "bound_bytes": nbytes,
-         "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+         "bound_ms": bound, "bound_bytes": nbytes, "bound_by": bound_by}
     del lib_out, lib_table
     rows = min(v, R_HELD_ROWS)
     sub = idx if rows == v else rows_of(idx, 0, rows)
@@ -8253,6 +8262,272 @@ def phase_gnn(dev, card: str) -> tuple[dict, dict]:
                    "fused_score_topk": k1}
 
 
+# -- (s) the analysis tools ----------------------------------------------------
+
+# (s1) the dry run's 40 cells, counted on meta in a pool of S_WORKERS
+# spawned processes (the host's cores; nothing reaches the card), each
+# record held complete; (s2) three cells one card holds, stepped on the
+# card and counted there under CostMode against a meta count of the same
+# cell at the same shape: qwen2-0.5b train_4k at (o2)'s batch, DeepFM's
+# train_batch (K4 and K4T), graphsage-reddit's minibatch_lg
+S_WORKERS = 6
+# modules a meta count imports on its first op (shape inference, the
+# decompositions, symbolic shapes: ~840 modules, up to 14 s a process on
+# a cold host): the pool's fork server imports them once, and each worker
+# forks from it warm
+S_PRELOAD = ("torch._dynamo", "torch._refs", "torch._prims", "torch._decomp",
+             "torch._meta_registrations",
+             "torch.fx.experimental.symbolic_shapes", "sympy",
+             "repro_torch.launch.dryrun")
+S2_CELLS = (("qwen2-0.5b", "train_4k"), ("deepfm", "train_batch"),
+            ("graphsage-reddit", "minibatch_lg"))
+S2_STEPS = 3
+# the record keys every dry-run record carries (the reference's, less the
+# compile's)
+S_RECORD_KEYS = ("arch", "shape", "kind", "n_devices", "memory", "cost",
+                 "collectives", "roofline", "flops_source",
+                 "model_flops_global", "useful_compute_ratio", "wall_s")
+
+
+def host_read_file(arch, shape: str) -> str | None:
+    """The port's file in which a cell's step reads a device value on the
+    host (so the dry run substitutes an analytic count): an LM serve
+    cell's ``decode_step``, a full graph's or the batched graphs'
+    neighbour table; None where the step is counted."""
+    spec = arch.shapes[shape]
+    if arch.family == "lm" and spec["kind"] == "serve":
+        return "src/repro_torch/models/transformer.py"
+    if arch.family == "gnn" and spec["mode"] in ("full", "batched"):
+        return "src/repro_torch/models/gnn.py"
+    return None
+
+
+def s2_arch(name: str):
+    """A (s2) cell's arch: qwen2-0.5b's train_4k cut to (o2)'s batch."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.lm_arch import LMArch
+    arch = get_arch(name)
+    if name != "qwen2-0.5b":
+        return arch
+    return LMArch(arch.cfg, arch.optimizer, shapes={"train_4k": dict(
+        arch.shapes["train_4k"], global_batch=O2_BATCH[name])})
+
+
+def s1_check(rec: dict, arch) -> None:
+    """A dry-run record complete, its FLOPs positive and its
+    ``flops_source`` the one its step gives."""
+    tag = f"(s1) {rec.get('arch')} {rec.get('shape')}"
+    missing = [k for k in S_RECORD_KEYS if k not in rec]
+    cost = rec.get("cost", {})
+    if missing or not {"flops", "flops_by_dtype", "bytes"} <= set(cost) \
+            or "model" not in rec.get("memory", {}) \
+            or not cost["flops"] > 0 or rec["n_devices"] != 1:
+        fail(f"{tag}: record incomplete (missing {missing}, cost {cost})")
+    where = host_read_file(arch, rec["shape"])
+    src = rec["flops_source"]
+    if (src != "counted") if where is None else not src.startswith(
+            f"analytic: {where}:"):
+        fail(f"{tag}: flops_source {src!r}, expected "
+             f"{'counted' if where is None else where}")
+
+
+def s2_inputs(dev, name: str, arch, shape: str):
+    """(params, batch) of a (s2) cell on the card: seeded weights drawn
+    there, the batch as the earlier phases draw it ((o2)'s token rows,
+    (m)'s DeepFM ids, (r1)'s sampled minibatch)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import gnn, recsys, transformer
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    if arch.family == "lm":
+        params = transformer.init_params(arch.cfg, g, dev)
+        return params, arch.smoke_inputs(shape, g, dev)
+    if arch.family == "recsys":
+        params = recsys.init_params(arch.cfg, g, dev)
+        return params, arch.smoke_inputs(shape, np.random.default_rng(SEED),
+                                         dev)
+    params = gnn.init_params(arch.shape_cfg(shape), g, dev)
+    return params, gnn_batch(dev, arch, shape)[0]
+
+
+def s2_cell(dev, card: str, name: str, shape: str, meta_of,
+            paths: dict) -> None:
+    """(s2) one cell on the card: a warm step, one step under CostMode
+    (its FLOPs by dtype, bytes and kernel reports equal to those of the
+    dry run's count of the same cell on meta, ``meta_of()``),
+    S2_STEPS steps in CUDA events, the peak over the last one; the step
+    against its roofline bound (counted, and with ``analytic_bytes``) and
+    the peak against the memory model."""
+    import torch
+
+    from repro_torch.configs.base import init_train_state
+    from repro_torch.launch import report
+    from repro_torch.launch.roofline import CostMode
+    arch = s2_arch(name)
+    held = torch.cuda.memory_allocated(dev)
+    t = time.perf_counter()
+    params, batch = s2_inputs(dev, name, arch, shape)
+    cell = arch.build_cell(shape, device=dev)
+    state = init_train_state(cell, params)
+    torch.cuda.synchronize(dev)
+    mode = CostMode()
+    ms = []
+    wall = {"inputs": time.perf_counter() - t}
+
+    def run():
+        for label, ctx in (("warm", contextlib.nullcontext()),
+                           ("counted", mode)):
+            t = time.perf_counter()
+            with ctx:
+                cell.fn(state, batch)
+            torch.cuda.synchronize(dev)
+            wall[label] = time.perf_counter() - t
+        for i in range(S2_STEPS):
+            if i == S2_STEPS - 1:
+                torch.cuda.synchronize(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            cell.fn(state, batch)
+            end.record()
+            torch.cuda.synchronize(dev)
+            ms.append(start.elapsed_time(end))
+
+    steps = 2 + S2_STEPS
+    want = (bag_launches("deepfm", steps, steps) if name == "deepfm"
+            else no_launches(None))
+    on_path(paths, f"(s2) {name} {shape}",
+            "embedding_bag" if name == "deepfm" else None, run,
+            lambda _: want)
+    peak = torch.cuda.max_memory_allocated(dev)
+    card_cost = mode.cost()
+    meta = meta_of()
+    for key in ("flops_by_dtype", "bytes"):
+        if card_cost[key] != meta["cost"][key]:
+            fail(f"(s2) {name} {shape}: the card's {key} {card_cost[key]} "
+                 f"!= meta's {meta['cost'][key]}")
+    if mode.kernels != meta["kernels"]:
+        fail(f"(s2) {name} {shape}: the card's kernel reports "
+             f"{mode.kernels} != meta's {meta['kernels']}")
+    terms = meta["roofline"]
+    counted_ms = terms["step_lower_bound_s"] * 1e3
+    rm = report.enrich(dict(meta), arch=arch)["roofline_model"]
+    model_ms = rm["step_lower_bound_s"] * 1e3
+    step = statistics.median(ms)
+    mm = meta["memory"]["model"]
+    print(f"[s] (s2) {name} {shape} on {card}: card count = meta count "
+          f"(FLOPs {json.dumps(card_cost['flops_by_dtype'])}, "
+          f"{card_cost['bytes']:,} bytes, {card_cost['transfer_bytes']:,} "
+          f"host-link bytes, kernels {json.dumps(mode.kernels)}; inputs "
+          f"{wall['inputs']:.2f} s, the warm step {wall['warm']:.2f} s, the counted one {wall['counted']:.2f} "
+          f"s on the host clock); step ms "
+          f"{' / '.join(f'{x:.3f}' for x in ms)} (CUDA events, median "
+          f"{step:.3f}); bound {counted_ms:.3f} ms counted "
+          f"({terms['dominant']}), {model_ms:.3f} ms with "
+          f"analytic_bytes ({rm['dominant']}); step / bound "
+          f"{step / counted_ms:.2f} / {step / model_ms:.2f}; peak "
+          f"{gib(peak):.2f} GiB over one step, {gib(peak - held):.2f} of "
+          f"it the cell's ({gib(held):.2f} held before it), against "
+          f"memory_model "
+          f"{gib(mm['total_bytes']):.2f} GiB (state + args "
+          f"{gib(mm['state_and_args_bytes']):.2f}, grad "
+          f"{gib(mm['grad_transient_bytes']):.2f}, activations "
+          f"{gib(mm['activation_bytes']):.2f})")
+    del params, batch, state, cell
+    torch.cuda.empty_cache()
+
+
+def phase_tools(dev, card: str) -> dict:
+    """(s) the analysis tools: (s1) ``dryrun.run_cell`` for all 40 cells at
+    published shape on meta, in a pool of processes forked from a fork
+    server (a fresh interpreter, no thread or CUDA context of this one)
+    that imported S_PRELOAD, each record
+    checked and ``report.table`` printed as one line; (s2) three cells
+    stepped on the card, each counted under CostMode there and held equal
+    to its meta count, timed against its roofline bound, its peak against
+    the memory model.  The pool counts (s2)'s meta cells too, while the
+    first (s2) cell runs on the card.  Returns each path's launch
+    counts."""
+    import concurrent.futures
+    import multiprocessing
+
+    import torch
+
+    from repro_torch.configs import all_cells, get_arch
+    from repro_torch.launch import dryrun, report
+
+    paths: dict = {}
+    t0 = time.perf_counter()
+    done: list = []
+    cells = all_cells()
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(list(S_PRELOAD))
+    # one thread a worker: the counts run no parallel region, and idle
+    # intra-op threads of many processes would crowd the host's cores
+    # the longest counts first: the deepest LM stacks' train cells, then
+    # their prefills
+    def cost_rank(i):
+        arch = get_arch(cells[i][0])
+        if arch.family != "lm":
+            return 2, 0
+        kind = arch.shapes[cells[i][1]]["kind"]
+        return {"train": 0, "encode": 1}.get(kind, 2), -arch.cfg.n_layers
+
+    futs: dict = {}
+
+    def submit_all():
+        """The submits, on a thread: the first waits for the fork server
+        to import S_PRELOAD, while the card steps (s2)'s first cell."""
+        for c in S2_CELLS:
+            futs[c] = pool.submit(dryrun.run_cell, *c, arch=s2_arch(c[0]))
+        for i in sorted(range(len(cells)), key=cost_rank):
+            futs[i] = pool.submit(dryrun.run_cell, *cells[i])
+            futs[i].add_done_callback(
+                lambda _: done.append(time.perf_counter()))
+
+    def result(key):
+        feeder.join()
+        return futs[key].result()
+
+    with concurrent.futures.ProcessPoolExecutor(
+            S_WORKERS, mp_context=ctx, initializer=torch.set_num_threads,
+            initargs=(1,)) as pool:
+        feeder = threading.Thread(target=submit_all)
+        feeder.start()
+        try:
+            s2_cell(dev, card, *S2_CELLS[0],
+                    lambda: result(S2_CELLS[0]), paths)
+        finally:
+            feeder.join()
+        card_s = time.perf_counter() - t0
+        recs = [futs[i].result() for i in range(len(cells))]
+        metas = {c: futs[c].result() for c in S2_CELLS[1:]}
+    # the fork server outlives the pool: stop it too
+    server = getattr(multiprocessing.forkserver, "_forkserver", None)
+    if server is not None and hasattr(server, "_stop"):
+        server._stop()
+    pool_s = time.perf_counter() - t0
+    for rec in recs:
+        s1_check(rec, get_arch(rec["arch"]))
+        r, mm = rec["roofline"], rec["memory"]["model"]
+        print(f"[s] (s1) {rec['arch']} {rec['shape']}: FLOPs "
+              f"{rec['cost']['flops']:.4e} {rec['flops_source']}, bytes "
+              f"{rec['cost']['bytes']:.4e}, memory {mm['total_bytes'] / 1e9:.2f}"
+              f" GB{'' if mm['fits_80GB'] else ' (!)'}, bound "
+              f"{r['step_lower_bound_s'] * 1e3:.3f} ms ({r['dominant']}), "
+              f"counted in {rec['wall_s']:.1f} s")
+    table = report.table([report.enrich(r) for r in recs])
+    print(f"[s] (s1) {len(recs)} cells on meta in {max(done) - t0:.1f} s "
+          f"({S_WORKERS} processes, beside (s2)'s first cell on the card, "
+          f"{card_s:.1f} s; both {pool_s:.1f} s), for one H100 ({card}): "
+          f"report.table {json.dumps(table)}")
+    for c in S2_CELLS[1:]:
+        s2_cell(dev, card, *c, lambda c=c: metas[c], paths)
+    return paths
+
+
 def main() -> int:
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
@@ -8329,6 +8604,7 @@ def main() -> int:
     paths.update(gnn_paths)
     for name, rows in gnn_timings.items():
         kernels[name]["timings"] += rows
+    paths.update(timed("(s) tools", phase_tools, dev, card))
 
     def profile():
         for t, call, reset, names in PROFILED:

@@ -25,9 +25,23 @@ ARCH_MODULES = {
 }
 
 
+# the reference's dry-run architectures, in its order (trove-base is not
+# one of its cells)
+ARCH_NAMES = ["gemma-7b", "qwen2-0.5b", "stablelm-3b",
+              "granite-moe-3b-a800m", "llama4-maverick-400b-a17b",
+              "graphsage-reddit", "bst", "autoint", "deepfm", "wide-deep"]
+
+
 def get_arch(name: str):
     if name not in ARCH_MODULES:
         raise KeyError(
             f"unknown arch {name!r}; available: {sorted(ARCH_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{ARCH_MODULES[name]}")
     return mod.get_arch()
+
+
+def all_cells() -> list[tuple[str, str]]:
+    """The 40 (arch x shape) cells of the reference's dry run, in its
+    order."""
+    return [(name, shape) for name in ARCH_NAMES
+            for shape in get_arch(name).shape_names()]

@@ -78,6 +78,12 @@ class LMArch:
     def shape_names(self) -> list[str]:
         return list(self.shapes)
 
+    def variant(self, **overrides) -> "LMArch":
+        """A copy with config fields overridden (the hill-climb's
+        candidates, ``launch/hillclimb.py``), same optimizer and shapes."""
+        return LMArch(dataclasses.replace(self.cfg, **overrides),
+                      optimizer=self.optimizer, shapes=self.shapes)
+
     def _contrastive_loss(self):
         """The reference's contrastive step loss: queries through
         ``encode``, passages through ``forward_hidden`` and ``pool``,

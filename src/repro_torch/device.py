@@ -4,6 +4,9 @@ Every entry point takes an explicit ``device`` and defaults to ``"cuda"``:
 the port runs on the card unless the caller asks for the CPU.  Where no
 CUDA device is present and the caller did not pass ``device="cpu"``,
 :func:`resolve_device` raises — there is no silent CPU fallback.
+``"meta"`` is accepted too: its tensors hold shapes and no data, so a
+step on them computes nothing (the dry run, ``launch/dryrun.py``, counts
+a cell's FLOPs and bytes that way); it is not a CPU fallback.
 """
 
 from __future__ import annotations
@@ -15,13 +18,15 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """``device`` as a :class:`torch.device`, checked to be usable.
 
     A CUDA device also switches TF32 off for matrix products and
-    convolutions (:func:`require_full_f32`).
+    convolutions (:func:`require_full_f32`).  A ``meta`` device is
+    returned as it is: it allocates and computes nothing.
     """
     dev = torch.device(device)
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return dev
     if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
+        raise ValueError(f"unsupported device {dev}; expected cuda, cpu "
+                         f"or meta")
     if not torch.cuda.is_available():
         raise RuntimeError(
             f"device {dev} requested but no CUDA device is available; "

@@ -18,8 +18,11 @@ anything else.  For CPU tensors it runs the plain version
 (``kernels/ref.py``); for CUDA tensors it launches the kernel on the
 current stream (K4 in the tiles and slot passes of :func:`bag_plan`, K4T
 in the row tiles of :func:`backward_plan`), or raises — there is no
-fallback.  Each launch adds one to its kernel's entry of
-:data:`LAUNCHES`.
+fallback; for meta tensors (the dry run's) it runs the same checks, and
+K4T its sort, and launches nothing.  Each launch adds one to its
+kernel's entry of :data:`LAUNCHES`.  On the card and on meta a call
+hands its float32 operations and bytes (:func:`bag_cost`,
+:func:`bag_backward_cost`) to an active ``launch.roofline.CostMode``.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.topk import (LAUNCH_LOCK, _MAX_SMEM, _check,
-                                      _launch, count_launch, sm_count)
+                                      _launch, check_device, count_launch,
+                                      report_cost, sm_count)
 
 TABLE_DTYPES = (torch.float32, torch.bfloat16)
 # A block's threads at most, and the longest slot pass the kernel's
@@ -73,6 +77,36 @@ def reset_launch_counts() -> None:
     with LAUNCH_LOCK:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+
+
+def bag_cost(b: int, n_slots: int, dim: int, elt_bytes: int,
+             weighted: bool, rows: int | None = None) -> tuple[int, int]:
+    """K4's work on B bags of L = ``n_slots`` over a table of ``dim``
+    columns of ``elt_bytes``: (float32 operations, 2 a slot and column,
+    padding included; bytes: the ids (and weights) read once, ``rows``
+    table rows read once and the (B, D) output written).  ``rows``
+    defaults to every slot, padding included (the wrapper cannot see the
+    ids without a sync); a caller that knows the distinct rows the ids
+    touch passes them."""
+    rows = b * n_slots if rows is None else rows
+    return (2 * b * n_slots * dim,
+            4 * b * n_slots * (2 if weighted else 1)
+            + elt_bytes * (rows + b) * dim)
+
+
+def bag_backward_cost(b: int, n_slots: int, v: int, dim: int,
+                      elt_bytes: int, weighted: bool,
+                      slots: int | None = None) -> tuple[int, int]:
+    """K4T's kernel's work for a (V, D) gradient from B bags of L slots:
+    (float32 operations, 2 a slot and column, ``slots`` defaulting to
+    every slot, padding included; bytes: the ids (and weights) and the
+    (B, D) gradient read once, the dense (V, D) output written once).
+    The sort before it (:func:`backward_keys`) is torch's, counted as its
+    own operations."""
+    slots = b * n_slots if slots is None else slots
+    return (2 * slots * dim,
+            4 * b * n_slots * (2 if weighted else 1)
+            + elt_bytes * (b + v) * dim)
 
 
 def vector_bytes(dim: int, elt_bytes: int) -> int:
@@ -143,13 +177,16 @@ def embedding_bag_(out: torch.Tensor, table: torch.Tensor, idx: torch.Tensor,
     if dev.type == "cpu":
         out.copy_(ref.embedding_bag_ref(table, idx, weights))
         return
-    if dev.type != "cuda":
-        raise ValueError(f"the kernels take CUDA or CPU tensors, got {dev}")
+    check_device(dev)
     if b * d == 0:
         return
     if tile_smem(1, n_slots, weights is not None) > _MAX_SMEM:
         raise ValueError(f"L={n_slots} slots: one bag's ids and weights "
                          f"pass a block's {_MAX_SMEM} bytes of shared memory")
+    cost = bag_cost(b, n_slots, d, table.element_size(), weights is not None)
+    if dev.type == "meta":
+        report_cost("embedding_bag", cost)
+        return
     bags, n_pass = bag_plan(b, n_slots, d, table.element_size(),
                             sm_count(dev))
     from repro_torch.kernels._build import load_library
@@ -161,6 +198,7 @@ def embedding_bag_(out: torch.Tensor, table: torch.Tensor, idx: torch.Tensor,
                 v, d, bags, n_pass, out.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     count_launch(LAUNCHES, "embedding_bag")
+    report_cost("embedding_bag", cost)
 
 
 def _round16(x: int) -> int:
@@ -325,8 +363,7 @@ def embedding_bag_backward_(out: torch.Tensor, grad_out: torch.Tensor,
     if dev.type == "cpu":
         out.copy_(ref.embedding_bag_backward_ref(grad_out, idx, v, weights))
         return
-    if dev.type != "cuda":
-        raise ValueError(f"the kernels take CUDA or CPU tensors, got {dev}")
+    check_device(dev)
     n = b * n_slots
     if n >= 2 ** 31:
         raise ValueError(f"B*L = {n} ids: flat positions pass int32")
@@ -336,6 +373,15 @@ def embedding_bag_backward_(out: torch.Tensor, grad_out: torch.Tensor,
         raise ValueError(f"D={d}: K4T adds a row's columns with a thread "
                          f"each, at most 1024")
     elt = grad_out.element_size()
+    cost = bag_backward_cost(b, n_slots, v, d, elt, weights is not None)
+    if dev.type == "meta":
+        # the card's sort, so a meta count holds the same operations
+        if keys is not None:
+            keys.sorted()
+        else:
+            backward_keys(idx)
+        report_cost("embedding_bag_backward", cost)
+        return
     rows, threads, grid = backward_plan(v, d, elt, sm_count(dev))
     if backward_smem(rows, threads, d) > _MAX_SMEM:
         raise ValueError(f"D={d}: one row of K4T's tile passes a block's "
@@ -352,3 +398,4 @@ def embedding_bag_backward_(out: torch.Tensor, grad_out: torch.Tensor,
                 rows, threads, grid, backward_entry_work(d), out.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     count_launch(LAUNCHES, "embedding_bag_backward")
+    report_cost("embedding_bag_backward", cost)

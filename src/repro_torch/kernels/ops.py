@@ -10,7 +10,10 @@ state, and a superchunk carries per-step ``offsets`` / ``n_valids`` with
 padded steps at ``n_valid == 0``.  The TPU's alignment padding (Q and the
 bags to 8 rows, the chunk axis to 128 lanes) is not carried over: the
 kernels mask ragged edges themselves.  :func:`launch_counts` and
-:func:`reset_launch_counts` cover every kernel's launch count.
+:func:`reset_launch_counts` cover every kernel's launch count.  On meta
+tensors (the dry run's) every operation here runs as on the card, the
+wrappers launching nothing and reporting their cost to an active
+``launch.roofline.CostMode``.
 """
 
 from __future__ import annotations

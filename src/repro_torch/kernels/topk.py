@@ -16,8 +16,13 @@ on an H100 and what its design does about it.
 A wrapper checks device, dtype, shape and contiguity and raises on
 anything else.  For CPU tensors it runs the plain version
 (``kernels/ref.py``); for CUDA tensors it launches the kernel on the
-current stream or raises — there is no fallback.  Each launch adds one
-to the kernel's count in :data:`LAUNCHES`.
+current stream or raises — there is no fallback; for meta tensors (the
+dry run's, which hold no data) it runs the same checks and launches
+nothing.  Each launch adds one to the kernel's count in
+:data:`LAUNCHES`.  On the card and on meta a call hands its float32
+operations and bytes (:func:`fused_cost`, :func:`update_cost`, the bound
+``chip_smoke.py`` reckons) to an active ``launch.roofline.CostMode``
+(:func:`report_cost`), so a meta count and a card count agree.
 """
 
 from __future__ import annotations
@@ -60,6 +65,46 @@ def reset_launch_counts() -> None:
     with LAUNCH_LOCK:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+
+
+def report_cost(name: str, cost: tuple[int, int]) -> None:
+    """Hand one kernel call's ``(float32 operations, bytes)`` to each
+    active dispatch mode that takes kernel reports (a ``kernel_report``
+    method: ``launch.roofline.CostMode``).  The mode stack is the one
+    autograd carries into its backward threads, so a backward's kernel
+    reports too."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    for mode in _get_current_dispatch_mode_stack():
+        take = getattr(mode, "kernel_report", None)
+        if take is not None:
+            take(name, {"float32": cost[0]}, cost[1])
+
+
+def check_device(dev: torch.device) -> None:
+    """Raise unless ``dev`` is one the wrappers take past their plain
+    (CPU) path: a card's, or meta."""
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"the kernels take CUDA, CPU or meta tensors, got "
+                         f"{dev}")
+
+
+def fused_cost(q: int, d: int, s: int, c: int, k: int,
+               rows: int) -> tuple[int, int]:
+    """K1's work on Q queries of width d over an (S, C, d) superchunk of
+    which ``rows`` are scored: (float32 operations, 2 d a query and row;
+    bytes: the queries, the tile and its per-step offsets and counts read
+    once, the (Q, k) state read and written).  The wrapper, which cannot
+    read the counts without a sync, counts every row; a caller that knows
+    them passes the valid rows."""
+    return (2 * q * rows * d,
+            4 * (q * d + s * c * d + 2 * s) + 2 * q * k * 8)
+
+
+def update_cost(q: int, c: int, k: int) -> tuple[int, int]:
+    """K2's work merging a (Q, C) chunk into a (Q, k) state: (one float32
+    comparison a score; bytes: the scores and chunk ids read once, the
+    state read and written)."""
+    return q * c, 4 * (q * c + c) + 2 * q * k * 8
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -127,10 +172,15 @@ def fused_score_topk_(vals: torch.Tensor, ids: torch.Tensor,
         vals.copy_(v)
         ids.copy_(i)
         return
-    rows, n_splits, span = fused_split_plan(q, s * c, sm_count(dev))
+    check_device(dev)
     if s * c + k >= 2 ** 31:
         raise ValueError(f"S*C={s * c} rows: positions k + row must fit in "
                          f"int32")
+    cost = fused_cost(q, d, s, c, k, s * c)
+    if dev.type == "meta":
+        report_cost("fused_score_topk", cost)
+        return
+    rows, n_splits, span = fused_split_plan(q, s * c, sm_count(dev))
     lib = _library_for(dev, k)
     ws_v, ws_p = fused_workspace(q, n_splits, span, k, rows, dev)
     with torch.cuda.device(dev):
@@ -140,6 +190,7 @@ def fused_score_topk_(vals: torch.Tensor, ids: torch.Tensor,
                 ids.data_ptr(), ws_v.data_ptr(), ws_p.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     count_launch(LAUNCHES, "fused_score_topk")
+    report_cost("fused_score_topk", cost)
 
 
 def fused_split_plan(q: int, n: int, sms: int) -> tuple[int, int, int]:
@@ -239,6 +290,10 @@ def topk_update_(vals: torch.Tensor, ids: torch.Tensor,
         vals.copy_(v)
         ids.copy_(i)
         return
+    check_device(dev)
+    if dev.type == "meta":
+        report_cost("topk_update", update_cost(q, c, k))
+        return
     n_splits, span = split_plan(q, c, sm_count(dev))
     if c + span + k >= 2 ** 31:
         raise ValueError(f"C={c} columns: positions k + column must fit "
@@ -252,6 +307,7 @@ def topk_update_(vals: torch.Tensor, ids: torch.Tensor,
                 None if ws_p is None else ws_p.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     count_launch(LAUNCHES, "topk_update")
+    report_cost("topk_update", update_cost(q, c, k))
 
 
 @functools.lru_cache(maxsize=None)
@@ -263,7 +319,8 @@ def sm_count(dev: torch.device) -> int:
 def _cuda_library(dev: torch.device):
     """The loaded kernel library, for tensors on ``dev``."""
     if dev.type != "cuda":
-        raise ValueError(f"the kernels take CUDA or CPU tensors, got {dev}")
+        raise ValueError(f"the kernels take CUDA, CPU or meta tensors, got "
+                         f"{dev}")
     from repro_torch.kernels._build import load_library
     return load_library()
 

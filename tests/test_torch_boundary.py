@@ -70,7 +70,10 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.configs.llama4_maverick_400b_a17b",
             "repro_torch.configs.gnn_arch",
             "repro_torch.configs.graphsage_reddit",
-            "repro_torch.models.gnn", "repro_torch.data.graph"} <= set(
+            "repro_torch.models.gnn", "repro_torch.data.graph",
+            "repro_torch.launch.roofline", "repro_torch.launch.memmodel",
+            "repro_torch.launch.dryrun", "repro_torch.launch.report",
+            "repro_torch.launch.hillclimb"} <= set(
                 out["imported"])
     leaked = [m for m in out["loaded"]
               if m in ("jax", "repro") or m.startswith(("jax.", "repro."))]

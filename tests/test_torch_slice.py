@@ -244,4 +244,6 @@ def test_no_hidden_device(tiny_params):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
     with pytest.raises(ValueError, match="unsupported device"):
-        resolve_device("meta")
+        resolve_device("xpu")
+    # meta computes nothing (the dry run's device): not a CPU fallback
+    assert resolve_device("meta") == torch.device("meta")
