@@ -69,7 +69,8 @@ Phases, each printing its own lines:
       path of (j), each IVF path of (k), each training path of (l) and
       each recsys training path of (m), each LM encoder path of (n),
       each LM training path of (o), each MoE path of (p), each
-      decode path of (q), each GNN path of (r) and each card path of (s),
+      decode path of (q), each GNN path of (r), each card path of (s) and
+      each rank's (t1) run of (t),
       and read just after; each kernel
       of that path must have launched exactly as
       often as predicted (``ShardedSearchDriver.stats`` on (c) / (g) /
@@ -369,7 +370,32 @@ Phases, each printing its own lines:
       the same shape, three steps in CUDA events (the peak over the last),
       printed against the counted roofline bound, the bound with
       ``analytic_bytes`` and the memory model's total (no ratio asserted).
-      Launches: DeepFM's K4 and K4T twice a step, 0 elsewhere.
+      Launches: DeepFM's K4 and K4T twice a step, 0 elsewhere;
+  (t) the device mesh: four rank processes (this script with
+      ``--t-rank``) over a gloo group on the one card, a bound (data 2,
+      model 2) mesh (``repro_torch.sharding``), with the parent computing
+      one-process oracles on the same seeded weights and batches beside
+      them: (t1) DeepFM train_batch at published shape on the psum lookup
+      (K4 over each rank's row shard in bags of one, other shards' ids -1,
+      a bf16 all-reduce over "model"; K4T over the same ids), T_STEPS
+      AdamW steps twice, bitwise equal, every rank's local shapes the
+      rules', the looked-up rows bitwise the bf16 rounding of a one-process
+      lookup, loss and every updated leaf within T_TOL of the parent's
+      one-process step with the lookup rounded to bf16 (a test oracle),
+      K4 / K4T bitwise against their plain versions at each rank's shard
+      shapes; (t2) qwen2-0.5b train_4k at published width cut to
+      T2_LAYERS layers, batch T2_BATCH of T2_LEN tokens, the same checks
+      (bf16: the moments leaf by leaf), then one
+      ``RetrievalTrainer(dp_mode="shard_map")`` int8 step with error
+      feedback, twice, against the oracle's int8 step, then (t2f) the
+      same LM in float32, held entry by entry and on every step's loss;
+      (t3) (t2)'s state saved on (2, 2) through
+      ``CheckpointManager.save(shardings=)`` and restored onto (4, 1) in
+      the same group and onto this process,
+      every leaf bitwise (SHA-256 of each rank's slices); each step's ms
+      and collective bytes per rank printed; K4 / K4T timed at rank (0,
+      0)'s shard shapes.  Launches: K4 and K4T twice a (t1) step on each
+      rank, 0 on (t2) and (t2f).
 Each phase's wall seconds follow it (``[a] (x) ...: N s``), all of them
 on one ``[a] seconds by phase`` line at the end.
 The second-to-last line is the ``kernels`` JSON object; the last line is
@@ -1301,11 +1327,12 @@ def k4t_at_plan(dev, out, grad, idx, weights, plan, keys=None) -> None:
     keys, order = bag.backward_keys(idx) if keys is None else keys
     rows, threads, grid, entry_work = k4t_plan(dev, out, plan)
     b, n_slots = idx.shape
+    nan_cols = torch.empty(out.shape[1], dtype=torch.int32, device=dev)
     code = _build.load_library().repro_embedding_bag_backward(
         grad.data_ptr(), int(grad.dtype == torch.bfloat16), idx.data_ptr(),
         None if weights is None else weights.data_ptr(), keys.data_ptr(),
         order.data_ptr(), b * n_slots, n_slots, out.shape[0], out.shape[1],
-        rows, threads, grid, entry_work, out.data_ptr(),
+        rows, threads, grid, entry_work, nan_cols.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if code != 0:
         fail(f"repro_embedding_bag_backward at plan {plan}: CUDA error "
@@ -1507,12 +1534,14 @@ def k4t_timings(dev, deepfm, wide, normal, g) -> list:
         lib = _build.load_library()
         stream = torch.cuda.current_stream(dev).cuda_stream
         rows, threads, grid = bag.backward_plan(v, d, 4, topk.sm_count(dev))
+        nan_cols = torch.empty(d, dtype=torch.int32, device=dev)
 
         def kernel_only():
             lib.repro_embedding_bag_backward(
                 grad.data_ptr(), 0, idx.data_ptr(), None, keys.data_ptr(),
                 order.data_ptr(), b * n_slots, n_slots, v, d, rows, threads,
-                grid, bag.backward_entry_work(d), out.data_ptr(), stream)
+                grid, bag.backward_entry_work(d), nan_cols.data_ptr(),
+                out.data_ptr(), stream)
 
         runs = torch.unique_consecutive(keys, return_counts=True)[1]
         t = {"shape": f"{label} {TRAIN_SHAPE} B={b} L={n_slots} V={v} "
@@ -5818,12 +5847,12 @@ def recsys_deterministic(dev, paths: dict) -> None:
 
 N_ARCHS = ("qwen2-0.5b", "stablelm-3b", "gemma-7b")
 N_PAIRS = (("fused", "kernel"), ("torch", "kernel"), ("torch", "torch"))
-# (n1): (c)'s recipe (Q queries, 64 topics, SEED) at an eighth of its
+# (n1): (c)'s recipe (Q queries, 64 topics, SEED) at a sixteenth of its
 # corpus: the encodes are host-bound, and at 8192 docs (n1)'s 12 passes
 # took 185 s of (n)'s 242 s; 4096 docs gave room to (o), 2048 to (p),
-# 1024 to (s) (PERF.md §4).  1024 docs are half a superchunk of S = 64
-# chunks of C; (p1) takes the same corpus
-N1_DOCS = 1024
+# 1024 to (s), 512 to (t) (PERF.md §4).  512 docs are a quarter of a
+# superchunk of S = 64 chunks of C; (p1) takes the same corpus
+N1_DOCS = 512
 # (n3): one row of the prefill_32k cell (the reference's batch of 32 is
 # 32 x (B, H, 4096, 32768) float32 score chunks: far past one card), its
 # attention in chunks of the configs' 4096; chunked against one pass at
@@ -7596,6 +7625,10 @@ def decode_turn(dev, card: str, name: str, lm: dict, paths: dict,
             if isinstance(stack, dict):
                 for k in list(stack):
                     stack[k] = stack[k].float()
+                    if cuda:
+                        # the bf16 leaf's block back to the driver: the
+                        # next, larger float32 leaf may not fit a cached one
+                        torch.cuda.empty_cache()
         for k in [k for k, v in params.items() if not isinstance(v, dict)]:
             params[k] = params[k].float()
         if cuda:
@@ -8528,6 +8561,1150 @@ def phase_tools(dev, card: str) -> dict:
     return paths
 
 
+# -- (t) the device mesh: four rank processes on the one card ------------------
+
+# A (data 2, model 2) mesh of T_WORLD rank processes (this script with
+# ``--t-rank``) over a gloo group on the one card.  (t1) DeepFM train_batch
+# at published shape on the psum lookup, (t2) qwen2-0.5b's train_4k cell
+# at published width cut to T2_LAYERS layers, batch T2_BATCH, then one
+# dp_mode="shard_map" int8 trainer step, (t3) the (t2) state saved on
+# (2, 2) and restored onto (4, 1) and onto this process.
+T_WORLD, T_SHAPE, T_AXES = 4, (2, 2), ("data", "model")
+T_JOIN_S = 420
+T_STEPS = 2
+T1_ARCH, T2_ARCH = "deepfm", "qwen2-0.5b"
+T2_LAYERS, T2_BATCH, T2_LEN = 2, 4, 4096
+# Tolerances of a meshed step against the one-process oracle, keyed by
+# the step's dtype, on the state after one AdamW step (t_against_oracle):
+#   * loss: relative, over the first ``loss_steps`` steps (float32: sums
+#     in other orders, every step; bf16: products of other shapes, the
+#     first step: its states differ by the bf16 roundings below, and a
+#     step at temperature 0.02 moves the loss by half; (t2f), the same LM
+#     in float32, holds both);
+#   * float32, entry by entry: each gradient (the first moment over
+#     1 - b1) within ``moment`` x (the sum of |its terms| + T_FLOOR x the
+#     slice's largest such sum) where the oracle counts the terms
+#     (DeepFM's table rows: the bf16-rounded cotangents of the rows'
+#     lookups; 2^-7 is one bf16 unit of a term whose float32 cotangent
+#     rounds the other way, the floor a cotangent that cancels in
+#     float32), else x (|itself| + T_FLOOR x its slice's largest)
+#     (float32 sums in other orders); the second moment within what that
+#     gradient tolerance allows a square.  A parameter whose oracle
+#     gradient is clear of zero (its tolerance cannot flip the sign, and
+#     the two Adam directions g / (|g| + eps) differ by at most
+#     T_STEP_ATOL) within T_STEP_ATOL x lr of the oracle's plus its
+#     rounding (``ulps`` units of float32); where both gradients are 0,
+#     within its rounding (the same decay); elsewhere within 2 lr plus
+#     rounding (opposite directions), on at most ``unclear`` of the
+#     entries that have a gradient;
+#   * bfloat16, leaf by leaf: each moment's error within ``norm`` (four
+#     bf16 units) of the oracle's moment in the 2-norm (the gradients are
+#     bf16 products whose inputs differ by bf16 roundings: entry errors
+#     near the entry itself; (t2f) holds the same path entry by entry); a
+#     parameter whose gradients are both 0 within its rounding (one bf16
+#     unit and 4 of float32), every other within 2 lr plus rounding.
+T_TOL = {"float32": dict(loss=1e-5, loss_steps=T_STEPS, moment=2 ** -7,
+                         ulps=4, unclear=2e-2),
+         "bfloat16": dict(loss=2e-2, loss_steps=1, norm=2 ** -5, ulps=1)}
+T_FLOOR = 2 ** -10
+T_STEP_ATOL = 2 ** -4
+T_LR = 1e-3
+T_CHUNK = 1 << 24           # entries a float64 piece of the leaf check
+T_SLOW_N = 10               # timed calls of K4T and its library (~13 ms)
+T_REDUCED = False           # the reduced archs (a CPU rehearsal)
+
+
+def t_archs(reduced: bool):
+    """(t1)'s DeepFM on the psum lookup and (t2)'s cut qwen2-0.5b (AdamW,
+    train_4k at T2_LEN tokens, batch T2_BATCH), in its dtype (bf16) and
+    in float32."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.lm_arch import LMArch
+    from repro_torch.configs.recsys_arch import RecSysArch
+
+    rec, lm = get_arch(T1_ARCH), get_arch(T2_ARCH)
+    if reduced:
+        rec, lm = rec.reduced(), lm.reduced()
+    deepfm = RecSysArch(dataclasses.replace(rec.cfg, embedding_impl="psum"),
+                        shapes=rec.shapes)
+    cfg = dataclasses.replace(lm.cfg, n_layers=T2_LAYERS)
+    shapes = {"train_4k": dict(kind="train", seq_len=T2_LEN,
+                               global_batch=T2_BATCH)}
+    qwen = LMArch(cfg, "adamw", shapes=shapes)
+    qwen32 = LMArch(dataclasses.replace(cfg, dtype=torch.float32), "adamw",
+                    shapes=shapes)
+    return deepfm, qwen, qwen32
+
+
+def t_inputs(dev, deepfm, qwen, qwen32):
+    """Seeded weights drawn on the card and the global batches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import recsys, transformer
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(SEED)
+
+    return {"deepfm": lambda: recsys.init_params(deepfm.cfg, gen(), dev),
+            "qwen": lambda: transformer.init_params(qwen.cfg, gen(), dev),
+            "qwen32": lambda: transformer.init_params(qwen32.cfg, gen(),
+                                                      dev),
+            "deepfm_batch": deepfm.smoke_inputs(
+                "train_batch", np.random.default_rng(SEED), dev),
+            "qwen_batch": qwen.smoke_inputs("train_4k", gen(), dev)}
+
+
+class _RoundBF16:
+    """x -> bf16 -> float32, the cotangent likewise (the psum lookup's
+    casts and their transpose): an autograd Function made on first use."""
+    fn = None
+
+    @classmethod
+    def apply(cls, x):
+        import torch
+        if cls.fn is None:
+            class Fn(torch.autograd.Function):
+                @staticmethod
+                def forward(ctx, t):
+                    return t.to(torch.bfloat16).float()
+
+                @staticmethod
+                def backward(ctx, g):
+                    return g.to(torch.bfloat16).float()
+            cls.fn = Fn
+        return cls.fn.apply(x)
+
+
+def deepfm_oracle_loss(cfg, abs_sums: dict | None = None):
+    """The one-process test oracle of (t1): DeepFM's forward as the
+    reference computes it on a mesh — the looked-up rows rounded to bf16
+    (cotangent too), the linear term and FM sum over them — on the whole
+    batch with whole tables; BCE.  While ``abs_sums["armed"]``, a
+    backward puts there each table's sums of |its rows' rounded
+    cotangents| (the terms of each row's gradient)."""
+    import torch
+
+    from repro_torch.models import recsys
+    from repro_torch.models.losses import BCELoss
+    bce = BCELoss()
+
+    def lookup(params, name, idx):
+        rows = params[name][idx]
+        if abs_sums and abs_sums.get("armed") and rows.requires_grad:
+            def add(g, table=params[name]):
+                # g: the cotangent after _RoundBF16's rounding
+                acc = torch.zeros_like(table)
+                acc.index_add_(0, idx.reshape(-1),
+                               g.abs().reshape(-1, table.shape[1]))
+                abs_sums[name] = acc
+            rows.register_hook(add)
+        return _RoundBF16.apply(rows)
+
+    def loss_fn(params, b):
+        idx = b["sparse_idx"]
+        n = idx.shape[0]
+        emb = lookup(params, "table", idx)
+        lin = lookup(params, "linear_table", idx)[..., 0].sum(-1)
+        sum_v = emb.sum(1)
+        fm = 0.5 * ((sum_v * sum_v) - (emb * emb).sum(1)).sum(-1)
+        deep = recsys._mlp(params, emb.reshape(n, -1),
+                           recsys._n_mlp(cfg))[:, 0]
+        return bce(lin + fm + deep + params["bias"][0], b["labels"])
+
+    return loss_fn
+
+
+def t_save_tree(d: str, tree) -> None:
+    """Each tensor leaf as ``d/<path>.npy`` (bf16 as its int16 bits)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.training.tree import flatten
+    os.makedirs(d, exist_ok=True)
+    dtypes = {}
+    for path, t in flatten(tree):
+        t = t.detach()
+        dtypes[path] = str(t.dtype).replace("torch.", "")
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        np.save(os.path.join(d, path.replace("/", ".") + ".npy"),
+                t.cpu().numpy())
+    with open(os.path.join(d, "dtypes.json"), "w") as f:
+        json.dump(dtypes, f)
+
+
+def t_index(spec, shape, coords: dict, sizes: dict) -> tuple:
+    """The slices that pick, from a leaf of ``shape``, the piece the rank
+    at mesh ``coords`` (axis -> index, over axis ``sizes``) holds under
+    ``spec``: a dimension split over axes (a, b) is a-major."""
+    from repro_torch.sharding.partitioning import spec_axes
+    index = []
+    for dim, d in enumerate(shape):
+        n, i = 1, 0
+        for a in spec_axes(spec[dim] if dim < len(spec) else None):
+            i, n = i * sizes[a] + coords[a], n * sizes[a]
+        index.append(slice(i * (d // n), (i + 1) * (d // n)))
+    return tuple(index)
+
+
+def t_load_slice(d: str, path: str, spec, coords: dict, sizes: dict, dev):
+    """This rank's slice of an oracle leaf under ``spec``, read through a
+    memory map (only its bytes)."""
+    import numpy as np
+    import torch
+    with open(os.path.join(d, "dtypes.json")) as f:
+        dtype = json.load(f)[path]
+    arr = np.load(os.path.join(d, path.replace("/", ".") + ".npy"),
+                  mmap_mode="r")
+    t = torch.from_numpy(np.array(arr[t_index(spec, arr.shape, coords,
+                                              sizes)])).to(dev)
+    return t.view(torch.bfloat16) if dtype == "bfloat16" else t
+
+
+def t_oracle(dev, deepfm, qwen, qwen32, out_dir: str) -> dict:
+    """The parent's one-process steps on the same weights and batches:
+    (t1) DeepFM with the lookup rounded to bf16, (t2) the cut LM's
+    train_4k cell in bf16 and (t2f) in float32, and the int8 step (the
+    averaged gradient quantized, its residual kept, then clip and AdamW),
+    each state written under ``out_dir`` for the ranks to read their
+    slices of."""
+    import torch
+
+    from repro_torch.configs.base import init_train_state, make_train_cell
+    from repro_torch.training import grad_compression as gc
+    from repro_torch.training.optimizer import (OptimizerConfig,
+                                                adamw_init, adamw_update,
+                                                clip_by_global_norm)
+    from repro_torch.training.tree import flatten, unflatten
+
+    inp = t_inputs(dev, deepfm, qwen, qwen32)
+    out = {}
+    t0 = time.perf_counter()
+    abs_sums: dict = {"armed": True}
+    cell = make_train_cell(T1_ARCH, "train_batch",
+                           loss_fn=deepfm_oracle_loss(deepfm.cfg, abs_sums),
+                           optimizer="adamw")
+    for part, params, batch in (
+            ("t1", inp["deepfm"], inp["deepfm_batch"]),
+            ("t2", inp["qwen"], inp["qwen_batch"]),
+            ("t2f", inp["qwen32"], inp["qwen_batch"])):
+        if part != "t1":
+            cell = (qwen if part == "t2" else qwen32).build_cell(
+                "train_4k", dev)
+        state = init_train_state(cell, params())
+        # the state after the first step, which the ranks hold theirs
+        # against, and every step's loss
+        _, m = cell.fn(state, batch)
+        losses = [float(m["loss"])]
+        t_save_tree(os.path.join(out_dir, part), state)
+        if part == "t1":
+            # the terms' sums in gradient units: clipped as the gradient
+            clip = min(1.0, OptimizerConfig().grad_clip
+                       / max(float(m["grad_norm"]), 1e-9))
+            t_save_tree(os.path.join(out_dir, "t1abs"), {
+                k: abs_sums.pop(k).mul_(clip)
+                for k in ("table", "linear_table")})
+            abs_sums["armed"] = False
+        losses += [float(cell.fn(state, batch)[1]["loss"])
+                   for _ in range(T_STEPS - 1)]
+        t_oracle_done(out_dir, part, {"losses": losses})
+        out[part] = losses
+        del state
+    # the int8 step: one-process gradient, compressed as the trainer's
+    # dp_mode="shard_map" compresses the averaged one
+    params = inp["qwen"]()
+    named = flatten(params)
+    live = [p.detach().requires_grad_(True) for _, p in named]
+    loss = qwen._contrastive_loss()(unflatten(params, live),
+                                    inp["qwen_batch"])
+    grads = torch.autograd.grad(loss, live)
+    deq, ef, quantum = [], [], {}
+    for (path, _), g in zip(named, grads):
+        g = g.float()
+        q, scale = gc.quantize_int8(g)
+        deq.append(gc.dequantize_int8(q, scale))
+        ef.append(g - deq[-1])
+        quantum[path] = float(scale)
+    opt = OptimizerConfig(name="adamw", learning_rate=T_LR)
+    grads, _ = clip_by_global_norm(unflatten(params, deq), opt.grad_clip)
+    adam = adamw_init(opt, params)
+    adamw_update(opt, grads, adam, params, torch.zeros((), dtype=torch.int32))
+    out["int8"] = float(loss.detach())
+    t_save_tree(os.path.join(out_dir, "int8"), {
+        "params": params, "ef": unflatten(params, ef), "opt": adam})
+    t_oracle_done(out_dir, "int8", {"loss": out["int8"],
+                                    "quantum": quantum})
+    del params, grads, adam, deq, ef, live
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def t_oracle_done(out_dir: str, part: str, info: dict) -> None:
+    """Mark one oracle part written (atomically: the ranks poll)."""
+    tmp = os.path.join(out_dir, f"{part}.json.tmp")
+    with open(tmp, "w") as f:
+        json.dump(info, f)
+    os.replace(tmp, os.path.join(out_dir, f"{part}.json"))
+
+
+def k4t_plain(grad, local, v: int):
+    """K4T's plain version at ids whose padding (-1, another shard's ids)
+    is moved past the V rows, where the plain version drops it.  The same
+    bits as the plain version on ``local`` for finite gradients: padding
+    adds ``g * 0``, a signed zero, to row 0's float32 sum, which starts at
+    +0.0 and so keeps its bits; the plain version would make one pass per
+    padding entry on row 0 (half the ids here)."""
+    import torch
+    if not bool(torch.isfinite(grad).all()):
+        fail("(t) K4T held on a non-finite gradient")
+    from repro_torch.kernels import ref
+    return ref.embedding_bag_backward_ref(
+        grad, torch.where(local < 0, v, local), v, None)
+
+
+def t_digest(t) -> str:
+    import hashlib
+
+    import torch
+    raw = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    return hashlib.sha256(raw.cpu().numpy().tobytes()).hexdigest()
+
+
+def t_host_copy(state) -> dict:
+    """A state's leaves (path -> tensor) copied to host memory: the first
+    run's, held against the second's without a second copy on the card."""
+    from repro_torch.training.tree import flatten
+    return {p: t.detach().cpu() for p, t in flatten(state) if p != "step"}
+
+
+def t_bitwise(name: str, a: dict, b: dict) -> None:
+    """Two states' leaves (path -> tensor) bitwise equal."""
+    import torch
+    for path, t in a.items():
+        u = b[path].detach().cpu()
+        raw = t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+        if not torch.equal(raw, u.contiguous().reshape(-1).view(torch.uint8)):
+            fail(f"{name}: {path} differs between two runs")
+
+
+def t_against_oracle(tag: str, state: dict, specs: dict, oracle_dir: str,
+                     mesh, dev, dtype: str, skip: dict | None = None,
+                     abs_dir: str | None = None) -> dict:
+    """Every updated leaf of this rank after one AdamW step against its
+    slice of the oracle's after the same step, under T_TOL[dtype] (see
+    there): entry by entry in float32 (``abs_dir``: the oracle's sums of
+    |terms| for the leaves it has them for), leaf by leaf in bf16.
+    ``skip`` (parameter path -> bool mask) marks entries whose gradients
+    differ by design (an int8 quantum's edge): their moments are not held
+    and their parameters count as unclear.  Checks every leaf before it
+    fails.  Returns the worst ratios seen (moments: error over allowance,
+    the three worst leaves by it; parameters: error past rounding in
+    units of lr, by class) and the classes' counts."""
+    import torch
+
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.tree import flatten
+    tol, cfg = T_TOL[dtype], OptimizerConfig()
+    entrywise = "moment" in tol
+    round_eps = (tol["ulps"] * torch.finfo(getattr(torch, dtype)).eps
+                 + 4 * torch.finfo(torch.float32).eps)
+    flat_specs = dict(flatten(specs))
+    local = dict(flatten(state))
+    sums = {}
+    if abs_dir is not None:
+        with open(os.path.join(abs_dir, "dtypes.json")) as f:
+            sums = json.load(f)
+    worst = {"mu": 0.0, "nu": 0.0, "param_zero": 0.0, "param_clear": 0.0,
+             "param_unclear": 0.0}
+    counts = {"entries": 0, "zero": 0, "clear": 0, "unclear": 0}
+    by_leaf, bad = [], []
+
+    def oracle_slice(d, path, t, spec):
+        want = t_load_slice(d, path, spec, mesh.coords, dict(mesh.shape),
+                            dev)
+        if want.shape != t.shape or want.dtype != t.dtype:
+            fail(f"{tag} {path}: {tuple(t.shape)} {t.dtype} against the "
+                 f"oracle's slice {tuple(want.shape)} {want.dtype}")
+        return want.reshape(-1)
+
+    for path, t in local.items():
+        if not path.startswith("params/"):
+            continue
+        leaf = path[len("params/"):]
+        spec = flat_specs[path]
+        mu, nu = local[f"opt/mu/{leaf}"], local[f"opt/nu/{leaf}"]
+        mu_w = oracle_slice(oracle_dir, f"opt/mu/{leaf}", mu, spec)
+        nu_w = oracle_slice(oracle_dir, f"opt/nu/{leaf}", nu, spec)
+        p_w = oracle_slice(oracle_dir, path, t, spec)
+        terms = (oracle_slice(abs_dir, leaf, mu, spec) if leaf in sums
+                 else None)
+        mu, nu, p = mu.reshape(-1), nu.reshape(-1), t.reshape(-1)
+        off = skip.get(leaf) if skip else None
+        off = None if off is None else off.reshape(-1)
+        g_big = (float(mu_w.abs().max()) / (1 - cfg.b1)
+                 if mu_w.numel() else 0.0)
+        t_big = (float(terms.max()) if terms is not None and terms.numel()
+                 else 0.0)
+        leaf_bad, leaf_worst = {}, 0.0
+        if not entrywise:
+            keep = (slice(None) if off is None else ~off)
+            for k, a, w in (("mu", mu, mu_w), ("nu", nu, nu_w)):
+                a, w = a[keep].double(), w[keep].double()
+                e = float((a - w).norm()) / max(float(w.norm()), 1e-30)
+                worst[k] = max(worst[k], e / tol["norm"])
+                leaf_worst = max(leaf_worst, e / tol["norm"])
+                if e > tol["norm"]:
+                    leaf_bad[k] = round(e, 4)
+        # in float64 pieces: a table shard is 10^8 entries
+        for lo in range(0, p.numel(), T_CHUNK):
+            hi = min(p.numel(), lo + T_CHUNK)
+            held = (torch.ones(hi - lo, dtype=torch.bool, device=dev)
+                    if off is None else ~off[lo:hi])
+            # the oracle's gradient and its allowance tg
+            g = mu_w[lo:hi].double().abs() / (1 - cfg.b1)
+            zero = (mu_w[lo:hi] == 0) & (mu[lo:hi] == 0) & held
+            if entrywise:
+                base = g if terms is None else terms[lo:hi].double()
+                tg = tol["moment"] * (base + T_FLOOR * (
+                    g_big if terms is None else t_big))
+                lim_mu = (1 - cfg.b1) * tg
+                lim_nu = ((1 - cfg.b2) * tg * (2 * g + tg)
+                          + 2 ** -20 * nu_w[lo:hi].double().abs())
+                for k, a, w, lim in (("mu", mu, mu_w, lim_mu),
+                                     ("nu", nu, nu_w, lim_nu)):
+                    e = (a[lo:hi].double() - w[lo:hi].double()).abs()
+                    over = (e > lim) & held
+                    r = torch.where(held & (lim > 0), e / lim,
+                                    torch.where(over, float("inf"), 0.0))
+                    if r.numel():
+                        worst[k] = max(worst[k], float(r.max()))
+                        leaf_worst = max(leaf_worst, float(r.max()))
+                    if bool(over.any()):
+                        leaf_bad[k] = leaf_bad.get(k, 0) + int(over.sum())
+                        if k == "mu":
+                            # the worst entry: its ratio, gradient, base
+                            # of the allowance, error in gradient units
+                            i = int(r.argmax())
+                            leaf_bad["worst"] = [
+                                round(float(r[i]), 3), float(g[i]),
+                                float(base[i]),
+                                float(e[i]) / (1 - cfg.b1)]
+                # clear: tg cannot flip the sign, and the directions
+                # g / (|g| + eps) differ by at most
+                # eps tg / ((g - tg + eps) (g + eps)) <= T_STEP_ATOL
+                clear = ((g > tg) & (cfg.eps * tg <= T_STEP_ATOL * (
+                    g - tg + cfg.eps) * (g + cfg.eps)) & held & ~zero)
+            else:
+                clear = torch.zeros_like(zero)
+            unclear = ~(zero | clear)
+            w = p_w[lo:hi].double()
+            diff = (p[lo:hi].double() - w).abs() - round_eps * (
+                w.abs() + T_LR)
+            for k, m, lim in (("param_zero", zero, 0.0),
+                              ("param_clear", clear, T_STEP_ATOL * T_LR),
+                              ("param_unclear", unclear, 2 * T_LR)):
+                if bool(m.any()):
+                    worst[k] = max(worst[k], float(diff[m].max()) / T_LR)
+                    n = int((diff[m] > lim).sum())
+                    if n:
+                        leaf_bad[k] = leaf_bad.get(k, 0) + n
+            counts["entries"] += hi - lo
+            counts["zero"] += int(zero.sum())
+            counts["clear"] += int(clear.sum())
+            counts["unclear"] += int(unclear.sum())
+        by_leaf.append((round(leaf_worst, 4), leaf))
+        if leaf_bad:
+            bad.append(f"{leaf} {leaf_bad}")
+        del mu_w, nu_w, p_w, terms
+    nonzero = counts["entries"] - counts["zero"]
+    share = counts["unclear"] / max(1, nonzero)
+    out = {**worst, "moment_leaves": sorted(by_leaf, reverse=True)[:3],
+           "unclear_share": share, **counts}
+    if bad or (entrywise and share > tol["unclear"]):
+        fail(f"{tag}: off the oracle beyond T_TOL[{dtype!r}] (by leaf and "
+             f"check) {bad[:12]}; unclear share {share:.3g} (at most "
+             f"{tol.get('unclear')}); worst {json.dumps(out)}")
+    return out
+
+
+def t_losses(tag: str, steps: list, want: list, dtype: str) -> None:
+    """Each step's loss beside the oracle's (recorded in ``steps``), held
+    within the tolerance over T_TOL's ``loss_steps`` first steps."""
+    tol = T_TOL[dtype]
+    for s, (got, w) in enumerate(zip(steps, want)):
+        got["oracle_loss"] = w
+        if s < tol["loss_steps"] and \
+                abs(got["loss"] - w) > tol["loss"] * abs(w):
+            fail(f"{tag} step {s} loss {got['loss']} against the oracle's "
+                 f"{w}")
+
+
+def t_local_shapes(tag: str, state: dict, specs: dict, full_shapes: dict,
+                   mesh) -> None:
+    """Every rank's leaf shapes are the rules' slices of the full ones."""
+    from repro_torch.sharding.partitioning import local_shape
+    from repro_torch.training.tree import flatten
+    flat_specs = dict(flatten(specs))
+    for path, t in flatten(state):
+        if path == "step":
+            continue
+        want = local_shape(full_shapes[path], flat_specs[path], mesh)
+        if tuple(t.shape) != want:
+            fail(f"{tag} {path}: local shape {tuple(t.shape)}, the rules "
+                 f"give {want} of {full_shapes[path]}")
+
+
+def t_wait_oracle(tmp: str, part: str) -> dict:
+    """The parent's oracle ``part`` once it is written."""
+    path = os.path.join(tmp, "oracle", f"{part}.json")
+    deadline = time.monotonic() + T_JOIN_S
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            fail(f"(t) the parent's oracle did not finish in {T_JOIN_S} s")
+        time.sleep(0.2)
+    with open(path) as f:
+        return json.load(f)
+
+
+def t_steps(dev, cell, state, batch, after_first=None) -> tuple:
+    """T_STEPS steps: each one's loss, grad norm, ms (the card synchronised
+    around it) and collective bytes and calls on this rank;
+    ``after_first(state)`` runs between the first and the second."""
+    import torch
+
+    from repro_torch.sharding import collectives
+    out = []
+    for i in range(T_STEPS):
+        if i == 1 and after_first is not None:
+            after_first(state)
+        collectives.reset_counts()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, m = cell.fn(state, batch)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        out.append({"ms": (time.perf_counter() - t0) * 1e3,
+                    "loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"]),
+                    **collectives.counts()})
+    return state, out
+
+
+def t1_rank(dev, mesh, inp, deepfm, tmp: str) -> dict:
+    """(t1) on this rank: the psum lookup's rows against the bf16 rounding
+    of a one-process lookup (bitwise), two runs of T_STEPS steps (launches
+    counted on the first), bitwise equal; local shapes by the rules; every
+    updated leaf against the parent's oracle; K4 and K4T held against
+    their plain versions at this rank's row-shard shapes."""
+    import torch
+
+    from repro_torch.configs.base import init_train_state
+    from repro_torch.kernels import embedding_bag as bag
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import recsys
+    from repro_torch.sharding.layout import batch_shard, batch_specs
+    from repro_torch.training.tree import flatten
+
+    cell = deepfm.build_cell("train_batch", dev, mesh)
+    lay = cell.layout
+    if lay.keep != ("table", "linear_table"):
+        fail(f"(t1) the meshed step keeps {lay.keep} sharded")
+    batch = inp["deepfm_batch"]
+    local_batch = batch_shard(batch, batch_specs(
+        batch, lay.batch_axes, mesh, lay.rules), mesh)
+    idx = local_batch["sparse_idx"]
+    full = inp["deepfm"]()
+    state = init_train_state(cell, full)
+    table = state["params"]["table"]
+    local = recsys.local_ids(idx, table.shape[0], mesh)
+    with torch.no_grad():
+        rows = recsys.embedding_lookup(table, idx, "psum", mesh)
+    want = full["table"][idx].to(torch.bfloat16).float()
+    if not torch.equal(bits(rows), bits(want)):
+        fail("(t1) the psum lookup's rows differ from the bf16 rounding of "
+             "the one-process lookup")
+    full_shapes = {p: tuple(t.shape) for p, t in flatten(
+        {"params": full, "opt": {"mu": full, "nu": full}})}
+    del full, rows, want
+    specs = {"params": lay.param_specs, "opt": lay.opt_specs}
+    cuda = dev.type == "cuda"
+    ops.reset_launch_counts()
+    state, steps = t_steps(dev, cell, state, batch)
+    launches = ops.launch_counts()
+    per = 2 * T_STEPS if cuda else 0
+    expected = {"fused_score_topk": 0, "topk_update": 0,
+                "embedding_bag": per, "embedding_bag_backward": per}
+    if launches != expected:
+        fail(f"(t1) rank {mesh.rank}: launches {launches}, expected "
+             f"{expected}")
+    t_local_shapes("(t1)", {"params": state["params"], "opt": state["opt"]},
+                   specs, full_shapes, mesh)
+    first = t_host_copy(state)
+    del state
+    gaps = {}
+
+    def against(state):
+        # the second run's state after its first step, against the
+        # oracle's after the same step
+        t_wait_oracle(tmp, "t1")
+        gaps.update(t_against_oracle(
+            "(t1)", {"params": state["params"], "opt": state["opt"]}, specs,
+            os.path.join(tmp, "oracle", "t1"), mesh, dev, "float32",
+            abs_dir=os.path.join(tmp, "oracle", "t1abs")))
+
+    state = init_train_state(cell, inp["deepfm"]())
+    state, again = t_steps(dev, cell, state, batch, against)
+    if [s["loss"] for s in again] != [s["loss"] for s in steps]:
+        fail("(t1) two runs' losses differ")
+    t_bitwise("(t1)", first, {p: t for p, t in flatten(state)
+                              if p != "step"})
+    del first
+    t_losses("(t1)", steps, t_wait_oracle(tmp, "t1")["losses"], "float32")
+    # K4 and K4T at this rank's shapes: the shard's rows, bags of one,
+    # other shards' ids -1; bitwise against the plain versions
+    held = []
+    g = torch.Generator(device=dev).manual_seed(SEED + mesh.rank)
+    keys = ops.BagKeys(local)
+    for name in ("table", "linear_table"):
+        t = state["params"][name]
+        got = torch.empty((local.shape[0], t.shape[1]), device=dev)
+        bag.embedding_bag_(got, t, local, None)
+        bag_compare(f"(t1) rank {mesh.rank} {name}", got,
+                    ref.embedding_bag_ref(t, local, None))
+        grad = torch.randn(got.shape, generator=g, device=dev)
+        dt = torch.empty_like(t)
+        bag.embedding_bag_backward_(dt, grad, local, None, keys=keys)
+        bag_compare(f"(t1) rank {mesh.rank} {name}", dt,
+                    k4t_plain(grad, local, t.shape[0]), kernel="K4T")
+        held.append([name, list(local.shape), list(t.shape)])
+        del got, grad, dt
+    return {"steps": steps, "launches": launches, "gaps": gaps,
+            "held": held, "foreign": int((local < 0).sum()),
+            "ids": int(local.numel())}
+
+
+def t2_rank(dev, mesh, inp, qwen, qwen32, tmp: str) -> dict:
+    """(t2) and (t3) on this rank: two runs of the cut LM's train_4k cell
+    on the mesh (bitwise equal; against the oracle), the run's state saved
+    on (2, 2) and restored onto (4, 1), then one dp_mode="shard_map" int8
+    trainer step, twice (bitwise; against the oracle's int8 step), then
+    (t2f): one run of the cell in float32 against its float32 oracle,
+    where every loss is held and the bf16 run's roundings are gone."""
+    import torch
+
+    from repro_torch.configs.base import init_train_state
+    from repro_torch.core.config import RetrievalTrainingArguments
+    from repro_torch.models import transformer
+    from repro_torch.models.encoder import DefaultEncoder
+    from repro_torch.models.retriever import BiEncoderRetriever
+    from repro_torch.training.trainer import RetrievalTrainer
+    from repro_torch.training.tree import flatten
+
+    clock = {"start": time.perf_counter()}
+    dtype = str(qwen.cfg.dtype).replace("torch.", "")
+    cell = qwen.build_cell("train_4k", dev, mesh)
+    lay = cell.layout
+    batch = inp["qwen_batch"]
+    specs = {"params": lay.param_specs, "opt": lay.opt_specs}
+    shapes = transformer.param_shapes(qwen.cfg)
+    full_shapes = {p: tuple(s) for p, s in flatten(
+        {"params": shapes, "opt": {"mu": shapes, "nu": shapes}})}
+    state = init_train_state(cell, inp["qwen"]())
+    state, steps = t_steps(dev, cell, state, batch)
+    t_local_shapes("(t2)", {"params": state["params"], "opt": state["opt"]},
+                   specs, full_shapes, mesh)
+    first = t_host_copy(state)
+    del state
+    gaps = {}
+
+    def against(state):
+        t_wait_oracle(tmp, "t2")
+        gaps.update(t_against_oracle(
+            "(t2)", {"params": state["params"], "opt": state["opt"]}, specs,
+            os.path.join(tmp, "oracle", "t2"), mesh, dev, dtype))
+
+    state = init_train_state(cell, inp["qwen"]())
+    state, again = t_steps(dev, cell, state, batch, against)
+    if [s["loss"] for s in again] != [s["loss"] for s in steps]:
+        fail("(t2) two runs' losses differ")
+    t_bitwise("(t2)", first, {p: t for p, t in flatten(state)
+                              if p != "step"})
+    del first
+    t_losses("(t2)", steps, t_wait_oracle(tmp, "t2")["losses"], dtype)
+    clock["runs"] = time.perf_counter()
+    t3 = t3_rank(dev, mesh, qwen, state, specs, tmp)
+    clock["t3"] = time.perf_counter()
+    del state
+    # the int8 step
+    args = RetrievalTrainingArguments(
+        output_dir=os.path.join(tmp, f"run-{mesh.rank}"),
+        learning_rate=T_LR, warmup_steps=0, max_steps=0, optimizer="adamw",
+        grad_compression="int8", async_checkpoint=False)
+    int8 = []
+    for _ in range(2):
+        trainer = RetrievalTrainer(BiEncoderRetriever(DefaultEncoder(
+            qwen.cfg)), args, mesh=mesh, dp_mode="shard_map", device=dev)
+        st = trainer.init_state(inp["qwen"]())
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        st, m = trainer._step(st, batch)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        int8.append(({p: t for p, t in flatten(st) if p not in (
+            "step", "rng")}, float(m["loss"]),
+            (time.perf_counter() - t0) * 1e3, trainer.specs))
+    (a, loss, ms, tspecs), (b, loss2, _, _) = int8
+    clock["int8"] = time.perf_counter()
+    t_bitwise("(t2) int8", a, b)
+    oracle = t_wait_oracle(tmp, "int8")
+    if loss != loss2 or abs(loss - oracle["loss"]) > \
+            T_TOL[dtype]["loss"] * abs(oracle["loss"]):
+        fail(f"(t2) int8 losses {loss}, {loss2} against the oracle's "
+             f"{oracle['loss']}")
+    full_shapes.update({"ef/" + p: s for p, s in flatten(shapes)})
+    flat_specs = dict(flatten(tspecs))
+    t_local_shapes("(t2) int8", a, {p: flat_specs[p] for p in a},
+                   full_shapes, mesh)
+    # the residuals: a gradient on a quantum's edge rounds the other way
+    # there, one quantum apart
+    ef_gap, edge, on_edge = 0.0, 0, {}
+    for path, t in a.items():
+        if not path.startswith("ef/"):
+            continue
+        want = t_load_slice(os.path.join(tmp, "oracle", "int8"), path,
+                            flat_specs[path], mesh.coords, dict(mesh.shape),
+                            dev)
+        diff = (t - want).abs()
+        q = oracle["quantum"][path[len("ef/"):]]
+        on_edge[path[len("ef/"):]] = diff > 0.5 * q
+        edge += int(on_edge[path[len("ef/"):]].sum())
+        if float(diff.max()) > q * 1.01 + 1e-6:
+            fail(f"(t2) int8 {path}: residual off the oracle's by "
+                 f"{float(diff.max()):.3g}, more than its quantum {q:.3g}")
+        ef_gap = max(ef_gap, float(diff.max()) / q)
+    pgaps = t_against_oracle("(t2) int8", a, flat_specs,
+                             os.path.join(tmp, "oracle", "int8"), mesh, dev,
+                             dtype, on_edge)
+    del a, b, int8
+    clock["checks"] = time.perf_counter()
+    cell = qwen32.build_cell("train_4k", dev, mesh)
+    specs = {"params": cell.layout.param_specs, "opt": cell.layout.opt_specs}
+    gaps32 = {}
+
+    def against32(state):
+        t_wait_oracle(tmp, "t2f")
+        gaps32.update(t_against_oracle(
+            "(t2f)", {"params": state["params"], "opt": state["opt"]},
+            specs, os.path.join(tmp, "oracle", "t2f"), mesh, dev,
+            "float32"))
+
+    state = init_train_state(cell, inp["qwen32"]())
+    state, steps32 = t_steps(dev, cell, state, batch, against32)
+    del state
+    t_losses("(t2f)", steps32, t_wait_oracle(tmp, "t2f")["losses"],
+             "float32")
+    clock["f32"] = time.perf_counter()
+    marks = list(clock.items())
+    return {"steps": steps, "gaps": gaps, "t3": t3,
+            "f32": {"steps": steps32, "gaps": gaps32},
+            "int8": {"loss": loss, "ms": ms, "ef_quanta": ef_gap,
+                     "edge_entries": edge, "gaps": pgaps},
+            "seconds": {b[0]: round(b[1] - a[1], 2)
+                        for a, b in zip(marks, marks[1:])}}
+
+
+def t3_rank(dev, mesh, qwen, state, specs, tmp: str) -> dict:
+    """(t3) on this rank: digests of its (2, 2) slices, the state saved
+    through ``CheckpointManager.save(shardings=...)`` (rank 0 writes the
+    gathered leaves), restored onto a (4, 1) mesh of the same group, and
+    the digests of the restored slices."""
+    import torch
+
+    from repro_torch.configs.base import make_layout
+    from repro_torch.models import transformer
+    from repro_torch.sharding import make_mesh
+    from repro_torch.sharding.partitioning import P, local_shape
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.tree import flatten, tree_map
+
+    specs = dict(specs, step=P())
+    dig22 = {p: t_digest(t) for p, t in flatten(state)}
+    mgr = ckpt.CheckpointManager(os.path.join(tmp, "ckpt"), save_every=1,
+                                 keep=1, async_save=False)
+    t0 = time.perf_counter()
+    mgr.save(T_STEPS, state, shardings=(mesh, specs))
+    save_s = time.perf_counter() - t0
+    mesh41 = make_mesh((4, 1), T_AXES)
+    shapes = transformer.param_shapes(qwen.cfg)
+    lay = make_layout(mesh41, qwen.axis_rules(), shapes,
+                      qwen.param_logical_axes(), None, "adamw")
+    specs41 = {"step": P(), "params": lay.param_specs,
+               "opt": lay.opt_specs}
+    full = {"step": (), "params": shapes,
+            "opt": {"mu": shapes, "nu": shapes}}
+    template = tree_map(lambda s, sp: torch.empty(
+        local_shape(tuple(s), sp, mesh41), device=dev), full, specs41)
+    t0 = time.perf_counter()
+    restored, step = mgr.restore_latest(template, (mesh41, specs41))
+    restore_s = time.perf_counter() - t0
+    if step != T_STEPS:
+        fail(f"(t3) restored step {step}")
+    return {"dig22": dig22, "dig41": {p: t_digest(t) for p, t in
+                                      flatten(restored)},
+            "coords41": dict(mesh41.coords), "save_s": save_s,
+            "restore_s": restore_s}
+
+
+def t_rank(rank: int, tmp: str) -> int:
+    """One (t) rank process: join the gloo group, bind the (2, 2) mesh,
+    run (t1), (t2) and (t3), write what the parent checks."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import torch
+
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.distributed import init_distributed
+    from repro_torch.sharding import make_mesh
+
+    began = time.perf_counter()
+    with open(os.path.join(tmp, "t.json")) as f:
+        spec = json.load(f)
+    dev = resolve_device(spec["device"])
+    if dev.type == "cuda":
+        from repro_torch.kernels import _build
+        _build.load_library()
+    # the parent's sizes (a rehearsal patches them there)
+    globals().update(spec["globals"])
+    if init_distributed(init_method=f"file://{tmp}/rdzv",
+                        world_size=T_WORLD, rank=rank) != (rank, T_WORLD):
+        fail("(t) init_distributed")
+    try:
+        mesh = make_mesh(T_SHAPE, T_AXES)
+        deepfm, qwen, qwen32 = t_archs(spec["reduced"])
+        inp = t_inputs(dev, deepfm, qwen, qwen32)
+        t0 = time.perf_counter()
+        out = {"rank": rank, "coords": dict(mesh.coords),
+               "start_s": t0 - began,
+               "t1": t1_rank(dev, mesh, inp, deepfm, tmp)}
+        out["t1_s"] = time.perf_counter() - t0
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            out["t1_peak_gib"] = gib(torch.cuda.max_memory_allocated(dev))
+            torch.cuda.reset_peak_memory_stats(dev)
+        # bitwise runs: the LM's embedding backward adds into rows
+        torch.use_deterministic_algorithms(True)
+        try:
+            out["t2"] = t2_rank(dev, mesh, inp, qwen, qwen32, tmp)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        out["t2_s"] = time.perf_counter() - t0 - out["t1_s"]
+        if dev.type == "cuda":
+            out["t2_peak_gib"] = gib(torch.cuda.max_memory_allocated(dev))
+        with open(os.path.join(tmp, f"t-{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def t_slices_digests(full: dict, specs: dict, coords: dict,
+                     sizes: dict) -> dict:
+    """Digests of one rank's slices of a full state (path -> tensor)."""
+    return {path: t_digest(t[t_index(specs[path], t.shape, coords, sizes)])
+            for path, t in full.items()}
+
+
+def phase_mesh(dev, card: str) -> tuple[dict, dict]:
+    """(t) the device mesh: T_WORLD rank processes (this script with
+    ``--t-rank``) over a gloo group on the one card, a bound (2, 2) mesh.
+    The parent computes the one-process oracles while they run and
+    restores (t3)'s checkpoint onto itself while they take their int8
+    steps, then checks each rank's report and times K4 / K4T at rank (0,
+    0)'s row-shard shapes.  Returns (each rank's (t1) launches by path,
+    the kernel timings)."""
+    import torch
+
+    paths: dict = {}
+    if dev.type == "cuda":
+        # the card's cached blocks go back to the driver: the ranks are
+        # other processes
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+    deepfm, qwen, qwen32 = t_archs(T_REDUCED)
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "t.json"), "w") as f:
+            json.dump({"device": str(dev), "reduced": T_REDUCED,
+                       "globals": {"T2_LEN": T2_LEN, "T2_BATCH": T2_BATCH,
+                                   "T2_LAYERS": T2_LAYERS,
+                                   "T_STEPS": T_STEPS}}, f)
+        logs = [os.path.join(tmp, f"t-{r}.log") for r in range(T_WORLD)]
+        t0 = time.perf_counter()
+        procs = []
+        try:
+            for r in range(T_WORLD):
+                with open(logs[r], "w") as log:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, os.path.abspath(__file__),
+                         "--t-rank", str(r), tmp], stdout=log,
+                        stderr=subprocess.STDOUT))
+            oracle = t_oracle(dev, deepfm, qwen, qwen32,
+                              os.path.join(tmp, "oracle"))
+            # while the ranks run their int8 steps: (t3)'s whole restore
+            whole = t3_whole(tmp, qwen, procs)
+            wait_all(procs, T_JOIN_S)
+            waited = time.perf_counter() - t0
+            bad = []
+            for r, proc in enumerate(procs):
+                if proc.returncode != 0:
+                    with open(logs[r]) as f:
+                        tail = f.read()[-3000:]
+                    bad.append(f"(t) rank {r} " + (
+                        f"still running after {waited:.1f} s (limit "
+                        f"{T_JOIN_S} s), killed" if proc.returncode is None
+                        else f"exited {proc.returncode}") + f":\n{tail}")
+            if bad:
+                fail("\n".join(bad))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=60)
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(T_WORLD):
+            with open(os.path.join(tmp, f"t-{r}.json")) as f:
+                ranks.append(json.load(f))
+        print(f"[t] (t) {T_WORLD} rank processes on {card}, a gloo group, "
+              f"mesh {dict(zip(T_AXES, T_SHAPE))}: {wall:.1f} s wall with "
+              f"their start; the parent's oracles {oracle['seconds']:.1f} s "
+              "beside them")
+        for out in ranks:
+            r = out["rank"]
+            t1 = out["t1"]
+            paths[f"(t1) DeepFM train_batch rank {r}"] = t1["launches"]
+            print(f"[e] (t1) DeepFM train_batch rank {r}: launches "
+                  f"{json.dumps(t1['launches'])} (as predicted: K4 and K4T "
+                  f"twice a step)")
+            for tag, steps in (("(t1) DeepFM train_batch", t1["steps"]),
+                               ("(t2) qwen2-0.5b train_4k", out["t2"][
+                                   "steps"]),
+                               ("(t2f) qwen2-0.5b train_4k float32",
+                                out["t2"]["f32"]["steps"])):
+                for s, st in enumerate(steps):
+                    print(f"[t] {tag} rank {r} {out['coords']} step {s} on "
+                          f"{card}: {st['ms']:.3f} ms, loss "
+                          f"{st['loss']:.6f} (oracle "
+                          f"{st['oracle_loss']:.6f}), grad norm "
+                          f"{st['grad_norm']:.6f}, collective bytes out of "
+                          f"this rank {json.dumps(st['wire_bytes'])}, calls "
+                          f"{json.dumps(st['calls'])}")
+            print(f"[t] (t1) rank {r}: {t1['foreign']:,} of {t1['ids']:,} "
+                  f"ids another shard's (-1); K4 / K4T bitwise equal to "
+                  f"their plain versions at {t1['held']}; gaps to the "
+                  f"oracle {json.dumps(t1['gaps'])}; peak "
+                  f"{out.get('t1_peak_gib', 0):.2f} GiB")
+            t2 = out["t2"]
+            print(f"[t] (t2) rank {r}: gaps to the oracle "
+                  f"{json.dumps(t2['gaps'])}; (t2f) float32 "
+                  f"{json.dumps(t2['f32']['gaps'])}; int8 shard_map step "
+                  f"{t2['int8']['ms']:.3f} ms, loss {t2['int8']['loss']:.6f}"
+                  f" (oracle {oracle['int8']:.6f}), residuals within "
+                  f"{t2['int8']['ef_quanta']:.3f} quantum of the oracle's "
+                  f"({t2['int8']['edge_entries']} entries on a quantum's "
+                  f"edge), params {json.dumps(t2['int8']['gaps'])}; peak "
+                  f"{out.get('t2_peak_gib', 0):.2f} GiB; (t1) "
+                  f"{out['t1_s']:.1f} s, (t2) + (t3) {out['t2_s']:.1f} s "
+                  f"{json.dumps(t2['seconds'])}, the rank's start "
+                  f"{out['start_s']:.1f} s")
+        lm = T_TOL[str(qwen.cfg.dtype).replace("torch.", "")]
+        print(f"[t] (t1) oracle losses {oracle['t1']}, (t2) "
+              f"{oracle['t2']}, (t2f) {oracle['t2f']}; every rank within "
+              f"{T_TOL['float32']['loss']} of (t1)'s and (t2f)'s "
+              f"{T_TOL['float32']['loss_steps']} and {lm['loss']} of (t2)'s "
+              f"first {lm['loss_steps']}, two runs bitwise on every rank")
+        if not whole:
+            fail("(t3) rank 0 wrote no checkpoint")
+        for out in ranks:
+            t3 = out["t2"]["t3"]
+            r = out["rank"]
+            if t3["coords41"] != {"data": r, "model": 0}:
+                fail(f"(t3) rank {r} sits at {t3['coords41']} on (4, 1)")
+            for shape, key in ((T_SHAPE, "dig22"), ((4, 1), "dig41")):
+                want = whole["digests"][shape][r]
+                if want != t3[key]:
+                    bad = [p for p in want if want[p] != t3[key].get(p)]
+                    fail(f"(t3) rank {r} on {shape}: leaves {bad[:5]} "
+                         f"differ from the whole restore")
+        print(f"[t] (t3) on {card}: the (2, 2) state saved through "
+              f"CheckpointManager.save(shardings=...) "
+              f"({max(o['t2']['t3']['save_s'] for o in ranks):.2f} s), "
+              f"restored onto (4, 1) in the same group "
+              f"({max(o['t2']['t3']['restore_s'] for o in ranks):.2f} s) "
+              f"and onto this process ({whole['seconds']:.2f} s): all "
+              f"{len(whole['digests'][T_SHAPE][0])} leaves bitwise "
+              "(SHA-256) on every rank, both layouts")
+        timings = t_kernel_timings(dev, deepfm) if dev.type == "cuda" else {}
+    return paths, timings
+
+
+def t3_whole(tmp: str, qwen, procs) -> dict:
+    """(t3) in this process: once rank 0 has written the (2, 2) state,
+    restore it whole (onto one process) and take the digests of each
+    rank's slices under (2, 2) and (4, 1), rank r at the row-major
+    coordinates of r.  Returns them (empty if a rank stopped first)."""
+    import torch
+
+    from repro_torch.configs.base import make_layout
+    from repro_torch.models import transformer
+    from repro_torch.sharding import make_mesh
+    from repro_torch.sharding.partitioning import P
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.tree import flatten, tree_map
+
+    deadline = time.monotonic() + T_JOIN_S
+    path = None
+    while path is None:
+        path = ckpt.latest_checkpoint(os.path.join(tmp, "ckpt"))
+        if path is None and (time.monotonic() > deadline or any(
+                proc.poll() is not None for proc in procs)):
+            return {}
+        time.sleep(0.2)
+    t0 = time.perf_counter()
+    shapes = transformer.param_shapes(qwen.cfg)
+    full = {"step": (), "params": shapes,
+            "opt": {"mu": shapes, "nu": shapes}}
+    template = tree_map(lambda s: torch.empty(tuple(s)), full)
+    whole = dict(flatten(ckpt.restore_checkpoint(path, template)))
+    seconds = time.perf_counter() - t0
+    digests = {}
+    for shape in (T_SHAPE, (4, 1)):
+        # no process group here: a shape-only mesh resolves the rules
+        lay = make_layout(make_mesh(shape, T_AXES), qwen.axis_rules(),
+                          shapes, qwen.param_logical_axes(), None, "adamw")
+        specs = dict(flatten({"step": P(), "params": lay.param_specs,
+                              "opt": lay.opt_specs}))
+        sizes = dict(zip(T_AXES, shape))
+        digests[shape] = [t_slices_digests(
+            whole, specs, {"data": r // shape[1], "model": r % shape[1]},
+            sizes) for r in range(T_WORLD)]
+    return {"digests": digests, "seconds": seconds}
+
+
+def t_kernel_timings(dev, deepfm) -> dict:
+    """K4 and K4T at ranks (0, 0)'s and (0, 1)'s (t1) shapes — the row
+    shard of the tables each holds, the first data row's ids as bags of
+    one, other shards' ids -1 — held bitwise against their plain
+    versions, then timed against them, one library call and the bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import recsys
+
+    params = recsys.init_params(
+        deepfm.cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    batch = deepfm.smoke_inputs("train_batch", np.random.default_rng(SEED),
+                                dev)
+    v = params["table"].shape[0] // T_SHAPE[1]
+    idx = batch["sparse_idx"][:batch["sparse_idx"].shape[0] // T_SHAPE[0]]
+    k4, k4t = [], []
+    for shard in range(T_SHAPE[1]):
+        lo = shard * v
+        local = torch.where((idx >= lo) & (idx < lo + v), idx - lo,
+                            -1).reshape(-1, 1).to(torch.int32)
+        for name in ("table", "linear_table"):
+            a, b = t_shard_timings(dev, name, shard,
+                                   params[name][lo:lo + v].contiguous(),
+                                   local)
+            k4.append(a)
+            k4t.append(b)
+    for kind, rows_ in (("embedding_bag", k4), ("embedding_bag_backward",
+                                                k4t)):
+        for t in rows_:
+            print(f"[t] {kind} at {t['shape']}: bitwise equal to the plain "
+                  f"version; kernel {t['ms']:.4f} ms"
+                  + (f" (on the step's kept sort {t['shared_sort_ms']:.4f})"
+                     if "shared_sort_ms" in t else "")
+                  + f", plain {t['plain_ms']:.4f} ms, library "
+                  f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                  f"({t['bound_by']})")
+    return {"embedding_bag": k4, "embedding_bag_backward": k4t}
+
+
+def t_shard_timings(dev, name: str, shard: int, table, local) -> tuple:
+    """(K4's, K4T's) timing at one row shard of ``name`` and its (N, 1)
+    local ids: the kernel (K4T also on a kept sort, as the step's
+    ``BagKeys``), the plain version, one library call over the same
+    function (``F.embedding_bag``, the foreign ids at weight 0, and its
+    backward) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import embedding_bag as bag
+    from repro_torch.kernels import ops, ref, topk
+    from repro_torch.launch.roofline import bound_ms
+
+    (n, _), (v, d) = local.shape, table.shape
+    ok = (local >= 0).float()
+    nonpad = int(ok.sum())
+    label = (f"(t1) row shard {shard} of {name} V={v} D={d}, {n:,} bags of "
+             f"one ({n - nonpad:,} foreign ids -1)")
+    lib_idx = local.clamp(min=0).long()
+    sms = topk.sm_count(dev)
+
+    def nothing():
+        pass
+
+    out = torch.empty((n, d), device=dev)
+    bag.embedding_bag_(out, table, local, None)
+    bag_compare(label, out, ref.embedding_bag_ref(table, local, None))
+    cost = bag.bag_cost(n, 1, d, 4, False,
+                        int(torch.unique(local[local >= 0]).numel()))
+    bound, by = bound_ms(cost)
+    k4 = {"shape": label, "plan": list(bag.bag_plan(n, 1, d, 4, sms)),
+          "ms": median_ms(lambda: bag.embedding_bag_(out, table, local,
+                                                     None), nothing),
+          "plain_ms": median_ms(lambda: ref.embedding_bag_ref(
+              table, local, None), nothing, n=5),
+          "library_ms": median_ms(lambda: F.embedding_bag(
+              lib_idx, table, mode="sum", per_sample_weights=ok), nothing),
+          "bound_ms": bound, "bound_bytes": cost[1], "bound_by": by}
+    keys = ops.BagKeys(local)
+    keys.sorted()
+    grad = torch.randn((n, d), generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev)
+    dt = torch.empty_like(table)
+    bag.embedding_bag_backward_(dt, grad, local, None, keys=keys)
+    bag_compare(label, dt, k4t_plain(grad, local, v), kernel="K4T")
+    lib_table = torch.zeros_like(table, requires_grad=True)
+    lib_out = F.embedding_bag(lib_idx, lib_table, mode="sum",
+                              per_sample_weights=ok)
+    cost = bag.bag_backward_cost(n, 1, v, d, 4, False, nonpad)
+    bound, by = bound_ms(cost)
+    k4t = {"shape": label, "plan": list(bag.backward_plan(v, d, 4, sms)),
+           "ms": median_ms(lambda: bag.embedding_bag_backward_(
+               dt, grad, local, None), nothing, n=T_SLOW_N),
+           "shared_sort_ms": median_ms(lambda: bag.embedding_bag_backward_(
+               dt, grad, local, None, keys=keys), nothing, n=T_SLOW_N),
+           "plain_ms": median_ms(lambda: k4t_plain(grad, local, v),
+                                 nothing, n=5),
+           "library_ms": median_ms(lambda: torch.autograd.grad(
+               lib_out, lib_table, grad, retain_graph=True), nothing,
+               n=T_SLOW_N),
+           "bound_ms": bound, "bound_bytes": cost[1], "bound_by": by}
+    del lib_out, lib_table, grad, dt, out
+    torch.cuda.empty_cache()
+    return k4, k4t
+
+
 def main() -> int:
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
@@ -8605,6 +9782,10 @@ def main() -> int:
     for name, rows in gnn_timings.items():
         kernels[name]["timings"] += rows
     paths.update(timed("(s) tools", phase_tools, dev, card))
+    mesh_paths, mesh_timings = timed("(t) mesh", phase_mesh, dev, card)
+    paths.update(mesh_paths)
+    for name, rows in mesh_timings.items():
+        kernels[name]["timings"] += rows
 
     def profile():
         for t, call, reset, names in PROFILED:
@@ -8643,4 +9824,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--h4-rank"]:
         sys.exit(h4_rank(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--t-rank"]:
+        sys.exit(t_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

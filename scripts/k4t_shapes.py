@@ -72,6 +72,10 @@ def main() -> int:
     lib = _build.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     tiled = hasattr(bag, "backward_plan")
+    # trees whose K4T sorts padding past the last row take a scratch
+    # buffer for its first pass's NaN flags
+    scratch = ((torch.empty(1024, dtype=torch.int32, device=dev).data_ptr(),)
+               if hasattr(bag, "PAD_KEY") else ())
     g = torch.Generator(device=dev).manual_seed(cs.SEED + 2)
     deepfm, wide = get_arch("deepfm"), get_arch("wide-deep")
 
@@ -96,7 +100,8 @@ def main() -> int:
                     bag.backward_entry_work(d))
         rows, threads, grid, entry_work = plan
         return lambda: lib.repro_embedding_bag_backward(
-            *head, rows, threads, grid, entry_work, out.data_ptr(), stream)
+            *head, rows, threads, grid, entry_work, *scratch, out.data_ptr(),
+            stream)
 
     rows, sweep = [], {}
     for label, arch, d, skewed in (("DeepFM", deepfm, 10, False),

@@ -31,6 +31,7 @@ from repro_torch.configs.base import Cell, make_train_cell
 from repro_torch.device import resolve_device
 from repro_torch.models import gnn
 from repro_torch.models.losses import InfoNCELoss
+from repro_torch.sharding.partitioning import AxisRules
 
 # the score temperature of the reference's loss
 TEMPERATURE = 0.07
@@ -98,6 +99,12 @@ class GNNArch:
             ("x", ((g, n, d), False)), ("edges", ((g, e, 2), True)),
             ("emask", ((g, e), True)), ("nmask", ((g, n), True)))}
 
+    def axis_rules(self) -> AxisRules:
+        return AxisRules()
+
+    def param_logical_axes(self):
+        return gnn.param_logical_axes(self.cfg)
+
     def _loss(self, mode: str, cfg: gnn.SAGEConfig):
         loss = InfoNCELoss()
 
@@ -140,12 +147,12 @@ class GNNArch:
         """The train step of one shape: ``fn(state, batch)``, the state from
         ``configs.base.init_train_state`` over ``gnn.init_params`` of
         :meth:`shape_cfg` (``device`` is checked here and must hold a card
-        unless it is ``"cpu"``).  A mesh raises: the port runs on one card
-        (ROADMAP queue 1 item 10)."""
+        unless it is ``"cpu"``).  A mesh raises: node-sharded neighbour
+        sums are not ported yet (ROADMAP queue 1 item 10)."""
         if mesh is not None:
             raise NotImplementedError(
-                "a mesh (sharded GNN parameters and inputs) needs ROADMAP "
-                "queue 1 item 10, which the port does not have yet")
+                "a mesh (node-sharded GNN inputs and neighbour sums) needs "
+                "ROADMAP queue 1 item 10, which the port does not have yet")
         resolve_device(device)
         spec = self.shapes[shape_name]
         return make_train_cell(

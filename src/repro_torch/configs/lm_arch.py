@@ -10,10 +10,17 @@ step at 4k tokens (forward, backward and the arch's optimizer through
 ``encode`` kind (``transformer.encode`` over a batch of token rows, the
 corpus-encoding prefill); and ``decode_32k`` / ``long_500k``, the
 ``serve`` kind (``transformer.decode_step``: one token a row against a
-KV cache of the shape's length).  A mesh raises (ROADMAP queue 1 item
-10).  At full width the reference runs ``train_4k`` at 256 x 4096 on a
-mesh, and its serve shapes' caches (up to 1,792 GiB) on one too; one
-card takes a cut batch or depth (the reckonings are in ``PERF.md``).
+KV cache of the shape's length).  ``train_4k`` runs on a mesh too
+(``build_cell(shape, device, mesh)``): the parameters and optimizer state
+laid out by ``transformer.LM_RULES`` (FSDP rows over the data axes, heads
+and FFN over "model"), the token rows over the data axes, and the
+in-batch scores over the whole batch's embeddings
+(``sharding.layout.gather_rows``).  The encode and serve cells on a mesh,
+and an MoE stack's ``train_4k`` there (its load-balance loss over a
+split batch), raise naming ROADMAP queue 1 item 10.  At full width the
+reference runs ``train_4k`` at 256 x 4096 on a mesh, and its serve
+shapes' caches (up to 1,792 GiB) on one too; one card takes a cut batch
+or depth (the reckonings are in ``PERF.md``).
 """
 
 from __future__ import annotations
@@ -22,10 +29,11 @@ import dataclasses
 
 import torch
 
-from repro_torch.configs.base import Cell, make_train_cell
+from repro_torch.configs.base import Cell, make_layout, make_train_cell
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.losses import InfoNCELoss
+from repro_torch.sharding.layout import gather_rows
 
 LM_SHAPES = {
     "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
@@ -78,18 +86,25 @@ class LMArch:
     def shape_names(self) -> list[str]:
         return list(self.shapes)
 
+    def axis_rules(self):
+        return transformer.LM_RULES
+
+    def param_logical_axes(self):
+        return transformer.param_logical_axes(self.cfg)
+
     def variant(self, **overrides) -> "LMArch":
         """A copy with config fields overridden (the hill-climb's
         candidates, ``launch/hillclimb.py``), same optimizer and shapes."""
         return LMArch(dataclasses.replace(self.cfg, **overrides),
                       optimizer=self.optimizer, shapes=self.shapes)
 
-    def _contrastive_loss(self):
+    def _contrastive_loss(self, mesh=None):
         """The reference's contrastive step loss: queries through
         ``encode``, passages through ``forward_hidden`` and ``pool``,
         in-batch scores at temperature 0.02, InfoNCE on the diagonal plus
         0.01 x the passages' MoE aux loss (0.0 for a dense stack; the
-        queries' aux is dropped, as in the reference)."""
+        queries' aux is dropped, as in the reference).  On a mesh the
+        batch is this rank's rows and the scores are the whole batch's."""
         loss = InfoNCELoss()
         cfg = self.cfg
 
@@ -100,6 +115,7 @@ class LMArch:
                 cfg, params, batch["passage"]["tokens"],
                 batch["passage"]["mask"])
             p = transformer.pool(cfg, hidden, batch["passage"]["mask"])
+            q, p = gather_rows(q, mesh), gather_rows(p, mesh)
             scores = torch.einsum("qd,pd->qp", q, p) / 0.02
             labels = torch.arange(q.shape[0], dtype=torch.int32,
                                   device=q.device)
@@ -121,13 +137,24 @@ class LMArch:
         gradients: ``(logits (B, V) float32, cache)``, the cache written
         in place (the reference donates it)."""
         resolve_device(device)
-        if mesh is not None:
-            raise _not_ported(shape_name, "10", "a device mesh across cards")
         kind = self.shapes[shape_name]["kind"]
+        if mesh is not None and (kind != "train" or self.cfg.moe):
+            raise _not_ported(shape_name, "10",
+                              "the KV cache or the encode on a mesh"
+                              if kind != "train" else
+                              "an MoE load-balance loss over a split batch")
         if kind == "train":
+            layout = None
+            if mesh is not None:
+                tok = {"tokens": ("batch", None), "mask": ("batch", None)}
+                layout = make_layout(
+                    mesh, self.axis_rules(),
+                    transformer.param_shapes(self.cfg),
+                    self.param_logical_axes(),
+                    {"query": tok, "passage": tok}, self.optimizer)
             return make_train_cell(self.name, shape_name,
-                                   loss_fn=self._contrastive_loss(),
-                                   optimizer=self.optimizer)
+                                   loss_fn=self._contrastive_loss(mesh),
+                                   optimizer=self.optimizer, layout=layout)
         cfg = self.cfg
         if kind == "serve":
             def serve_fn(params, cache, tokens):

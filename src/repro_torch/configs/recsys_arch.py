@@ -4,7 +4,11 @@ The counterpart of ``repro.configs.base.RecSysArch`` for its three
 kinds: ``train`` (the CTR step on ``train_batch``: BCE of ``forward``,
 backward — K4's bag sums through K4T — clip and AdamW, from
 ``configs.base.make_train_cell``), ``serve`` (``sigmoid(forward)`` over a
-batch) and ``retrieval`` (one user against N candidates, top-k).
+batch) and ``retrieval`` (one user against N candidates, top-k).  On a
+mesh (``build_cell(shape, device, mesh)``) every cell runs under its
+``configs.base.Layout``: the tables' rows over "model" (the psum lookup
+consumes them as row shards when ``embedding_impl="psum"``), the rest
+replicated, the batch or the candidates over the data axes.
 :meth:`RecSysArch.smoke_inputs` draws the same numpy values in the same
 order as the reference's, so one seed gives both packages identical
 inputs.
@@ -17,11 +21,13 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.configs.base import Cell, make_train_cell
+from repro_torch.configs.base import (Cell, make_infer_cell, make_layout,
+                                      make_train_cell)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import recsys
 from repro_torch.models.losses import BCELoss
+from repro_torch.sharding.partitioning import AxisRules
 
 RECSYS_SHAPES = {
     "train_batch": dict(kind="train", batch=65536),
@@ -43,8 +49,39 @@ class RecSysArch:
     def shape_names(self) -> list[str]:
         return list(self.shapes)
 
+    def axis_rules(self) -> AxisRules:
+        return AxisRules()
+
     def param_shapes(self) -> dict[str, tuple[int, ...]]:
         return recsys.param_shapes(self.cfg)
+
+    def param_logical_axes(self) -> dict[str, tuple]:
+        return recsys.param_logical_axes(self.cfg)
+
+    def batch_axes(self, shape_name: str) -> dict[str, tuple]:
+        """Each input's logical axes (the reference's ``_batch_specs``)."""
+        spec = self.shapes[shape_name]
+        names = self._batch_shapes(spec)
+        if spec["kind"] == "retrieval":
+            return {k: ("candidates",) if k == "cand_idx" else (None, None)
+                    for k in names}
+        return {k: ("batch",) + (None,) * (len(shape) - 1)
+                for k, shape in names.items()}
+
+    def _layout(self, shape_name: str, mesh, optimizer=None):
+        rules = self.axis_rules()
+        keep = recsys.mesh_kept_leaves(self.cfg, mesh)
+        lay = make_layout(mesh, rules, self.param_shapes(),
+                          self.param_logical_axes(),
+                          self.batch_axes(shape_name), optimizer, keep)
+        for name in keep:
+            if (lay.param_specs[name][0] != "model"
+                    and mesh.shape["model"] > 1):
+                raise ValueError(
+                    f"the psum lookup needs {name}'s rows split over "
+                    f"'model': {self.param_shapes()[name][0]} rows do not "
+                    f"divide by {mesh.shape['model']}")
+        return lay
 
     def _batch_shapes(self, spec: dict) -> dict[str, tuple[int, ...]]:
         """Name -> shape of each input, in the reference's order
@@ -69,12 +106,15 @@ class RecSysArch:
         return batch
 
     def build_cell(self, shape_name: str,
-                   device: str | torch.device = "cuda") -> Cell:
+                   device: str | torch.device = "cuda", mesh=None) -> Cell:
         """The step of one shape; ``fn(params, batch)`` (``fn(state,
         batch)`` for ``train``, the state from
         ``configs.base.init_train_state``) runs on the device of its
         inputs (``device`` is checked here, and must hold a card unless it
-        is ``"cpu"``)."""
+        is ``"cpu"``).  On a bound ``mesh`` the cell carries its layout:
+        ``params`` are this rank's slices (``cell.local_params``), the
+        batch is the global one, and every rank returns the whole
+        answer."""
         resolve_device(device)
         spec = self.shapes[shape_name]
         cfg = self.cfg
@@ -82,31 +122,41 @@ class RecSysArch:
             bce = BCELoss()
 
             def loss_fn(params, b):
-                return bce(recsys.forward(cfg, params, b), b["labels"])
+                return bce(recsys.forward(cfg, params, b, mesh), b["labels"])
 
-            return make_train_cell(self.name, shape_name, loss_fn=loss_fn,
-                                   optimizer="adamw")
+            return make_train_cell(
+                self.name, shape_name, loss_fn=loss_fn, optimizer="adamw",
+                layout=(None if mesh is None else
+                        self._layout(shape_name, mesh, "adamw")))
+        layout = None if mesh is None else self._layout(shape_name, mesh)
         if spec["kind"] == "serve":
             def serve_fn(params, b):
-                return torch.sigmoid(recsys.forward(cfg, params, b))
-            return Cell(self.name, shape_name, "serve", serve_fn)
+                return torch.sigmoid(recsys.forward(cfg, params, b, mesh))
+            return make_infer_cell(self.name, shape_name, "serve", serve_fn,
+                                   layout, out_axes=next(iter(
+                                       self._batch_shapes(spec))))
 
         topk = spec["topk"]
+        scores = make_infer_cell(
+            self.name, shape_name, "retrieval",
+            lambda params, b: recsys.retrieval_scores(cfg, params, b, mesh),
+            layout, out_axes="cand_idx")
 
         def retrieval_fn(params, b):
-            scores = recsys.retrieval_scores(cfg, params, b)
-            n = scores.shape[0]
+            s = scores.fn(params, b)
+            n = s.shape[0]
             if n < topk:
                 raise ValueError(f"{n} candidates < top-{topk}")
             # K2 on an empty (1, k) state: the lower position wins a tie,
             # as with lax.top_k
-            vals, pos = ops.empty_state(1, topk, scores.device)
-            ops.topk_update(vals, pos, scores[None, :],
+            vals, pos = ops.empty_state(1, topk, s.device)
+            ops.topk_update(vals, pos, s[None, :],
                             torch.arange(n, dtype=torch.int32,
-                                         device=scores.device))
+                                         device=s.device))
             return vals[0], b["cand_idx"][pos[0]]
 
-        return Cell(self.name, shape_name, "retrieval", retrieval_fn)
+        return Cell(self.name, shape_name, "retrieval", retrieval_fn,
+                    layout=layout)
 
     def reduced(self) -> "RecSysArch":
         """A small config of the same family, for CPU tests (the

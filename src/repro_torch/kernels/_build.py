@@ -43,7 +43,7 @@ _SIGNATURES = {
                              _I, _I, _P, _P], _I),
     "repro_embedding_bag_backward": ([_P, _I, _P, _P, _P, _P, _I, _I,
                                       ctypes.c_longlong, _I, _I, _I, _I, _I,
-                                      _P, _P], _I),
+                                      _P, _P, _P], _I),
 }
 
 

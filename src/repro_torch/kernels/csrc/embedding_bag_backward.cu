@@ -9,7 +9,7 @@
 //       d_table[r, :] = sum over (b, l) with idx[b, l] = r of
 //                       (g[b, :] * mask[b, l]) * w[b, l]
 //     for (B, D) bag gradients g, (B, L) int32 ids with -1 as padding (a
-//     padded slot read row 0 with mask 0) and optional (B, L) float32
+//     padded slot reads row 0 with mask 0) and optional (B, L) float32
 //     weights, accumulated in float32 and written in g's dtype (the
 //     table's).  Ids >= V read no row in the forward and add nothing.
 //
@@ -22,10 +22,21 @@
 // embedding_bag.py) only sorts the B*L ids (torch.sort, stable), once per
 // set of ids (ops.BagKeys shares it between DeepFM's two bag sums).
 //
-// Design (deterministic, no atomics):
+// Design (deterministic: the only atomics set flags):
 //   * The wrapper hands over the ids' rows sorted stably (keys: padding as
-//     row 0) with each one's flat position b * L + l (order).  A stable
-//     sort keeps a row's contributions in ascending flat position.
+//     INT_MAX, past every row when V <= INT_MAX) with each one's flat
+//     position b * L + l (order).  A stable sort keeps a row's
+//     contributions in ascending flat position.  Entries whose key is not
+//     a row (padding, ids >= V) are past the last row's: the blocks find
+//     where they start with one search and never see them.  Were padding
+//     sorted onto row 0, as the plain version reads it, a psum lookup's
+//     row shard (97 % of its ids another shard's, -1) would make row 0 one
+//     serial run of over a million adds.
+//   * A padded slot still adds (g * 0) * w to row 0 in the plain version:
+//     +-0.0, which leaves a float32 sum that starts at +0.0 as it is, or
+//     NaN where g or w is not finite.  A first pass over the ids (pad_pass)
+//     sets a flag for each column where a padded slot gives NaN, and the
+//     block that owns row 0 starts that column's sum at NaN.
 //   * Persistent blocks, each a contiguous run of rows.  The runs are cut
 //     by work, not by rows: a row weighs its bytes, an entry `entry_w`
 //     bytes (the plan's; 160 + 10 D measured best), and one search over
@@ -70,11 +81,11 @@
 //     bitwise on the card and measured slower at every row (its
 //     conversion pass and second buffer cost shared memory and blocks per
 //     SM; PERF.md §6), so it was taken out.
-//   * Ids >= V sort past the last row and are never read.  Only row 0's
-//     run can hold padded slots: there the gather reads idx[p] to learn
-//     the mask, so an infinite gradient or weight under padding still
-//     gives NaN there.  Row and byte offsets are 64-bit: V * D passes
-//     2^31 at full width, and V may pass 2^31 (every int32 id is a row).
+//   * Row and byte offsets are 64-bit: V * D passes 2^31 at full width,
+//     and V may pass 2^31 (every int32 id is a row).  Then padding's key
+//     INT_MAX is a row, and the gather reads idx[p] on that row's run to
+//     add +0.0 for a padded slot (which changes no sum: a sum from +0.0 is
+//     never -0.0).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -196,6 +207,14 @@ __device__ long long first_not_below(long long lo, long long hi,
   return lo;
 }
 
+// Where the entries that are not rows start: the first with key >= n_rows.
+__device__ long long rows_end(const int* __restrict__ keys, long long n,
+                              long long n_rows) {
+  return first_not_below(0, n, [&](long long p) {
+    return static_cast<long long>(keys[p]) < n_rows;
+  });
+}
+
 // Where block `blk` of `grid` starts: the first row r whose work before
 // it, W(r) = r * row_w + S(r) * entry_w (S(r): entries with key < r;
 // row_w: a row's bytes; entry_w: an entry's work in bytes written in the
@@ -203,8 +222,9 @@ __device__ long long first_not_below(long long lo, long long hi,
 // first entry.  W is flat in S between the rows of two neighbouring keys,
 // so one search over the entries finds the key interval and the row
 // inside it.  Monotone in blk; row 0 for the first block and n_rows past
-// the last.  A row's entries are never split between blocks (its sum is
-// one chain); a dense stretch of rows is.
+// the last.  `n`: the entries with a row's key (rows_end).  A row's
+// entries are never split between blocks (its sum is one chain); a dense
+// stretch of rows is.
 struct Split {
   long long row, entry;
 };
@@ -239,15 +259,40 @@ __device__ Split split_row(const int* __restrict__ keys, long long n,
   return {r, first_not_below(i, n, [&](long long p) { return keys[p] < r; })};
 }
 
+// The first pass: nan_cols[c] = 1 where a padded slot's (g * 0) * w is
+// NaN in column c (nan_cols zeroed before).  A thread a slot, a grid-stride
+// loop over the flat ids.
+template <typename T, bool kWeighted>
+__global__ void __launch_bounds__(256)
+    pad_pass(const T* __restrict__ grad, const int* __restrict__ idx,
+             const float* __restrict__ weights, int n, int n_slots, int dim,
+             int* __restrict__ nan_cols) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long p = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       p < n; p += stride) {
+    if (idx[p] >= 0) continue;
+    const T* g = grad + static_cast<size_t>(p / n_slots) * dim;
+    float w = 1.0f;
+    if (kWeighted) w = weights[p];
+    for (int c = 0; c < dim; ++c) {
+      float x = __fmul_rn(to_float(g[c]), 0.0f);
+      if (kWeighted) x = __fmul_rn(x, w);
+      if (x != x && nan_cols[c] == 0) atomicOr(nan_cols + c, 1);
+    }
+  }
+}
+
 template <typename T, bool kWeighted>
 __global__ void __launch_bounds__(1024)
     bag_backward_kernel(const T* __restrict__ grad,
                         const int* __restrict__ idx,
                         const float* __restrict__ weights,
                         const int* __restrict__ keys,
-                        const int* __restrict__ order, int n, int n_slots,
+                        const int* __restrict__ order, int n_all, int n_slots,
                         long long n_rows, int dim, int tile_rows,
-                        int entry_w, T* __restrict__ out) {
+                        int entry_w, const int* __restrict__ nan_cols,
+                        T* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int nthreads = blockDim.x, tid = threadIdx.x;
   const Layout lay = layout(tile_rows, nthreads, dim);
@@ -265,7 +310,8 @@ __global__ void __launch_bounds__(1024)
   const int run0 = tid < run_step * dim ? tid / dim : INT_MAX;
 
   // this block's rows, a contiguous run balanced by work, in tiles of
-  // tile_rows from its first row
+  // tile_rows from its first row; the entries past `n` are not rows
+  const long long n = rows_end(keys, n_all, n_rows);
   const long long row_w = static_cast<long long>(dim) * sizeof(T);
   const Split first =
       split_row(keys, n, n_rows, row_w, entry_w, blockIdx.x, gridDim.x);
@@ -310,14 +356,15 @@ __global__ void __launch_bounds__(1024)
     if (take) {
       const int p = ppos;
       const T* g = grad + static_cast<size_t>(p / n_slots) * dim;
-      const float mask = pkey == 0 && idx[p] < 0 ? 0.0f : 1.0f;
+      // padding on a row only when V > INT_MAX (its key is INT_MAX)
+      const bool pad = pkey == INT_MAX && idx[p] < 0;
       float w = 1.0f;
       if (kWeighted) w = weights[p];
       float* dst = vals + tid * dim;
       for (int c = 0; c < dim; ++c) {
-        float x = __fmul_rn(to_float(g[c]), mask);
+        float x = to_float(g[c]);
         if (kWeighted) x = __fmul_rn(x, w);
-        dst[c] = x;
+        dst[c] = pad ? 0.0f : x;
       }
     }
     j += bcnt;
@@ -337,6 +384,12 @@ __global__ void __launch_bounds__(1024)
     // the output is a 16-byte-aligned run of staged sums
     const int off = (mis / static_cast<int>(sizeof(T))) & 3;
     float* tacc = acc + off;
+    if (r0 == 0) {
+      // row 0's columns where a padded slot gives NaN (pad_pass)
+      if (tid < dim && nan_cols[tid] != 0)
+        tacc[tid] = __int_as_float(0x7fffffff);
+      __syncthreads();
+    }
 
     // the tile's staged entries [q0, q1), a batch at a time; once a batch
     // came back short, the block has no entries left to load
@@ -404,7 +457,7 @@ template <typename T, bool kWeighted>
 int launch(const void* grad, const int* idx, const float* weights,
            const int* keys, const int* order, int n, int n_slots,
            long long n_rows, int dim, int tile_rows, int threads, int grid,
-           int entry_w, void* out, cudaStream_t stream) {
+           int entry_w, int* nan_cols, void* out, cudaStream_t stream) {
   const Layout lay = layout(tile_rows, threads, dim);
   if (lay.total > kMaxSmem) return int(cudaErrorInvalidValue);
   auto kernel = bag_backward_kernel<T, kWeighted>;
@@ -413,9 +466,19 @@ int launch(const void* grad, const int* idx, const float* weights,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
     if (err != cudaSuccess) return int(err);
   }
+  cudaError_t err = cudaMemsetAsync(nan_cols, 0, sizeof(int) * dim, stream);
+  if (err != cudaSuccess) return int(err);
+  if (n > 0) {
+    const int blocks = (n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096;
+    pad_pass<T, kWeighted><<<blocks, 256, 0, stream>>>(
+        static_cast<const T*>(grad), idx, weights, n, n_slots, dim,
+        nan_cols);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+  }
   kernel<<<grid, threads, lay.total, stream>>>(
       static_cast<const T*>(grad), idx, weights, keys, order, n, n_slots,
-      n_rows, dim, tile_rows, entry_w, static_cast<T*>(out));
+      n_rows, dim, tile_rows, entry_w, nan_cols, static_cast<T*>(out));
   return int(cudaGetLastError());
 }
 
@@ -423,14 +486,15 @@ template <typename T>
 int by_weights(const void* grad, const int* idx, const float* weights,
                const int* keys, const int* order, int n, int n_slots,
                long long n_rows, int dim, int tile_rows, int threads,
-               int grid, int entry_w, void* out, cudaStream_t stream) {
+               int grid, int entry_w, int* nan_cols, void* out,
+               cudaStream_t stream) {
   return weights == nullptr
              ? launch<T, false>(grad, idx, weights, keys, order, n, n_slots,
                                 n_rows, dim, tile_rows, threads, grid,
-                                entry_w, out, stream)
+                                entry_w, nan_cols, out, stream)
              : launch<T, true>(grad, idx, weights, keys, order, n, n_slots,
                                n_rows, dim, tile_rows, threads, grid,
-                               entry_w, out, stream);
+                               entry_w, nan_cols, out, stream);
 }
 
 }  // namespace
@@ -440,9 +504,11 @@ extern "C" {
 // K4T: grad (n / n_slots, dim) float32 (grad_bf16 = 0) or bfloat16 (1),
 // dim at most `threads`; idx (n / n_slots, n_slots) int32; weights the
 // same shape in float32, or null; keys (n,) int32, the ids with padding
-// as 0, sorted stably, and order (n,) int32, each sorted entry's flat
-// position; out (n_rows, dim) in grad's dtype, written whole (rows no id
-// touches are 0; nothing needs filling first, n = 0 included).  The plan:
+// as INT_MAX, sorted stably, and order (n,) int32, each sorted entry's
+// flat position; nan_cols (dim,) int32 scratch; out (n_rows, dim) in
+// grad's dtype, written whole (rows no id touches are 0; nothing needs
+// filling first, n = 0 included).  Two launches: pad_pass, then K4T.
+// The plan:
 // `tile_rows` rows a tile, `threads` a block (a multiple of 32,
 // 32..1024), `grid` persistent blocks sharing the rows out by work (a
 // row's bytes, `entry_w` an entry); every plan gives the same bits.
@@ -451,7 +517,8 @@ int repro_embedding_bag_backward(const void* grad, int grad_bf16,
                                  const int* keys, const int* order, int n,
                                  int n_slots, long long n_rows, int dim,
                                  int tile_rows, int threads, int grid,
-                                 int entry_w, void* out, void* stream) {
+                                 int entry_w, int* nan_cols, void* out,
+                                 void* stream) {
   if (n < 0 || n_slots < 0 || n_rows < 1 || dim < 1 || dim > threads ||
       tile_rows < 1 || threads < 32 || threads > 1024 || threads % 32 != 0 ||
       grid < 1 || entry_w < 1 || (n > 0 && n_slots < 1) ||
@@ -461,10 +528,11 @@ int repro_embedding_bag_backward(const void* grad, int grad_bf16,
   return grad_bf16
              ? by_weights<__nv_bfloat16>(grad, idx, weights, keys, order, n,
                                          n_slots, n_rows, dim, tile_rows,
-                                         threads, grid, entry_w, out, s)
+                                         threads, grid, entry_w, nan_cols,
+                                         out, s)
              : by_weights<float>(grad, idx, weights, keys, order, n, n_slots,
                                  n_rows, dim, tile_rows, threads, grid,
-                                 entry_w, out, s);
+                                 entry_w, nan_cols, out, s);
 }
 
 }  // extern "C"

@@ -266,12 +266,18 @@ def backward_plan(v: int, dim: int, elt_bytes: int, sms: int, *,
     return rows, threads, min(-(-v // rows), resident * waves)
 
 
+PAD_KEY = 2 ** 31 - 1     # padding's sort key: past every row of V <= 2^31 - 1
+
+
 def backward_keys(idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """K4T's index preparation: the (B, L) ids' rows, padding read as row
-    0, sorted stably, and each sorted entry's flat position ``b * L + l``
-    (both (B*L,) int32).  The stable sort keeps every row's contributions
-    in ascending flat position, the order K4T adds them in."""
-    keys, order = torch.sort(idx.reshape(-1).clamp(min=0), stable=True)
+    """K4T's index preparation: the (B, L) ids' rows, padding as PAD_KEY
+    (past the last row, so the kernel's row ranges never hold it), sorted
+    stably, and each sorted entry's flat position ``b * L + l`` (both
+    (B*L,) int32).  The stable sort keeps every row's contributions in
+    ascending flat position, the order K4T adds them in."""
+    flat = idx.reshape(-1)
+    keys, order = torch.sort(flat.masked_fill(flat < 0, PAD_KEY),
+                             stable=True)
     return keys, order.to(torch.int32)
 
 
@@ -388,6 +394,9 @@ def embedding_bag_backward_(out: torch.Tensor, grad_out: torch.Tensor,
                          f"{_MAX_SMEM} bytes of shared memory")
     sorted_keys, order = (keys.sorted() if keys is not None
                           else backward_keys(idx))
+    # the columns where a padded slot's (g * 0) * w is NaN (the kernel's
+    # first pass zeroes and sets them)
+    nan_cols = torch.empty(d, dtype=torch.int32, device=dev)
     from repro_torch.kernels._build import load_library
     lib = load_library()
     with torch.cuda.device(dev):
@@ -395,7 +404,8 @@ def embedding_bag_backward_(out: torch.Tensor, grad_out: torch.Tensor,
                 int(grad_out.dtype == torch.bfloat16), idx.data_ptr(),
                 None if weights is None else weights.data_ptr(),
                 sorted_keys.data_ptr(), order.data_ptr(), n, n_slots, v, d,
-                rows, threads, grid, backward_entry_work(d), out.data_ptr(),
+                rows, threads, grid, backward_entry_work(d),
+                nan_cols.data_ptr(), out.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     count_launch(LAUNCHES, "embedding_bag_backward")
     report_cost("embedding_bag_backward", cost)

@@ -23,10 +23,17 @@ configs checkpoint each layer in the backward (``remat``).
 An MoE backbone adds ``aux_loss_weight`` (0.01) x its load-balance
 loss to the contrastive loss and logs it as ``moe_aux_loss``.  An
 ``--arch`` outside the LM encoders (the GNN, the recsys rankers) raises
-a ValueError, as the reference's launcher drives LM encoders only.  Not
-ported yet, and raising: llama4-maverick at full width and ``--mesh pod
-| multipod`` / ``--multi-pod`` (ROADMAP queue 1 item 10).  ``main``
-returns the trainer and its final state.
+a ValueError, as the reference's launcher drives LM encoders only.
+llama4-maverick at full width raises (ROADMAP queue 1 item 10).
+
+``--mesh pod`` (16 x 16) or ``--mesh multipod`` / ``--multi-pod`` (2 x
+16 x 16) train on the production mesh (``launch.mesh``): run under a
+process group of 256 / 512 ranks (``torchrun``'s environment; rank ``r``
+takes card ``LOCAL_RANK``).  The backend is NCCL when every local rank
+has a card of its own and gloo otherwise, and the launch prints which.
+Without such a group the launcher raises the mesh's ValueError, naming
+the world size it needs, before any work.  ``main`` returns the trainer
+and its final state.
 """
 
 from __future__ import annotations
@@ -36,10 +43,36 @@ import os
 import tempfile
 
 
-def _not_ported(flag: str, item: int, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{flag} needs {what}, which the port does not have yet "
-        f"(ROADMAP queue 1 item {item})")
+def production_mesh(multi_pod: bool, device: str):
+    """Join the process group ``torchrun``'s environment describes and
+    bind the production mesh to it; a ValueError naming the world size
+    the mesh needs when there is no such group."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_production_mesh, production_shape
+
+    shape, _ = production_shape(multi_pod)
+    need = 1
+    for s in shape:
+        need *= s
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if not dist.is_initialized():
+        if world != need:
+            raise ValueError(
+                f"a {shape} mesh needs {need} ranks; this launch has "
+                f"{world} (run it under torchrun with {need} processes)")
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+        own_cards = (device != "cpu" and torch.cuda.is_available()
+                     and torch.cuda.device_count() >= local_world)
+        backend = "nccl" if own_cards else "gloo"
+        if own_cards:
+            torch.cuda.set_device(local)
+        dist.init_process_group(backend, init_method="env://")
+        print(f"rank {dist.get_rank()} of {dist.get_world_size()}: "
+              f"backend {backend}")
+    return make_production_mesh(multi_pod=multi_pod)
 
 
 def main(argv=None):
@@ -75,9 +108,10 @@ def main(argv=None):
     args, rest = ap.parse_known_args(argv)
 
     cfg = lm_config(args.arch, args.smoke)
+    mesh = None
     if args.multi_pod or args.mesh != "local":
-        raise _not_ported("--mesh pod / multipod and --multi-pod", 10,
-                          "a device mesh across cards")
+        mesh = production_mesh(args.multi_pod or args.mesh == "multipod",
+                               args.device)
     train_args, model_args, data_args = parse_cli(
         RetrievalTrainingArguments, ModelArguments, DataArguments,
         argv=rest)
@@ -103,7 +137,8 @@ def main(argv=None):
 
     trainer = RetrievalTrainer(
         retriever, train_args, collator, dataset,
-        dev_dataset=None, compute_metrics=IRMetrics(), device=device)
+        dev_dataset=None, compute_metrics=IRMetrics(), mesh=mesh,
+        device=device)
     state = trainer.train()
     for rec in trainer.logs:
         print(rec)

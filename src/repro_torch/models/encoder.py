@@ -15,6 +15,7 @@ import dataclasses
 import torch
 
 from repro_torch.models import gnn, transformer
+from repro_torch.sharding.partitioning import AxisRules
 
 ENCODER_REGISTRY: dict[str, type["PretrainedEncoder"]] = {}
 
@@ -34,6 +35,12 @@ class PretrainedEncoder:
     def encode(self, params, batch: dict[str, torch.Tensor]):
         """batch {"tokens", "mask"} -> (B, d) L2-normalized embeddings."""
         raise NotImplementedError
+
+    def param_logical_axes(self):
+        raise NotImplementedError
+
+    def axis_rules(self) -> AxisRules:
+        return AxisRules()
 
     def format_query(self, text: str) -> str:
         return text
@@ -56,6 +63,15 @@ class DefaultEncoder(PretrainedEncoder):
 
     def init_params(self, generator, device="cuda"):
         return transformer.init_params(self.cfg, generator, device)
+
+    def param_shapes(self):
+        return transformer.param_shapes(self.cfg)
+
+    def param_logical_axes(self):
+        return transformer.param_logical_axes(self.cfg)
+
+    def axis_rules(self) -> AxisRules:
+        return transformer.LM_RULES
 
     def encode(self, params, batch):
         return transformer.encode(self.cfg, params, batch["tokens"],
@@ -107,6 +123,9 @@ class GNNEncoder(PretrainedEncoder):
 
     def init_params(self, generator, device="cuda"):
         return gnn.init_params(self.cfg, generator, device)
+
+    def param_logical_axes(self):
+        return gnn.param_logical_axes(self.cfg)
 
     def encode(self, params, batch):
         if "feats2" in batch:

@@ -323,3 +323,8 @@ def forward_batched_graphs(cfg: SAGEConfig, params: Params, x: torch.Tensor,
     w = node_mask.to(h.dtype)[..., None]
     pooled = (h * w).sum(1) / w.sum(1).clamp(min=1.0)
     return _maybe_norm(cfg, pooled)
+
+
+def param_logical_axes(cfg: SAGEConfig) -> dict[str, tuple]:
+    """Every weight replicated (the reference's: they are under 1 MB)."""
+    return {k: (None,) * len(v) for k, v in param_shapes(cfg).items()}

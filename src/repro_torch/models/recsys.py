@@ -3,10 +3,20 @@
 The counterpart of ``repro.models.recsys``, for one card:
   * one hashed embedding table shared by all sparse fields, addressed by
     per-field offsets (:func:`field_offsets`);
-  * :func:`embedding_lookup` is a plain gather.  The reference's "psum"
-    lookup and ``batch_full_shard`` need a mesh; the port has none yet
-    (ROADMAP.md queue 1 item 4a), and :func:`forward` raises if one is
-    passed;
+  * :func:`embedding_lookup` is a plain gather, or under a mesh with
+    ``embedding_impl="psum"`` the reference's psum lookup
+    (:func:`_lookup_psum`): the table is split in row shards over
+    "model", each rank runs K4 over its own shard in bags of one (ids of
+    other shards set to -1, K4's padding), casts to bf16 and all-reduces
+    over "model".  Exactly one shard contributes each row, so a row is
+    rounded to bf16 once and is otherwise exact; the backward rounds the
+    cotangent to bf16 (the transpose of the reference's casts) and runs
+    K4T over the same local ids, writing only the shard's gradient.
+    Under a mesh DeepFM's linear term and FM sum are sums of those
+    looked-up rows, as the reference computes them there, not K4 bag sums
+    (a bag sum all-reduced in bf16 would round a sum over shards).  With
+    ``"xla_gather"`` under a mesh the table comes gathered and the
+    one-card path runs;
   * the bag sums of the forward pass go through the EmbeddingBag kernel
     (K4, ``kernels.ops.embedding_bag``): DeepFM's linear term and FM sum,
     Wide&Deep's wide term.  AutoInt and BST launch no kernel.  In
@@ -34,6 +44,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.sharding import collectives
 
 Params = dict[str, torch.Tensor]
 
@@ -49,9 +60,60 @@ def field_offsets(vocab_sizes: Sequence[int]) -> np.ndarray:
     return np.concatenate([[0], np.cumsum(vocab_sizes)[:-1]]).astype(np.int64)
 
 
-def embedding_lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(V, D) x (...,) int -> (..., D).  Ids must lie in [0, V)."""
-    return table[idx]
+def embedding_lookup(table: torch.Tensor, idx: torch.Tensor,
+                     impl: str = "xla_gather", mesh=None,
+                     table_axis: str = "model") -> torch.Tensor:
+    """(V, D) x (...,) int -> (..., D).  Ids must lie in [0, V).  With
+    ``impl="psum"`` on a mesh that has ``table_axis``, ``table`` is this
+    rank's row shard and the lookup is :func:`_lookup_psum`."""
+    if not psum_active(impl, mesh, table_axis):
+        return table[idx]
+    local = local_ids(idx, table.shape[0], mesh, table_axis)
+    return _lookup_psum(table, local, mesh, table_axis).reshape(
+        *idx.shape, table.shape[1])
+
+
+def psum_active(impl: str, mesh, table_axis: str = "model") -> bool:
+    """Whether the psum lookup runs: ``impl == "psum"`` on a mesh with
+    ``table_axis`` (the reference's condition)."""
+    return impl == "psum" and mesh is not None and table_axis in mesh.shape
+
+
+def local_ids(idx: torch.Tensor, rows: int, mesh,
+              table_axis: str = "model") -> torch.Tensor:
+    """Global ids -> this shard's row ids as (N, 1) bags of one, ids of
+    other shards -1 (K4's padding); the shard holds rows [s * rows,
+    (s + 1) * rows) with s its index along ``table_axis``."""
+    lo = mesh.shard_index((table_axis,)) * rows
+    local = idx.reshape(-1, 1).to(torch.int64) - lo
+    ok = (local >= 0) & (local < rows)
+    return torch.where(ok, local, -1).to(torch.int32)
+
+
+class _PsumBF16(torch.autograd.Function):
+    """bf16 round trip through an all-reduce over ``axis``; the backward
+    rounds the cotangent to bf16 and back (the reference's psum under
+    ``shard_map(check_rep=False)`` transposes to the identity on a
+    replicated cotangent)."""
+
+    @staticmethod
+    def forward(ctx, part, mesh, axis):
+        wire = collectives.all_reduce(part.to(torch.bfloat16), mesh, (axis,))
+        return wire.to(part.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).to(g.dtype), None, None
+
+
+def _lookup_psum(table: torch.Tensor, local: torch.Tensor, mesh,
+                 axis: str = "model", keys=None) -> torch.Tensor:
+    """K4 over this rank's row shard at the (N, 1) ``local`` ids, in bf16
+    through the all-reduce over ``axis`` -> (N, D) in the table's dtype,
+    differentiable in the shard (K4T).  ``keys`` (``ops.BagKeys`` on
+    ``local``) shares K4T's sort between tables of one shard layout."""
+    part = ops.embedding_bag(table, local, keys=keys)
+    return _PsumBF16.apply(part, mesh, axis)
 
 
 def embedding_bag(table: torch.Tensor, idx: torch.Tensor,
@@ -93,6 +155,7 @@ class RecSysConfig:
     n_profile_fields: int = 8
     bst_d_ff: int = 64
     dtype: torch.dtype = torch.float32
+    embedding_impl: str = "xla_gather"  # xla_gather | psum (under a mesh)
 
     @property
     def n_fields(self) -> int:
@@ -147,6 +210,25 @@ def param_shapes(cfg: RecSysConfig) -> dict[str, tuple[int, ...]]:
     return shapes
 
 
+TABLES = ("table", "linear_table", "wide_table")
+
+
+def param_logical_axes(cfg: RecSysConfig) -> dict[str, tuple]:
+    """The tables' rows on "embed_rows" (-> "model"), every other leaf
+    replicated (the reference's rule)."""
+    return {k: (("embed_rows",) + (None,) * (len(shape) - 1)
+                if k in TABLES else (None,) * len(shape))
+            for k, shape in param_shapes(cfg).items()}
+
+
+def mesh_kept_leaves(cfg: RecSysConfig, mesh) -> tuple[str, ...]:
+    """The tables a forward on ``mesh`` consumes as row shards (the psum
+    lookup's), which a meshed step leaves sharded."""
+    if not psum_active(cfg.embedding_impl, mesh):
+        return ()
+    return tuple(k for k in TABLES if k in param_shapes(cfg))
+
+
 def init_params(cfg: RecSysConfig, generator: torch.Generator,
                 device: str | torch.device = "cuda") -> Params:
     """Random parameters with the reference's rule: biases 0, BST's
@@ -184,13 +266,12 @@ def _n_mlp(cfg: RecSysConfig) -> int:
 
 def forward(cfg: RecSysConfig, params: Params,
             batch: dict[str, torch.Tensor], mesh=None) -> torch.Tensor:
-    """Returns logits (B,)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the port runs on one card: a mesh (psum lookup, "
-            "batch_full_shard) is not ported yet")
+    """Returns logits (B,).  On a mesh ``batch`` is this rank's rows and,
+    under the psum lookup, the tables are this rank's row shards."""
     if cfg.kind == "bst":
-        return _forward_bst(cfg, params, batch)
+        return _forward_bst(cfg, params, batch, mesh)
+    if psum_active(cfg.embedding_impl, mesh):
+        return _forward_psum(cfg, params, batch, mesh)
     idx = batch["sparse_idx"]                              # (B, F) global ids
     emb = embedding_lookup(params["table"], idx)           # (B, F, D)
     b = idx.shape[0]
@@ -207,31 +288,69 @@ def forward(cfg: RecSysConfig, params: Params,
         deep = _mlp(params, emb.reshape(b, -1), _n_mlp(cfg))[:, 0]
         return wide + deep + params["bias"][0]
     if cfg.kind == "autoint":
-        h = emb
-        nh, da = cfg.n_heads, cfg.d_attn
-
-        def split(t):
-            return t.reshape(b, -1, nh, da)
-
-        for i in range(cfg.n_attn_layers):
-            q = split(h @ params[f"attn{i}_wq"])
-            k = split(h @ params[f"attn{i}_wk"])
-            v = split(h @ params[f"attn{i}_wv"])
-            scores = torch.einsum("bfhd,bghd->bhfg", q, k) / math.sqrt(da)
-            o = torch.einsum("bhfg,bghd->bfhd", torch.softmax(scores, -1), v)
-            o = o.reshape(b, h.shape[1], nh * da)
-            h = torch.relu(o + h @ params[f"attn{i}_wres"])
-        return (h.reshape(b, -1) @ params["out_w"])[:, 0] + params["out_b"][0]
+        return _autoint(cfg, params, emb)
     raise ValueError(cfg.kind)
 
 
+def _forward_psum(cfg: RecSysConfig, params: Params,
+                  batch: dict[str, torch.Tensor], mesh) -> torch.Tensor:
+    """DeepFM / Wide&Deep / AutoInt on the psum lookup: the reference's
+    meshed forward, its sums over the looked-up (bf16-rounded) rows."""
+    idx = batch["sparse_idx"]
+    b, f = idx.shape
+    table = params["table"]
+    local = local_ids(idx, table.shape[0], mesh)
+    # the tables share one shard layout, so their backwards share a sort
+    keys = ops.BagKeys(local)
+    emb = _lookup_psum(table, local, mesh, keys=keys).reshape(
+        b, f, table.shape[1])
+    if cfg.kind in ("deepfm", "wide_deep"):
+        name = "linear_table" if cfg.kind == "deepfm" else "wide_table"
+        lin = _lookup_psum(params[name], local, mesh, keys=keys).reshape(
+            b, f).sum(-1)
+        deep = _mlp(params, emb.reshape(b, -1), _n_mlp(cfg))[:, 0]
+        if cfg.kind == "wide_deep":
+            return lin + deep + params["bias"][0]
+        sum_v = emb.sum(1)
+        fm = 0.5 * ((sum_v * sum_v) - (emb * emb).sum(1)).sum(-1)
+        return lin + fm + deep + params["bias"][0]
+    if cfg.kind == "autoint":
+        return _autoint(cfg, params, emb)
+    raise ValueError(cfg.kind)
+
+
+def _autoint(cfg: RecSysConfig, params: Params, emb: torch.Tensor
+             ) -> torch.Tensor:
+    b = emb.shape[0]
+    h = emb
+    nh, da = cfg.n_heads, cfg.d_attn
+
+    def split(t):
+        return t.reshape(b, -1, nh, da)
+
+    for i in range(cfg.n_attn_layers):
+        q = split(h @ params[f"attn{i}_wq"])
+        k = split(h @ params[f"attn{i}_wk"])
+        v = split(h @ params[f"attn{i}_wv"])
+        scores = torch.einsum("bfhd,bghd->bhfg", q, k) / math.sqrt(da)
+        o = torch.einsum("bhfg,bghd->bfhd", torch.softmax(scores, -1), v)
+        o = o.reshape(b, h.shape[1], nh * da)
+        h = torch.relu(o + h @ params[f"attn{i}_wres"])
+    return (h.reshape(b, -1) @ params["out_w"])[:, 0] + params["out_b"][0]
+
+
 def _forward_bst(cfg: RecSysConfig, params: Params,
-                 batch: dict[str, torch.Tensor]) -> torch.Tensor:
+                 batch: dict[str, torch.Tensor], mesh=None) -> torch.Tensor:
     hist, target = batch["hist"], batch["target"]          # (B,S), (B,)
     profile = batch["profile"]                             # (B,P) global ids
     b, s = hist.shape
+
+    def lookup(idx):
+        return embedding_lookup(params["table"], idx, cfg.embedding_impl,
+                                mesh)
+
     seq = torch.cat([hist, target[:, None]], dim=1)        # (B,S+1)
-    e = embedding_lookup(params["table"], seq) + params["pos_emb"][None]
+    e = lookup(seq) + params["pos_emb"][None]
     # one transformer block (post-LN, as in the BST paper)
     d = cfg.embed_dim
     hd = d // BST_HEADS
@@ -244,7 +363,7 @@ def _forward_bst(cfg: RecSysConfig, params: Params,
     h = _ln(e + o, params["attn_ln1"])
     f = torch.relu(h @ params["ffn_w1"]) @ params["ffn_w2"]
     h = _ln(h + f, params["attn_ln2"])
-    prof = embedding_lookup(params["table"], profile)      # (B,P,D)
+    prof = lookup(profile)                                 # (B,P,D)
     flat = torch.cat([h.reshape(b, -1), prof.reshape(b, -1)], dim=-1)
     return _mlp(params, flat, _n_mlp(cfg))[:, 0]
 
@@ -260,11 +379,13 @@ def _ln(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
 # ---------------------------------------------------------------------------
 
 def retrieval_scores(cfg: RecSysConfig, params: Params,
-                     batch: dict[str, torch.Tensor]) -> torch.Tensor:
+                     batch: dict[str, torch.Tensor], mesh=None
+                     ) -> torch.Tensor:
     """Batched scoring of one user against (N,) candidate item ids.
 
     The candidate id replaces field 0 (non-BST) / the target item (BST);
-    the user's context is broadcast.  Returns scores (N,).
+    the user's context is broadcast.  Returns scores (N,) (on a mesh,
+    this rank's candidates).
     """
     cands = batch["cand_idx"]                              # (N,)
     n = cands.shape[0]
@@ -273,7 +394,7 @@ def retrieval_scores(cfg: RecSysConfig, params: Params,
                "target": cands,
                "profile": batch["profile"].expand(
                    n, batch["profile"].shape[-1])}
-        return forward(cfg, params, big)
+        return forward(cfg, params, big, mesh)
     user = batch["user_idx"]                               # (1, F-1)
     idx = torch.cat([cands[:, None], user.expand(n, user.shape[-1])], dim=1)
-    return forward(cfg, params, {"sparse_idx": idx})
+    return forward(cfg, params, {"sparse_idx": idx}, mesh)

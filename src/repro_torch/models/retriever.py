@@ -21,6 +21,9 @@ import torch
 from repro_torch.core.config import ModelArguments
 from repro_torch.models.encoder import PretrainedEncoder, get_encoder
 from repro_torch.models.losses import biencoder_scores, get_loss
+from repro_torch.sharding import collectives
+from repro_torch.sharding.layout import gather_rows
+from repro_torch.sharding.partitioning import data_axes, data_parallelism
 
 RETRIEVER_REGISTRY: dict[str, type["PretrainedRetriever"]] = {}
 
@@ -51,13 +54,16 @@ class PretrainedRetriever:
     def init_params(self, generator, device="cuda"):
         return self.encoder.init_params(generator, device)
 
+    def param_logical_axes(self):
+        return self.encoder.param_logical_axes()
+
     def format_query(self, text):
         return self.encoder.format_query(text)
 
     def format_passage(self, text, title=""):
         return self.encoder.format_passage(text, title)
 
-    def forward(self, params, batch):
+    def forward(self, params, batch, ctx=None):
         raise NotImplementedError
 
 
@@ -70,12 +76,16 @@ class BiEncoderRetriever(PretrainedRetriever):
     def encode_passage(self, params, batch):
         return self.encoder.encode(params, batch)
 
-    def forward(self, params, batch):
+    def forward(self, params, batch, ctx=None):
         """batch: {"query": {...}, "passage": {...}, optional "labels"}.
 
         Passages are ordered [q0_docs..., q1_docs...] with ``group_size``
         docs per query; labels default to "first doc in group is
-        positive".  Returns (loss, metrics dict).
+        positive".  Returns (loss, metrics dict).  Under ``ctx = (mesh,
+        rules)`` the batch is this rank's rows along the data axes, and
+        the embeddings (and labels) of every rank's rows are gathered
+        before the scores, so the loss is the whole batch's, in-batch
+        negatives included (``sharding.layout.gather_rows``).
         """
         aux = None
         if self.aux_loss_weight and hasattr(self.encoder, "encode_with_aux"):
@@ -87,10 +97,21 @@ class BiEncoderRetriever(PretrainedRetriever):
         else:
             q_emb = self.encode_query(params, batch["query"])
             p_emb = self.encode_passage(params, batch["passage"])
+        labels = batch.get("labels")
+        if ctx is not None:
+            mesh = ctx[0]
+            moe = getattr(getattr(self.encoder, "cfg", None), "moe", False)
+            if moe and data_parallelism(mesh) > 1:
+                raise NotImplementedError(
+                    "an MoE load-balance loss over a batch split across "
+                    "ranks is not ported yet (ROADMAP queue 1 item 10)")
+            q_emb, p_emb = gather_rows(q_emb, mesh), gather_rows(p_emb, mesh)
+            if labels is not None:
+                labels = collectives.all_gather(labels, mesh,
+                                                data_axes(mesh))
         nq = q_emb.shape[0]
         group = p_emb.shape[0] // nq
         scores = biencoder_scores(q_emb, p_emb, self.temperature)
-        labels = batch.get("labels")
         if labels is None:
             labels = torch.arange(nq, dtype=torch.int32,
                                   device=scores.device) * group
@@ -113,7 +134,9 @@ class GradedBiEncoderRetriever(BiEncoderRetriever):
 
     _alias = "graded_biencoder"
 
-    def forward(self, params, batch):
+    def forward(self, params, batch, ctx=None):
+        # the graded loss is a mean of per-query terms, so a rank's rows
+        # need no other rank's embeddings
         q_emb = self.encode_query(params, batch["query"])
         p_emb = self.encode_passage(params, batch["passage"])
         nq = q_emb.shape[0]
@@ -124,10 +147,11 @@ class GradedBiEncoderRetriever(BiEncoderRetriever):
         return loss, {"graded_loss": loss}
 
 
-def make_train_loss_fn(retriever: PretrainedRetriever) -> Callable[..., Any]:
+def make_train_loss_fn(retriever: PretrainedRetriever,
+                       ctx=None) -> Callable[..., Any]:
     """(params, batch) -> (loss, metrics) — consumed by RetrievalTrainer."""
 
     def loss_fn(params, batch):
-        return retriever.forward(params, batch)
+        return retriever.forward(params, batch, ctx)
 
     return loss_fn

@@ -62,10 +62,15 @@ gathers' backward adds into rows on CUDA, so two backward passes are
 bitwise equal only under ``torch.use_deterministic_algorithms(True)``.
 
 The reference's mesh and compile knobs have no counterpart here, since
-torch runs eagerly on one card: ``scan_layers``, ``seq_shard_attn``,
+torch runs eagerly: ``scan_layers``, ``seq_shard_attn``,
 ``seq_shard_acts``, ``inline_mask``, ``dus_cache_update`` and
 ``moe_impl`` (its ``shardmap`` form of the MoE); nor has
-``max_seq_len``, which the reference declares and never reads.
+``max_seq_len``, which the reference declares and never reads.  The
+reference's partitioning is here, at the end of the module: each leaf's
+logical axes (``param_logical_axes``, ``cache_logical_axes``) and
+``LM_RULES``, which ``sharding.partitioning`` resolves on a mesh; its
+activation constraints (``_constrain``) move work between devices, not
+values, and have none.
 
 The KV-cache decode (the reference's serve step): :func:`init_cache`
 gives ``{"k", "v"}`` of shape (L, B, S, K, hd) in the model dtype and
@@ -97,6 +102,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding.partitioning import AxisRules
 from repro_torch.training.tree import leaves
 
 Params = dict[str, Any]
@@ -642,3 +648,66 @@ def decode_step(cfg: LMConfig, params: Params, cache: Params,
     x = _norm(x, params["final_ln"], params.get("final_ln_b"), cfg.norm)
     cache["len"].add_(1)
     return lm_logits(cfg, params, x)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# Partitioning: logical axes of the parameters and the KV cache
+# ---------------------------------------------------------------------------
+
+# Logical axes of each leaf (without the stacked layer axis): d_model rows
+# FSDP-sharded, heads / ffn / experts tensor-parallel (the reference's
+# ``_AXES``)
+_AXES = {
+    # attention
+    "wq": ("fsdp", "heads", None), "wk": ("fsdp", "kv_heads", None),
+    "wv": ("fsdp", "kv_heads", None), "wo": ("heads", None, "fsdp"),
+    "bq": ("heads", None), "bk": ("kv_heads", None), "bv": ("kv_heads", None),
+    "ln1": (None,), "ln2": (None,), "ln1_b": (None,), "ln2_b": (None,),
+    # dense FFN
+    "wi_gate": ("fsdp", "ffn"), "wi_up": ("fsdp", "ffn"),
+    "wo_ffn": ("ffn", "fsdp"),
+    # MoE
+    "router": ("fsdp", None),
+    "we_gate": ("experts", "fsdp", "expert_ffn"),
+    "we_up": ("experts", "fsdp", "expert_ffn"),
+    "we_down": ("experts", "expert_ffn", "fsdp"),
+    "ws_gate": ("fsdp", "ffn"), "ws_up": ("fsdp", "ffn"),
+    "ws_down": ("ffn", "fsdp"),
+    # top level
+    "embed": ("vocab", "embed"),
+    "final_ln": (None,), "final_ln_b": (None,),
+}
+
+# The FSDP rule: weight rows over the data-parallel axes; seq_model: the
+# cache's sequence over "model" where the KV heads do not divide it.
+LM_RULES = AxisRules().with_overrides(fsdp=("pod", "data"),
+                                      seq_model=("model",),
+                                      kv_seq_full=("pod", "data", "model"))
+
+
+def param_logical_axes(cfg: LMConfig) -> Params:
+    """The logical axes of every leaf of :func:`param_shapes`, a stacked
+    leaf's first axis ``"layers"``."""
+    def axes(name: str, shape) -> tuple:
+        base = _AXES[name]
+        return ("layers",) + base if len(base) + 1 == len(shape) else base
+
+    return {name: ({k: axes(k, s) for k, s in shape.items()}
+                   if isinstance(shape, dict) else axes(name, shape))
+            for name, shape in param_shapes(cfg).items()}
+
+
+def cache_logical_axes(cfg: LMConfig, batch: int,
+                       tp_divides_kv: bool = True) -> Params:
+    """The KV cache's logical axes (the reference's): at batch 1 (long
+    context) the sequence over the data axes (and "model" too when the KV
+    heads do not divide it); above 1 the batch over the data axes and the
+    KV heads over "model" where they divide it, else the sequence."""
+    if batch == 1:
+        seq_axis = "kv_seq" if tp_divides_kv else "kv_seq_full"
+        kv = ("layers", None, seq_axis, "kv_heads", None)
+    elif tp_divides_kv:
+        kv = ("layers", "batch", None, "kv_heads", None)
+    else:
+        kv = ("layers", "batch", "seq_model", None, None)
+    return {"k": kv, "v": kv, "len": ()}

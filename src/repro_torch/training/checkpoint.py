@@ -23,6 +23,12 @@ Guarantees:
     on the next step) and writes on a background thread; a write's
     error surfaces on the next ``save`` / ``wait``.
   * keep-M — after each write only the newest ``keep`` steps remain.
+  * elastic — on a mesh (``shardings = (mesh, specs)``, a spec tree of
+    the state) every rank gathers each leaf, rank 0 writes the full
+    leaves, synchronously, and the ranks meet at a barrier; a restore
+    reads the full leaves and keeps each rank's slice under the target
+    layout, which may be another mesh than the one saved from (the
+    reference's ``restore_checkpoint(..., shardings)``), or no mesh.
 """
 
 from __future__ import annotations
@@ -100,25 +106,39 @@ def _decode(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True))
 
 
-def restore_checkpoint(path: str, template: Any) -> Any:
+def restore_checkpoint(path: str, template: Any,
+                       shardings: tuple | None = None) -> Any:
     """Restore the leaves of ``template``'s structure (other leaves in the
     checkpoint are not read).  A tensor leaf of the template comes back
     as a tensor of the stored dtype on the template leaf's device; any
-    other leaf as a numpy array.  A missing leaf or another shape
-    raises."""
+    other leaf as a numpy array.  ``shardings = (mesh, specs)`` keeps
+    this rank's slice of each tensor leaf under its spec (the template
+    holds local slices).  A missing leaf or another shape raises."""
+    from repro_torch.sharding.layout import local_slice
+    from repro_torch.sharding.partitioning import local_shape
+
     with open(os.path.join(path, "manifest.json")) as f:
         dtypes = {k: v["dtype"] for k, v in json.load(f)["leaves"].items()}
+    mesh = shardings[0] if shardings is not None else None
+    specs = ([s for _, s in flatten(shardings[1])]
+             if shardings is not None else [None] * len(flatten(template)))
     out = []
     with np.load(os.path.join(path, "arrays.npz")) as z:
-        for key, tmpl in flatten(template):
+        for (key, tmpl), spec in zip(flatten(template), specs):
             if key not in z.files:
                 raise KeyError(f"checkpoint missing leaf {key}")
             arr = z[key]
-            if tuple(arr.shape) != tuple(np.shape(tmpl)):
+            shape = tuple(arr.shape)
+            if spec is not None and isinstance(tmpl, torch.Tensor):
+                shape = local_shape(shape, spec, mesh)
+            if shape != tuple(np.shape(tmpl)):
                 raise ValueError(f"checkpoint leaf {key}: shape "
-                                 f"{arr.shape} != {tuple(np.shape(tmpl))}")
+                                 f"{shape} != {tuple(np.shape(tmpl))}")
             if isinstance(tmpl, torch.Tensor):
-                out.append(_decode(arr, dtypes[key]).to(tmpl.device))
+                t = _decode(arr, dtypes[key])
+                if spec is not None:
+                    t = local_slice(t, spec, mesh)
+                out.append(t.to(tmpl.device))
             else:
                 out.append(arr)
     return unflatten(template, out)
@@ -145,8 +165,25 @@ class CheckpointManager:
     def should_save(self, step: int) -> bool:
         return step > 0 and step % self.save_every == 0
 
-    def save(self, step: int, state: Any, blocking: bool | None = None):
+    def save(self, step: int, state: Any, blocking: bool | None = None,
+             shardings: tuple | None = None):
+        """Save ``state`` as ``step``.  With ``shardings = (mesh,
+        specs)`` (``state`` holds this rank's slices) every rank gathers
+        the full leaves, rank 0 writes them synchronously, and the ranks
+        then meet at a barrier, so that a restore on any rank sees the
+        write."""
         self.wait()
+        if shardings is not None:
+            import torch.distributed as dist
+
+            from repro_torch.sharding.layout import gather_tree
+            mesh, specs = shardings
+            full = gather_tree(state, specs, mesh)
+            if mesh.rank == 0:
+                self._write(step, tree_to_flat(full))
+            del full
+            dist.barrier()
+            return
         # the host copy is taken here, synchronously: the trainer updates
         # the state's tensors in place on its next step
         host_state = tree_to_flat(state)
@@ -183,10 +220,12 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
 
-    def restore_latest(self, template: Any):
+    def restore_latest(self, template: Any, shardings: tuple | None = None):
         """(state restored into ``template``, its step), or (None, -1)
-        when there is no checkpoint."""
+        when there is no checkpoint; ``shardings`` as for
+        :func:`restore_checkpoint`."""
         path = latest_checkpoint(self.ckpt_dir)
         if path is None:
             return None, -1
-        return restore_checkpoint(path, template), checkpoint_step(path)
+        return (restore_checkpoint(path, template, shardings),
+                checkpoint_step(path))

@@ -190,3 +190,44 @@ def make_optimizer(cfg: OptimizerConfig):
         return (lambda p: adafactor_init(cfg, p),
                 lambda g, s, p, t: adafactor_update(cfg, g, s, p, t))
     raise ValueError(cfg.name)
+
+
+def adafactor_entries(entries, factored: bool) -> dict:
+    """A parameter's Adafactor state entries from its own (logical axes or
+    spec entries): a factored leaf's ``vr`` drops the last and its ``vc``
+    the one before it; an unfactored leaf's ``v`` keeps them all.
+
+    The reference applies this to logical axes and resolves them in its
+    cells (``configs.base._opt_shardings``) and to resolved specs in its
+    trainer (``RetrievalTrainer.state_shardings``).  The two differ where
+    the dropped dimension held a mesh axis that a kept one then takes: an
+    LM's ``embed`` ``vc`` (its vocabulary dimension holds "model", so its
+    spec is ("model", None); ``vc`` re-resolved is ("model",), dropped
+    from the spec (None,))."""
+    entries = tuple(entries)
+    if factored:
+        return {"vr": entries[:-1], "vc": entries[:-2] + entries[-1:]}
+    return {"v": entries}
+
+
+def opt_state_logical_axes(cfg: OptimizerConfig, param_axes,
+                           param_shapes=None):
+    """Optimizer-state logical axes mirroring the parameters (ZeRO-3).
+
+    AdamW: ``{"mu": param_axes, "nu": param_axes}``.  Adafactor: without
+    ``param_shapes``, ``{"v": param_axes}`` (the reference's value: which
+    leaves factor depends on their shapes); with the parameters' shapes
+    (a tree of tuples or tensors), each leaf resolved against them: a
+    factored leaf's ``vr`` drops the last axis and its ``vc`` the one
+    before it, an unfactored leaf keeps ``v``."""
+    if cfg.name == "adamw":
+        return {"mu": param_axes, "nu": param_axes}
+    if param_shapes is None:
+        return {"v": param_axes}
+
+    def make(axes, shape):
+        shape = tuple(shape.shape) if hasattr(shape, "shape") else shape
+        return adafactor_entries(axes, _factored(cfg, shape))
+
+    return {"v": tree_map(make, param_axes, param_shapes)}
+

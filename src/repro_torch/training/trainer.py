@@ -25,9 +25,22 @@ resumes at the restored state's own step count.
 
 An MoE encoder's load-balance loss enters the retriever's loss as
 ``aux_loss_weight`` (0.01) times it, logged as ``moe_aux_loss`` (0.0
-for a dense encoder), as in the reference.  The mesh and
-``dp_mode="shard_map"`` with its compressed gradient all-reduce wait
-for ROADMAP queue 1 item 10.  The state's ``rng`` leaf is a uint32 (2,) array under
+for a dense encoder), as in the reference.
+
+On a mesh (``mesh=``, bound to a process group of its size; ``rules``
+default to the encoder's ``axis_rules()``) the state is held as each
+rank's slices under :meth:`RetrievalTrainer.state_shardings` (the
+reference's: optimizer state mirrors the parameters, Adafactor's
+factored ``vr`` / ``vc`` drop the spec's last / second-to-last entry),
+the stream's batch grows to ``per_device_batch_size`` x the mesh's ranks,
+and a step is ``sharding.layout``'s meshed step: gather, forward and
+backward on this rank's rows (the retriever's scores over the whole
+batch), data-axis mean, clip, update on local slices.
+``dp_mode="shard_map"`` then compresses the already averaged gradient
+as the reference does (bf16 round trip, or int8 with error feedback in
+``state["ef"]``; ROADMAP queue 3, fault 12).  Checkpoints hold full
+leaves (rank 0 writes them) and restore onto any mesh.  The state's
+``rng`` leaf is a uint32 (2,) array under
 the reference's key, so the reference's restore templates find every
 leaf they ask for; it holds the reference's initial key data (threefry
 ``key(seed + 1)``) and is not advanced by a step, so its values are not
@@ -46,11 +59,18 @@ import torch
 from repro_torch.core.config import RetrievalTrainingArguments
 from repro_torch.core.metrics import IRMetrics
 from repro_torch.device import resolve_device
+from repro_torch.sharding.layout import (batch_shard, clip_local,
+                                         data_specs, gather_leaf,
+                                         gather_tree, local_slice,
+                                         meshed_grads, shard_tree,
+                                         update_local)
+from repro_torch.sharding.partitioning import AxisRules, P, data_axes
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training import grad_compression as gc
 from repro_torch.training.fault_tolerance import (Heartbeat, PreemptionGuard,
                                                   resilient_loop)
-from repro_torch.training.optimizer import (OptimizerConfig,
+from repro_torch.training.optimizer import (OptimizerConfig, _state_at,
+                                            adafactor_entries,
                                             clip_by_global_norm,
                                             make_optimizer)
 from repro_torch.training.tree import flatten, tree_map, unflatten
@@ -64,7 +84,11 @@ class RetrievalTrainer:
                  loss_fn: Callable | None = None,
                  dev_dataset=None,
                  compute_metrics: IRMetrics | None = None,
+                 mesh=None, rules: AxisRules | None = None,
+                 dp_mode: str = "pjit",
                  device: str | torch.device = "cuda"):
+        if dp_mode not in ("pjit", "shard_map"):
+            raise ValueError(f"unknown dp_mode {dp_mode!r}")
         self.retriever = retriever
         self.args = args
         self.collator = collator
@@ -72,9 +96,20 @@ class RetrievalTrainer:
         self.dev_dataset = dev_dataset
         self.compute_metrics = compute_metrics
         self.device = resolve_device(device)
+        self.mesh = mesh
+        encoder = getattr(retriever, "encoder", None)
+        self.rules = rules or (encoder.axis_rules()
+                               if hasattr(encoder, "axis_rules")
+                               else AxisRules())
+        self.dp_mode = dp_mode
+        self.specs = None               # the state's, set by init_state
         if retriever is not None:
             retriever.aux_loss_weight = args.aux_loss_weight
-        self.loss_fn = loss_fn or (lambda p, b: retriever.forward(p, b))
+        self._ctx = (mesh, self.rules) if mesh is not None else None
+        # without a mesh, any retriever duck-type's forward(params, batch)
+        self.loss_fn = loss_fn or (
+            (lambda p, b: retriever.forward(p, b)) if mesh is None else
+            (lambda p, b: retriever.forward(p, b, self._ctx)))
         self.opt_cfg = OptimizerConfig(
             name=args.optimizer, learning_rate=args.learning_rate,
             weight_decay=args.weight_decay, warmup_steps=args.warmup_steps,
@@ -103,7 +138,48 @@ class RetrievalTrainer:
                  "rng": np.array([0, self.args.seed + 1], np.uint32)}
         if self.args.grad_compression == "int8":
             state["ef"] = gc.init_error_feedback(params)
+        if self.mesh is not None:
+            self.specs = self.state_shardings(state)
+            state = shard_tree(state, self.specs, self.mesh)
         return state
+
+    def state_shardings(self, state) -> dict | None:
+        """The specs of a full (unsliced) train state under the rules
+        (the reference's ``state_shardings``): the parameters' from their
+        logical axes, AdamW's moments and ``ef`` mirroring them,
+        Adafactor's from the parameter's spec by
+        ``optimizer.adafactor_entries`` (its cells re-resolve the logical
+        axes instead, as the reference's do); ``step`` and ``rng``
+        replicated."""
+        if self.mesh is None:
+            return None
+        param_specs = tree_map(
+            lambda p, axes: self.rules.spec_for(axes, tuple(p.shape),
+                                                self.mesh),
+            state["params"], self.retriever.param_logical_axes())
+        opt = state["opt"]
+        if "mu" in opt:
+            opt_specs = {"mu": param_specs, "nu": param_specs}
+        else:
+            def fac(path, spec):
+                v = _state_at(opt["v"], path)
+                return {k: P(*e) for k, e in
+                        adafactor_entries(spec, "vr" in v).items()}
+            opt_specs = {"v": unflatten(param_specs, [
+                fac(path, spec) for path, spec in flatten(param_specs)])}
+        specs = {"step": P(), "params": param_specs, "opt": opt_specs,
+                 "rng": P()}
+        if "ef" in state:
+            specs["ef"] = param_specs
+        return specs
+
+    def batch_sharding(self):
+        """The batch's spec: dim 0 over the data axes (None without a
+        mesh)."""
+        if self.mesh is None:
+            return None
+        axes = data_axes(self.mesh)
+        return P(axes if axes else None)
 
     # -- timing --------------------------------------------------------------
     def _mark(self, phase: str) -> None:
@@ -155,9 +231,11 @@ class RetrievalTrainer:
     def _step(self, state: dict, batch) -> tuple[dict, dict]:
         self._marks.append([])
         self._mark("start")
+        batch = self._to_device(batch)
+        if self.mesh is not None:
+            return self._meshed_step(state, batch)
         accum = self.args.grad_accum_steps
         params = state["params"]
-        batch = self._to_device(batch)
         if accum > 1:
             grads = tree_map(lambda p: torch.zeros(
                 p.shape, dtype=torch.float32, device=p.device), params)
@@ -179,12 +257,78 @@ class RetrievalTrainer:
         metrics.update(loss=loss, grad_norm=gnorm)
         return state, metrics
 
+    def _meshed_step(self, state: dict, batch) -> tuple[dict, dict]:
+        """One step on the mesh over the global ``batch`` (this rank
+        takes its rows; microbatches along dim 0, rows along dim 1)."""
+        mesh, specs, accum = self.mesh, self.specs, self.args.grad_accum_steps
+        pspecs = specs["params"]
+        rows = data_specs(batch, mesh)
+        if accum > 1:
+            rows = tree_map(lambda s: P(None, *s), rows)
+        local = batch_shard(batch, rows, mesh)
+        if accum > 1:
+            grads, loss = None, 0.0
+            for i in range(accum):
+                mb_loss, metrics, mb_grads, full = meshed_grads(
+                    self.loss_fn, state["params"], pspecs,
+                    tree_map(lambda x: x[i], local), mesh, marks=self._mark)
+                # float32 sums, as the one-process accumulation
+                grads = (tree_map(lambda g: g.float(), mb_grads)
+                         if grads is None else
+                         tree_map(torch.add, grads, mb_grads))
+                loss = loss + mb_loss
+            grads = tree_map(lambda g: g / accum, grads)
+            loss = loss / accum
+        else:
+            loss, metrics, grads, full = meshed_grads(
+                self.loss_fn, state["params"], pspecs, local, mesh,
+                marks=self._mark)
+        if self.dp_mode == "shard_map":
+            grads = self._compressed_sync(grads, state)
+        grads, gnorm = clip_local(grads, pspecs, mesh,
+                                  self.opt_cfg.grad_clip)
+        update_local(self.opt_cfg, self.opt_update, grads, state["opt"],
+                     state["params"], state["step"], pspecs,
+                     specs["opt"], mesh, full)
+        self._mark("update")
+        state["step"] = state["step"] + 1
+        metrics = dict(metrics)
+        metrics.update(loss=loss, grad_norm=gnorm)
+        return state, metrics
+
+    @torch.no_grad()
+    def _compressed_sync(self, grads, state):
+        """The reference's ``dp_mode="shard_map"`` on the averaged full
+        gradient: a bf16 round trip, or int8 with the residual carried in
+        ``state["ef"]`` (this rank's slice, the quantization over the
+        whole leaf); gradients come back in float32."""
+        method = self.args.grad_compression
+        if method == "none":
+            return grads
+        if method == "bf16":
+            return tree_map(lambda g: g.to(torch.bfloat16).float(), grads)
+        if method != "int8":
+            raise ValueError(method)
+        out, residuals = [], []
+        for (path, g), e, spec in zip(
+                flatten(grads), [t for _, t in flatten(state["ef"])],
+                [s for _, s in flatten(self.specs["ef"])]):
+            g = g.float() + gather_leaf(e, spec, self.mesh)
+            deq = gc.dequantize_int8(*gc.quantize_int8(g))
+            out.append(deq)
+            residuals.append(local_slice(g - deq, spec, self.mesh))
+        for e, r in zip([t for _, t in flatten(state["ef"])], residuals):
+            e.copy_(r)
+        return unflatten(grads, out)
+
     # -- data ------------------------------------------------------------------
     def _batches(self, start: int) -> Iterator[dict]:
         """The batch stream from step ``start`` on: the reference's
-        ``default_rng(seed)`` draws, the first ``start`` skipped."""
+        ``default_rng(seed)`` draws, the first ``start`` skipped; on a
+        mesh ``per_device_batch_size`` x its ranks a draw."""
         n = len(self.train_dataset)
-        bsz = self.args.per_device_batch_size
+        bsz = self.args.per_device_batch_size * (
+            self.mesh.size if self.mesh is not None else 1)
         accum = self.args.grad_accum_steps
         rng = np.random.default_rng(self.args.seed)
         for _ in range(start):
@@ -212,7 +356,7 @@ class RetrievalTrainer:
         os.makedirs(args.output_dir, exist_ok=True)
         if state is None:
             state = self.init_state()
-        restored, _ = self.ckpt_mgr.restore_latest(state)
+        restored, _ = self.ckpt_mgr.restore_latest(state, **self._layout())
         if restored is not None:
             state = restored
         start = int(state["step"])
@@ -234,16 +378,18 @@ class RetrievalTrainer:
                     rec.update(self._dev_metrics(box["state"]["params"]))
                 self.logs.append(rec)
             if self.ckpt_mgr.should_save(step):
-                self.ckpt_mgr.save(step, box["state"])
+                self.ckpt_mgr.save(step, box["state"], **self._layout())
             hb.update(step)
             if guard.should_exit:
-                self.ckpt_mgr.save(step, box["state"], blocking=True)
+                self.ckpt_mgr.save(step, box["state"], blocking=True,
+                                   **self._layout())
                 raise SystemExit(0)
 
         def on_failure(exc):
             # a save still in flight may be the one to restore
             self.ckpt_mgr.wait()
-            restored, _ = self.ckpt_mgr.restore_latest(box["state"])
+            restored, _ = self.ckpt_mgr.restore_latest(box["state"],
+                                                       **self._layout())
             if restored is None:
                 box["state"], resume = self.init_state(), 0
             else:
@@ -254,16 +400,27 @@ class RetrievalTrainer:
             box["batches"] = self._batches(resume)
             return resume
 
-        with Heartbeat(os.path.join(args.output_dir, "heartbeat.json")) \
+        rank = self.mesh.rank if self.mesh is not None else 0
+        beat = "heartbeat.json" if not rank else f"heartbeat-{rank}.json"
+        with Heartbeat(os.path.join(args.output_dir, beat)) \
                 as hb, PreemptionGuard() as guard:
             resilient_loop(do_step, start, args.max_steps, on_failure)
-        self.ckpt_mgr.save(args.max_steps, box["state"], blocking=True)
+        self.ckpt_mgr.save(args.max_steps, box["state"], blocking=True,
+                           **self._layout())
         self.ckpt_mgr.wait()
         return box["state"]
+
+    def _layout(self) -> dict:
+        """The checkpoint manager's ``shardings`` on a mesh (nothing on
+        one process, so its one-process calls stay as they were)."""
+        return {} if self.mesh is None else {
+            "shardings": (self.mesh, self.specs)}
 
     # -- training-time IR metrics (paper §3.4) -------------------------------------
     @torch.no_grad()
     def _dev_metrics(self, params) -> dict:
+        if self.mesh is not None:
+            params = gather_tree(params, self.specs["params"], self.mesh)
         groups = self.dev_dataset
         feats = groups if isinstance(groups, list) else groups.dev_groups(32)
         host = self.collator(feats)

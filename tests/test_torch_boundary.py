@@ -73,7 +73,10 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.models.gnn", "repro_torch.data.graph",
             "repro_torch.launch.roofline", "repro_torch.launch.memmodel",
             "repro_torch.launch.dryrun", "repro_torch.launch.report",
-            "repro_torch.launch.hillclimb"} <= set(
+            "repro_torch.launch.hillclimb", "repro_torch.launch.mesh",
+            "repro_torch.sharding", "repro_torch.sharding.partitioning",
+            "repro_torch.sharding.collectives",
+            "repro_torch.sharding.layout"} <= set(
                 out["imported"])
     leaked = [m for m in out["loaded"]
               if m in ("jax", "repro") or m.startswith(("jax.", "repro."))]

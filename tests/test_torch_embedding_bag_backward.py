@@ -205,10 +205,15 @@ def test_weights_gradient_raises():
 
 
 def test_backward_keys_sort_stably_with_padding_as_row_0():
+    """Padding sorts past every row (PAD_KEY), where the kernel's row
+    ranges never reach it; it adds to row 0 only as the first pass's NaN
+    columns."""
     idx = torch.tensor([[3, -1, 0], [3, 2, -1]], dtype=torch.int32)
     keys, order = bag.backward_keys(idx)
-    assert keys.tolist() == [0, 0, 0, 2, 3, 3]
-    assert order.tolist() == [1, 2, 5, 4, 0, 3]
+    pad = bag.PAD_KEY
+    assert pad == 2 ** 31 - 1
+    assert keys.tolist() == [0, 2, 3, 3, pad, pad]
+    assert order.tolist() == [2, 4, 0, 3, 1, 5]
     assert keys.dtype == order.dtype == torch.int32
 
 

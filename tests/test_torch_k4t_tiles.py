@@ -150,15 +150,22 @@ def _first_not_below(lo, hi, below, threads):
     return lo
 
 
+def _rows_end(keys, n_rows, threads):
+    """The kernel's ``rows_end``: where the entries whose key is not a row
+    (padding, ids >= V) start."""
+    return _first_not_below(0, keys.numel(),
+                            lambda p: int(keys[p]) < n_rows, threads)
+
+
 def _split_row(keys, n_rows, row_w, entry_w, blk, grid, threads):
     """The kernel's ``split_row``: where block ``blk`` starts, balancing a
     row's bytes (``row_w``) against its entries (``entry_w`` each), and
-    its first entry."""
+    its first entry, over the entries with a row's key."""
+    n = _rows_end(keys, n_rows, threads)
     if blk <= 0:
         return 0, 0
     if blk >= grid:
-        return n_rows, keys.numel()
-    n = keys.numel()
+        return n_rows, n
     total = n_rows * row_w + n * entry_w
     target = blk * (total // grid) + blk * (total % grid) // grid
 
@@ -178,11 +185,12 @@ def _split_row(keys, n_rows, row_w, entry_w, blk, grid, threads):
 
 def _model(grad, idx, weights, n_rows, tile_rows, threads, grid, lead=0,
            entry_w=None):
-    """csrc/embedding_bag_backward.cu in plain Python: ``grid`` blocks of
-    ``threads``, each walking its run of tiles of ``tile_rows`` rows (the
-    runs balanced by work), its entries staged a batch at a time across
-    tile edges, float32 throughout; ``out`` starts ``lead`` bytes past a
-    16-byte boundary.  Checks as it goes that the runs of tiles cover the
+    """csrc/embedding_bag_backward.cu in plain Python: the first pass's
+    NaN columns, then ``grid`` blocks of ``threads``, each walking its run
+    of tiles of ``tile_rows`` rows (the runs balanced by work), its
+    entries staged a batch at a time across tile edges, float32
+    throughout, row 0 starting at NaN in the flagged columns; ``out``
+    starts ``lead`` bytes past a 16-byte boundary.  Checks as it goes that the runs of tiles cover the
     table once, that each batch's and each tile's entries are a prefix,
     that the 16-byte pieces are aligned in the output and in the staged
     sums, that the staged sums are +0.0 again after every tile, and that
@@ -197,7 +205,13 @@ def _model(grad, idx, weights, n_rows, tile_rows, threads, grid, lead=0,
     writes = torch.zeros(n_rows * d, dtype=torch.int64)
     g32, flat_idx = grad.float(), idx.reshape(-1)
     w = None if weights is None else weights.reshape(-1)
-    one, zero = torch.tensor(1.0), torch.tensor(0.0)
+    # pad_pass: the columns where a padded slot's (g * 0) * w is NaN
+    padded = (flat_idx < 0).nonzero().flatten()
+    x = g32[padded // n_slots] * 0.0
+    if w is not None:
+        x = x * w[padded][:, None]
+    nan_cols = torch.isnan(x).any(0)
+    assert (keys[:_rows_end(keys, n_rows, threads)] < n_rows).all()
     entry_w = entry_w or bag.backward_entry_work(d)
     firsts = [_split_row(keys, n_rows, d * elt, entry_w, k, grid, threads)
               for k in range(grid + 1)]
@@ -222,10 +236,11 @@ def _model(grad, idx, weights, n_rows, tile_rows, threads, grid, lead=0,
             pos = order[st["j"]:st["j"] + cnt].long()
             # every gather of the batch before any add
             x = g32[pos // n_slots]
-            pad = (ks[:cnt] == 0) & (flat_idx[pos] < 0)
-            x = x * torch.where(pad, zero, one)[:, None]
             if w is not None:
                 x = x * w[pos][:, None]
+            # padding on a row only when V > INT_MAX: it adds +0.0
+            pad = (ks[:cnt] == bag.PAD_KEY) & (flat_idx[pos] < 0)
+            x = torch.where(pad[:, None], 0.0, x)
             st.update(keys=ks[:cnt].tolist(), vals=x, q0=0,
                       j=st["j"] + cnt)
 
@@ -235,6 +250,9 @@ def _model(grad, idx, weights, n_rows, tile_rows, threads, grid, lead=0,
             r1 = r0 + nrow
             mis = (lead + r0 * d * elt) % 16
             off = (mis // elt) & 3
+            if r0 == 0:
+                acc[off:off + d] = torch.where(nan_cols, float("nan"),
+                                               acc[off:off + d])
             while st["q0"] < len(st["keys"]) or len(st["keys"]) == batch:
                 if st["q0"] == len(st["keys"]):
                     load()

@@ -46,6 +46,7 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.encoder import DefaultEncoder
 from repro_torch.models.retriever import BiEncoderRetriever
+from repro_torch.sharding import make_mesh
 
 torch.set_num_threads(1)
 
@@ -273,12 +274,19 @@ def test_encode_cell_matches_reference_cell(name):
 
 @pytest.mark.parametrize("shape", ["train_4k", "decode_32k", "long_500k"])
 def test_unported_cells_raise_naming_their_item(shape):
-    """Every cell raises on a mesh, naming item 10, and on one device
-    builds and steps: ``train_4k`` one optimizer step, the decode shapes
-    one decode step from ``smoke_inputs``' cache."""
+    """On a mesh ``train_4k`` builds with its layout and the decode cells
+    raise naming item 10; on one device every cell builds and steps:
+    ``train_4k`` one optimizer step, the decode shapes one decode step
+    from ``smoke_inputs``' cache."""
     arch = get_arch("qwen2-0.5b").reduced()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        arch.build_cell(shape, device="cpu", mesh=object())
+    mesh = make_mesh((2, 2), ("data", "model"))
+    if shape == "train_4k":
+        layout = arch.build_cell(shape, device="cpu", mesh=mesh).layout
+        assert tuple(layout.param_specs["embed"]) == ("model", None)
+        assert set(layout.opt_specs) == {"mu", "nu"}
+    else:
+        with pytest.raises(NotImplementedError, match="item 10"):
+            arch.build_cell(shape, device="cpu", mesh=mesh)
     params = tf.init_params(arch.cfg, torch.Generator().manual_seed(0),
                             "cpu")
     cell = arch.build_cell(shape, device="cpu")

@@ -58,6 +58,7 @@ from repro_torch.launch import train
 from repro_torch.launch.serve import lm_config
 from repro_torch.models import transformer as tf
 from repro_torch.models.convert import params_from_jax
+from repro_torch.sharding import make_mesh
 from repro_torch.training import optimizer as opt
 from repro_torch.training import trainer as port_trainer
 from repro_torch.training.tree import flatten, leaves, tree_map, unflatten
@@ -211,14 +212,24 @@ def test_train_4k_state_after_the_steps(runs):
 @pytest.mark.parametrize("name", ARCHS)
 def test_arch_optimizers_and_refusals(name):
     """Adafactor at full width, AdamW reduced (the reference's defaults);
-    a mesh raises naming item 10; the reduced decode cell builds and
-    steps."""
+    ``train_4k`` builds on a mesh with its layout (stepping it needs the
+    mesh bound to a process group, ``tests/test_torch_mesh.py``) and the
+    decode cell raises there naming item 10; the reduced decode cell
+    builds and steps."""
     arch, jarch = get_arch(name), ref_get_arch(name)
     assert arch.optimizer == jarch.optimizer == "adafactor"
     assert arch.reduced().optimizer == jarch.reduced().optimizer == "adamw"
     assert arch.cfg.remat and not arch.reduced().cfg.remat
+    mesh = make_mesh((2, 2), ("data", "model"))
+    cell = arch.reduced().build_cell("train_4k", device="cpu", mesh=mesh)
+    assert cell.layout.mesh is mesh and cell.layout.keep == ()
+    assert tuple(cell.layout.param_specs["blocks"]["wq"]) == (
+        None, "data", "model", None)
+    with pytest.raises(RuntimeError, match="shape-only"):
+        cell.fn({}, arch.reduced().smoke_inputs(
+            "train_4k", torch.Generator(), device="cpu"))
     with pytest.raises(NotImplementedError, match="item 10"):
-        arch.reduced().build_cell("train_4k", device="cpu", mesh=object())
+        arch.reduced().build_cell("decode_32k", device="cpu", mesh=mesh)
     small = arch.reduced()
     cache, tokens = small.smoke_inputs("decode_32k", torch.Generator(),
                                        device="cpu")

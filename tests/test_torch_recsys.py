@@ -10,6 +10,7 @@ orders in float32: outputs agree within rtol 1e-5 / atol 1e-6, and the
 retrieval ids wherever neighbouring scores are more than 1e-5 apart.
 """
 
+import dataclasses
 import jax
 import numpy as np
 import pytest
@@ -21,6 +22,7 @@ from repro_torch.configs import get_arch
 from repro_torch.kernels import ops
 from repro_torch.models import recsys
 from repro_torch.models.convert import recsys_params_from_jax
+from repro_torch.sharding import make_mesh
 
 torch.set_num_threads(1)
 
@@ -169,8 +171,16 @@ def test_unported_parts_raise():
     params = recsys.init_params(arch.cfg, torch.Generator().manual_seed(0),
                            "cpu")
     tb = arch.smoke_inputs("serve_p99", np.random.default_rng(0), "cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        recsys.forward(arch.cfg, params, tb, mesh=object())
+    # on a mesh the xla_gather lookup is the one-card path on the
+    # gathered table; the psum lookup needs the mesh bound to a process
+    # group (tests/test_torch_mesh.py)
+    mesh = make_mesh((1, 2), ("data", "model"))
+    torch.testing.assert_close(recsys.forward(arch.cfg, params, tb, mesh),
+                               recsys.forward(arch.cfg, params, tb),
+                               rtol=0, atol=0)
+    psum = dataclasses.replace(arch.cfg, embedding_impl="psum")
+    with pytest.raises(RuntimeError, match="shape-only"):
+        recsys.forward(psum, params, tb, mesh)
     # gemma-7b and the MoE archs are LM encoders of the port now
     # (tests/test_torch_lm_encoders.py, tests/test_torch_moe.py), and the
     # GNN is ported too (tests/test_torch_gnn.py)

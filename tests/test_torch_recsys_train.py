@@ -32,9 +32,11 @@ from repro.models import recsys as jrecsys
 from repro.training.optimizer import OptimizerConfig as JOptimizerConfig
 from repro.training.optimizer import make_optimizer as jmake_optimizer
 from repro_torch.configs import get_arch
-from repro_torch.configs.base import init_train_state, make_train_cell
+from repro_torch.configs.base import (init_train_state, make_layout,
+                                      make_train_cell)
 from repro_torch.kernels import ops
 from repro_torch.models.convert import recsys_params_from_jax
+from repro_torch.sharding import make_mesh
 
 torch.set_num_threads(1)
 
@@ -155,9 +157,20 @@ def test_train_cell_needs_a_card_unless_cpu():
 
 
 def test_make_train_cell_refuses_a_mesh_and_init_takes_a_name():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        make_train_cell("x", "train_batch", loss_fn=lambda p, b: 0.0,
-                        mesh=object())
+    """A cell laid out on a shape-only mesh builds, and refuses to step
+    until its mesh is bound to a process group."""
+    arch = get_arch("deepfm").reduced()
+    mesh = make_mesh((2, 2), ("data", "model"))
+    layout = make_layout(mesh, arch.axis_rules(), arch.param_shapes(),
+                         arch.param_logical_axes(),
+                         arch.batch_axes("train_batch"), "adamw")
+    cell = make_train_cell("x", "train_batch", loss_fn=lambda p, b: 0.0,
+                           optimizer="adamw", layout=layout)
+    assert tuple(layout.param_specs["table"]) == ("model", None)
+    assert tuple(layout.opt_specs["mu"]["table"]) == ("model", None)
+    with pytest.raises(RuntimeError, match="shape-only"):
+        cell.fn({}, arch.smoke_inputs("train_batch", np.random.default_rng(0),
+                                      "cpu"))
     params = {"w": torch.zeros((130, 140)), "b": torch.zeros(3)}
     state = init_train_state("adafactor", params)
     assert state["params"] is params and int(state["step"]) == 0

@@ -367,7 +367,7 @@ def test_run_cell_at_full_width(cell):
     assert rec["cost"]["flops"] > 0
     if cell == ("granite-moe-3b-a800m", "decode_32k"):
         assert rec["flops_source"] == \
-            "analytic: src/repro_torch/models/transformer.py:613"
+            "analytic: src/repro_torch/models/transformer.py:619"
         assert rec["cost"]["flops"] == roofline.model_flops(
             get_arch(name), shape)
     else:
@@ -400,7 +400,7 @@ def test_main_writes_records_that_report_reads(tmp_path, capsys,
     recs = [report.enrich(r) for r in recs]
     text = report.table(recs)
     assert text.count("\n") == 2 + 3 - 1
-    assert "analytic: src/repro_torch/models/transformer.py:613" in text
+    assert "analytic: src/repro_torch/models/transformer.py:619" in text
     assert "(!)" not in text.split("deepfm")[1].split("\n")[0]
     detail = report.dryrun_table(recs)
     assert "embedding_bag 2" in detail

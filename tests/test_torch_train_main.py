@@ -75,9 +75,10 @@ def test_default_device_is_the_card(tmp_path):
                  "gnn arch.*LM encoders only", id="extra0-item 8"),
     pytest.param(["--arch", "deepfm"], ValueError,
                  "recsys arch.*LM encoders only", id="extra1-item 8"),
-    pytest.param(["--mesh", "pod"], NotImplementedError, "item 10",
+    # the production meshes need a process group of 256 / 512 ranks
+    pytest.param(["--mesh", "pod"], ValueError, "needs 256 ranks",
                  id="extra2-item 10"),
-    pytest.param(["--multi-pod"], NotImplementedError, "item 10",
+    pytest.param(["--multi-pod"], ValueError, "needs 512 ranks",
                  id="extra3-item 10"),
 ))
 def test_unported_flags_raise_naming_their_item(tmp_path, extra, error,
