@@ -70,7 +70,7 @@ Phases, each printing its own lines:
       each recsys training path of (m), each LM encoder path of (n),
       each LM training path of (o), each MoE path of (p), each
       decode path of (q), each GNN path of (r), each card path of (s) and
-      each rank's (t1) run of (t),
+      each rank's (t1) run of (t) and each rank's (u) run,
       and read just after; each kernel
       of that path must have launched exactly as
       often as predicted (``ShardedSearchDriver.stats`` on (c) / (g) /
@@ -395,7 +395,29 @@ Phases, each printing its own lines:
       every leaf bitwise (SHA-256 of each rank's slices); each step's ms
       and collective bytes per rank printed; K4 / K4T timed at rank (0,
       0)'s shard shapes.  Launches: K4 and K4T twice a (t1) step on each
-      rank, 0 on (t2) and (t2f).
+      rank, 0 on (t2) and (t2f);
+  (u) the LM cells on a mesh: four rank processes (this script with
+      ``--u-rank``) over a gloo group on the one card, bound (2, 2) and
+      (1, 4) meshes, the parent running one-process oracles on the same
+      seeded weights, caches and tokens beside them: the serve cells
+      (``build_cell(shape, device, mesh)``, each rank its block of a cache
+      laid out by ``cache_logical_axes``, filled from seeded draws, from
+      ``len = S - U_STEPS``): (u1) qwen2-0.5b long_500k at published width
+      and depth, 1 x 524,288, on both meshes; (u2) qwen2-0.5b decode_32k at
+      batch 16, on both; (u3) granite-moe-3b-a800m decode_32k at 2 layers,
+      batch 16, on (2, 2); each (u1) / (u2) cell with a float32 twin at 2
+      layers; (u4) qwen2-0.5b prefill_32k at U4_BATCH x U4_LEN on (2, 2);
+      (u5) granite train_4k at U5_LAYERS layers, U5_BATCH x U5_LEN, T_STEPS
+      AdamW steps twice, then its float32 twin, as (t2) / (t2f), with the
+      whole-batch aux that each rank's meshed forward returns held
+      against the oracle's.  Held:
+      the float32 twins' logits within U_F32_TOL of the oracle's, the bf16
+      cells' within ``u_bf16_bound`` (relative 2-norm of a row), two runs
+      bitwise and every rank alike, each step's collective calls and
+      bytes equal to what its layout predicts (``u_decode_counts``,
+      ``u_encode_counts``, ``u_train_counts``); step ms a rank, bytes a
+      step and peak GiB against the reckoning printed.  Launches: 0 on
+      every (u) path on every rank.
 Each phase's wall seconds follow it (``[a] (x) ...: N s``), all of them
 on one ``[a] seconds by phase`` line at the end.
 The second-to-last line is the ``kernels`` JSON object; the last line is
@@ -6698,8 +6720,8 @@ def o2_cell(dev, card: str, name: str, params, paths: dict,
     marks = StepMarks(forward=(InfoNCELoss, "__call__")) if cuda else None
     auxes, hidden = [], transformer.forward_hidden
 
-    def passage_aux(cfg, params, tokens, mask):
-        out = hidden(cfg, params, tokens, mask)
+    def passage_aux(cfg, params, tokens, mask, mesh=None):
+        out = hidden(cfg, params, tokens, mask, mesh)
         if tokens is batch["passage"]["tokens"]:
             auxes.append(out[1].detach())
         return out
@@ -7589,6 +7611,34 @@ def decode_vs_prefill(dev, card: str, name: str, cfg, params, paths: dict,
             checks.append(f"(q1) {name} {kind}: logits not finite")
 
 
+def float_leaf(tree: dict, key: str, dev) -> None:
+    """``tree[key]`` replaced by its float32 copy.  On the card the old
+    leaf's block goes back to the driver after (the next, larger float32
+    leaf may not fit a cached one); where the copy would not fit beside
+    its source (llama4's 20 GiB expert leaves, at the card's edge), the
+    source goes through host memory first and comes back 2^28 entries at a
+    time."""
+    import torch
+    t = tree[key]
+    if dev.type != "cuda":
+        tree[key] = t.float()
+        return
+    if torch.cuda.mem_get_info(dev)[0] > t.numel() * 4 + 2 ** 30:
+        tree[key] = t.float()
+    else:
+        host = t.cpu()
+        tree[key] = None
+        del t
+        torch.cuda.empty_cache()
+        out = torch.empty(host.shape, dtype=torch.float32, device=dev)
+        src, dst = host.reshape(-1), out.view(-1)
+        for lo in range(0, src.numel(), 1 << 28):
+            dst[lo: lo + (1 << 28)] = src[lo: lo + (1 << 28)].to(dev)
+        tree[key] = out
+    t = None
+    torch.cuda.empty_cache()
+
+
 def decode_turn(dev, card: str, name: str, lm: dict, paths: dict,
                 phase: str, consume: bool = False) -> None:
     """(q) for one arch while its weights are alive in another phase's
@@ -7624,13 +7674,9 @@ def decode_turn(dev, card: str, name: str, lm: dict, paths: dict,
         for stack in params.values():
             if isinstance(stack, dict):
                 for k in list(stack):
-                    stack[k] = stack[k].float()
-                    if cuda:
-                        # the bf16 leaf's block back to the driver: the
-                        # next, larger float32 leaf may not fit a cached one
-                        torch.cuda.empty_cache()
+                    float_leaf(stack, k, dev)
         for k in [k for k, v in params.items() if not isinstance(v, dict)]:
-            params[k] = params[k].float()
+            float_leaf(params, k, dev)
         if cuda:
             torch.cuda.empty_cache()
     decode_vs_prefill(dev, card, name, cfg, params, paths, checks, f32=True)
@@ -8925,7 +8971,7 @@ def t_against_oracle(tag: str, state: dict, specs: dict, oracle_dir: str,
     worst = {"mu": 0.0, "nu": 0.0, "param_zero": 0.0, "param_clear": 0.0,
              "param_unclear": 0.0}
     counts = {"entries": 0, "zero": 0, "clear": 0, "unclear": 0}
-    by_leaf, bad = [], []
+    by_leaf, bad, unclear_by_leaf = [], [], []
 
     def oracle_slice(d, path, t, spec):
         want = t_load_slice(d, path, spec, mesh.coords, dict(mesh.shape),
@@ -8949,11 +8995,13 @@ def t_against_oracle(tag: str, state: dict, specs: dict, oracle_dir: str,
         mu, nu, p = mu.reshape(-1), nu.reshape(-1), t.reshape(-1)
         off = skip.get(leaf) if skip else None
         off = None if off is None else off.reshape(-1)
-        g_big = (float(mu_w.abs().max()) / (1 - cfg.b1)
-                 if mu_w.numel() else 0.0)
+        g_big = t_floor_scale(leaf, mu_w, t.shape) / (1 - cfg.b1)
         t_big = (float(terms.max()) if terms is not None and terms.numel()
                  else 0.0)
         leaf_bad, leaf_worst = {}, 0.0
+        # unclear entries, and of them those whose oracle / own gradient
+        # is exactly 0
+        leaf_unclear = [0, 0, 0]
         if not entrywise:
             keep = (slice(None) if off is None else ~off)
             for k, a, w in (("mu", mu, mu_w), ("nu", nu, nu_w)):
@@ -8970,11 +9018,12 @@ def t_against_oracle(tag: str, state: dict, specs: dict, oracle_dir: str,
                     if off is None else ~off[lo:hi])
             # the oracle's gradient and its allowance tg
             g = mu_w[lo:hi].double().abs() / (1 - cfg.b1)
+            big = g_big if isinstance(g_big, float) else g_big[lo:hi]
             zero = (mu_w[lo:hi] == 0) & (mu[lo:hi] == 0) & held
             if entrywise:
                 base = g if terms is None else terms[lo:hi].double()
                 tg = tol["moment"] * (base + T_FLOOR * (
-                    g_big if terms is None else t_big))
+                    big if terms is None else t_big))
                 lim_mu = (1 - cfg.b1) * tg
                 lim_nu = ((1 - cfg.b2) * tg * (2 * g + tg)
                           + 2 ** -20 * nu_w[lo:hi].double().abs())
@@ -9020,19 +9069,46 @@ def t_against_oracle(tag: str, state: dict, specs: dict, oracle_dir: str,
             counts["zero"] += int(zero.sum())
             counts["clear"] += int(clear.sum())
             counts["unclear"] += int(unclear.sum())
+            leaf_unclear[0] += int(unclear.sum())
+            leaf_unclear[1] += int((unclear & (mu_w[lo:hi] == 0)).sum())
+            leaf_unclear[2] += int((unclear & (mu[lo:hi] == 0)).sum())
         by_leaf.append((round(leaf_worst, 4), leaf))
+        unclear_by_leaf.append((leaf_unclear[0] / max(1, p.numel()), leaf,
+                                *leaf_unclear))
         if leaf_bad:
             bad.append(f"{leaf} {leaf_bad}")
         del mu_w, nu_w, p_w, terms
     nonzero = counts["entries"] - counts["zero"]
     share = counts["unclear"] / max(1, nonzero)
     out = {**worst, "moment_leaves": sorted(by_leaf, reverse=True)[:3],
-           "unclear_share": share, **counts}
+           "unclear_share": share, **counts,
+           "unclear_leaves": sorted(unclear_by_leaf, reverse=True)[:4]}
     if bad or (entrywise and share > tol["unclear"]):
         fail(f"{tag}: off the oracle beyond T_TOL[{dtype!r}] (by leaf and "
              f"check) {bad[:12]}; unclear share {share:.3g} (at most "
              f"{tol.get('unclear')}); worst {json.dumps(out)}")
     return out
+
+
+def t_floor_scale(leaf: str, mu_w, shape):
+    """The scale T_FLOOR takes a share of for the entries of an oracle
+    first moment ``mu_w`` (flat; ``shape`` the leaf's local shape): its
+    largest entry, or the largest of each block whose gradient sums its
+    own terms, over its entries: an embedding's rows (a token's
+    occurrences) and an MoE's expert weights (``we_*``, (L, E, ...): the
+    tokens routed to each expert).  Their rounding scales with their own
+    terms, and a rare token's row, or an expert few tokens chose, sits
+    far below the leaf's largest."""
+    if not mu_w.numel():
+        return 0.0
+    name = leaf.rsplit("/", 1)[-1]
+    lead = (1 if name == "embed" else
+            2 if name.startswith("we_") and len(shape) >= 3 else 0)
+    if not lead:
+        return float(mu_w.abs().max())
+    n = shape[0] * (shape[1] if lead == 2 else 1)
+    blocks = mu_w.abs().reshape(n, -1)
+    return blocks.amax(1, keepdim=True).expand_as(blocks).reshape(-1).double()
 
 
 def t_losses(tag: str, steps: list, want: list, dtype: str) -> None:
@@ -9074,15 +9150,16 @@ def t_wait_oracle(tmp: str, part: str) -> dict:
         return json.load(f)
 
 
-def t_steps(dev, cell, state, batch, after_first=None) -> tuple:
-    """T_STEPS steps: each one's loss, grad norm, ms (the card synchronised
-    around it) and collective bytes and calls on this rank;
-    ``after_first(state)`` runs between the first and the second."""
+def t_steps(dev, cell, state, batch, after_first=None,
+            n: int | None = None) -> tuple:
+    """``n`` (default T_STEPS) steps: each one's loss, grad norm, ms (the
+    card synchronised around it) and collective bytes and calls on this
+    rank; ``after_first(state)`` runs between the first and the second."""
     import torch
 
     from repro_torch.sharding import collectives
     out = []
-    for i in range(T_STEPS):
+    for i in range(T_STEPS if n is None else n):
         if i == 1 and after_first is not None:
             after_first(state)
         collectives.reset_counts()
@@ -9705,6 +9782,909 @@ def t_shard_timings(dev, name: str, shard: int, table, local) -> tuple:
     return k4, k4t
 
 
+# -- (u) the LM cells on a mesh: four rank processes on the one card -----------
+
+# U_WORLD rank processes (this script with ``--u-rank``) over a gloo group
+# on the one card, as (t), each case held against a one-process oracle the
+# parent runs on the same card while they run:
+#   (u1) qwen2-0.5b long_500k at published width and depth, B 1 x 524,288,
+#        on (2, 2) and (1, 4);
+#   (u2) qwen2-0.5b decode_32k, its batch of 128 cut to 16, both meshes;
+#   (u3) granite-moe-3b-a800m decode_32k at 2 of 32 layers, B 16, (2, 2);
+#   (u4) qwen2-0.5b prefill_32k, 32 x 32,768 cut to U4_BATCH x U4_LEN;
+#   (u5) granite train_4k at U5_LAYERS layers, U5_BATCH x U5_LEN tokens,
+#        T_STEPS AdamW steps twice, then a float32 twin (as (t2) / (t2f)).
+# A decode case is (tag, arch, shape, batch, layers or None for all, its
+# meshes, a float32 twin at U_TWIN_LAYERS layers); U_STEPS steps from
+# ``len = S - U_STEPS``.
+U_WORLD, U_AXES = 4, ("data", "model")
+U_JOIN_S = 600
+U_STEPS = 4
+U_DECODE = (("u1", "qwen2-0.5b", "long_500k", 1, None, ((2, 2), (1, 4)),
+             True),
+            ("u2", "qwen2-0.5b", "decode_32k", 16, None, ((2, 2), (1, 4)),
+             True),
+            ("u3", "granite-moe-3b-a800m", "decode_32k", 16, 2, ((2, 2),),
+             False))
+U_TWIN_LAYERS = 2
+# cuts of (u)'s own steps, each a gathered set of weights over gloo (1.5 to
+# 3.7 s for qwen2-0.5b, by host): the float32 twins take U_TWIN_STEPS
+# steps, and the second run of a bf16 cell, held bitwise against the
+# first, its first U_AGAIN_STEPS
+U_TWIN_STEPS, U_AGAIN_STEPS = 1, 1
+U4_ARCH, U4_BATCH, U4_LEN = "qwen2-0.5b", 2, 8192
+# (u5)'s rows of 2,048 tokens, not train_4k's 4,096: a cut of its compute
+# (four ranks and the oracle share the card), not of its bytes
+U5_ARCH, U5_LAYERS, U5_BATCH, U5_LEN = "granite-moe-3b-a800m", 2, 4, 2048
+# (u5)'s query chunks: granite's own 4096 puts a (2, 24, 4096, 4096)
+# float32 score block (3 GiB) on each of the four ranks and the oracle at
+# once; a chunk sees every key, so the function is the same
+U5_CHUNK = 1024
+# the float32 twin's steps (a cut: T_STEPS would add ~11 s a step)
+U5F_STEPS = 1
+# float32 (the twins): every logit within U_F32_TOL x max(1, max |oracle|)
+U_F32_TOL = 1e-5
+U_REDUCED = False           # the reduced archs (a CPU rehearsal)
+
+
+def u_bf16_bound(n_layers: int) -> float:
+    """A bf16 cell's relative 2-norm gap to the oracle, per row of logits
+    (or per embedding).  The meshed and one-process paths compute the same
+    products and differ only in the order of float32 sums (the float32
+    twins show it within U_F32_TOL); where an order flips the bf16
+    rounding of the residual stream (once a layer, and the final norm) the
+    entry moves one unit, 2^-8 of itself, on either side; flips in
+    unrelated directions add in the 2-norm over the L + 1 roundings."""
+    import math
+    return 2 * 2 ** -8 * math.sqrt(n_layers + 1)
+
+
+def u_lm_arch(name: str, kind: str, shape: str, batch: int, seq: int,
+              layers: int | None = None, f32: bool = False):
+    """An LMArch of ``name`` (reduced under U_REDUCED) with one shape of
+    ``batch`` x ``seq`` tokens, cut to ``layers`` layers and in float32
+    where asked; AdamW."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.lm_arch import LMArch
+
+    arch = get_arch(name)
+    cfg = arch.reduced().cfg if U_REDUCED else arch.cfg
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if f32:
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    return LMArch(cfg, "adamw", shapes={shape: dict(
+        kind=kind, seq_len=seq, global_batch=batch)})
+
+
+def u_decode_archs(case) -> list:
+    """(key, arch) of a decode case: the cell in its dtype, then its float32
+    twin at U_TWIN_LAYERS layers where it has one."""
+    from repro_torch.configs import get_arch
+    tag, name, shape, batch, layers, _, twin = case
+    arch = get_arch(name)
+    seq = (arch.reduced() if U_REDUCED else arch).shapes[shape]["seq_len"]
+    out = [(tag, u_lm_arch(name, "serve", shape, batch, seq, layers))]
+    if twin:
+        out.append((tag + "f", u_lm_arch(name, "serve", shape, batch, seq,
+                                         U_TWIN_LAYERS, f32=True)))
+    return out
+
+
+def u_mid(mesh_shape) -> str:
+    return "x".join(map(str, mesh_shape))
+
+
+def u_steps(key: str, run: int = 0) -> int:
+    """Steps of a decode run: U_STEPS, a float32 twin's U_TWIN_STEPS, a
+    second run's U_AGAIN_STEPS."""
+    return (U_TWIN_STEPS if key.endswith("f") else
+            U_STEPS if run == 0 else U_AGAIN_STEPS)
+
+
+def u_rows(spec, mesh) -> tuple[int, int]:
+    """(this rank's index, their count) along the axes that split a
+    cache's rows (``spec``'s batch dimension)."""
+    from repro_torch.sharding.partitioning import spec_axes
+    axes = spec_axes(tuple(spec)[1])
+    return (mesh.shard_index(axes) if axes else 0), mesh.axis_size(axes)
+
+
+def u_gen(dev, offset: int = 0):
+    import torch
+    return torch.Generator(device=dev).manual_seed(SEED + offset)
+
+
+def u_fill_cache(cache: dict, shape: tuple, spec, mesh, dev) -> None:
+    """K and V of every layer drawn from N(0, 1) on the card (layer i's K
+    from seed SEED + 2i, its V from SEED + 2i + 1, a whole (B, S, K, hd)
+    layer in float32 at a time), then this rank's slice of it under
+    ``spec`` (the whole layer without one), in the cache's dtype."""
+    import torch
+
+    from repro_torch.sharding.layout import local_slice
+    for i in range(shape[0]):
+        for j, name in enumerate(("k", "v")):
+            layer = torch.randn(shape[1:], generator=u_gen(dev, 2 * i + j),
+                                device=dev)
+            if spec is not None:
+                layer = local_slice(layer, tuple(spec)[1:], mesh)
+            cache[name][i].copy_(layer)
+            del layer
+
+
+def u_tokens(arch, shape: str, dev):
+    """U_STEPS rows of the batch's tokens, seeded."""
+    import torch
+    spec = arch.shapes[shape]
+    return torch.randint(3, arch.cfg.vocab_size,
+                         (U_STEPS, spec["global_batch"]),
+                         generator=u_gen(dev, 1000), device=dev).int()
+
+
+def u_param_gathers(cfg, layout, mesh, count) -> None:
+    """``count(op, bytes)`` of every parameter leaf's gather, a sharded
+    dimension at a time (``sharding.layout.gather_leaf``)."""
+    from repro_torch.models import transformer
+    from repro_torch.sharding.partitioning import local_shape, spec_axes
+    from repro_torch.training.tree import flatten
+    elt = 2 if str(cfg.dtype).endswith("bfloat16") else 4
+    shapes = dict(flatten(transformer.param_shapes(cfg)))
+    for path, spec in flatten(layout.param_specs):
+        numel = 1
+        for d in local_shape(shapes[path], spec, mesh):
+            numel *= d
+        for entry in spec:
+            n = mesh.axis_size(spec_axes(entry))
+            if n > 1:
+                count("all_gather", numel * elt, n)
+                numel *= n
+
+
+def u_counter():
+    calls = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
+    wire = dict(calls)
+
+    def count(op, nbytes, n):
+        calls[op] += 1
+        wire[op] += nbytes * (n - 1)
+    return {"wire_bytes": wire, "calls": calls}, count
+
+
+def u_decode_counts(arch, shape: str, layout, mesh) -> dict:
+    """A meshed decode step's collectives out of one rank, from its layout
+    (``transformer.decode_step`` on a mesh): the parameters gathered; per
+    layer the softmax's (max, sum) gather and the float32 partials'
+    all-reduce where the sequence is split, the attention output's gather
+    in the cache dtype where the KV heads are; the float32 logits' gather
+    where the rows are."""
+    from repro_torch.sharding.partitioning import spec_axes
+    cfg = arch.cfg
+    out, count = u_counter()
+    u_param_gathers(cfg, layout, mesh, count)
+    spec = tuple(layout.cache_specs["k"])
+    rows, seq, heads = (mesh.axis_size(spec_axes(e)) for e in spec[1:4])
+    b = arch.shapes[shape]["global_batch"] // rows
+    h = cfg.n_heads // heads
+    elt = 2 if str(cfg.dtype).endswith("bfloat16") else 4
+    for _ in range(cfg.n_layers):
+        if seq > 1:
+            count("all_gather", 2 * b * h * 4, seq)
+            count("all_reduce", b * h * cfg.head_dim * 4, seq)
+        if heads > 1:
+            count("all_gather", b * h * cfg.head_dim * elt, heads)
+    if rows > 1:
+        count("all_gather", b * cfg.vocab_size * 4, rows)
+    return out
+
+
+def u_encode_counts(arch, shape: str, layout, mesh) -> dict:
+    """The meshed encode: the parameters gathered, the float32 embeddings'
+    rows gathered over the data axes."""
+    from repro_torch.sharding.partitioning import data_parallelism
+    out, count = u_counter()
+    u_param_gathers(arch.cfg, layout, mesh, count)
+    n = data_parallelism(mesh)
+    if n > 1:
+        b = arch.shapes[shape]["global_batch"] // n
+        count("all_gather", b * arch.cfg.d_model * 4, n)
+    return out
+
+
+def u_train_counts(arch, layout, mesh) -> dict:
+    """A meshed train_4k step: the parameters gathered; the queries' and
+    passages' float32 embeddings gathered over the data axes; each MoE
+    layer's (2, E) statistics averaged once (outside its checkpoint); each
+    gradient (model dtype) and the loss averaged over the data axes."""
+    from repro_torch.models import transformer
+    from repro_torch.sharding.partitioning import data_parallelism
+    from repro_torch.training.tree import flatten
+    cfg = arch.cfg
+    out, count = u_counter()
+    u_param_gathers(cfg, layout, mesh, count)
+    n = data_parallelism(mesh)
+    b = arch.shapes["train_4k"]["global_batch"] // n
+    elt = 2 if str(cfg.dtype).endswith("bfloat16") else 4
+    for _ in range(2):
+        count("all_gather", b * cfg.d_model * 4, n)
+    for _ in range(cfg.n_moe_layers):
+        count("all_reduce", 2 * cfg.n_experts * 4, n)
+    for _, shape in flatten(transformer.param_shapes(cfg)):
+        numel = 1
+        for d in shape:
+            numel *= d
+        count("all_reduce", numel * elt, n)
+    count("all_reduce", 4, n)
+    return out
+
+
+def u_sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def u_peak(dev, reset: bool = False) -> float:
+    import torch
+    if dev.type != "cuda":
+        return 0.0
+    if reset:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        return 0.0
+    return gib(torch.cuda.max_memory_allocated(dev))
+
+
+def u_save(d: str, name: str, t) -> None:
+    """A float32 result as ``d/name.npy``."""
+    import numpy as np
+    os.makedirs(d, exist_ok=True)
+    np.save(os.path.join(d, name + ".npy"),
+            t.detach().float().cpu().numpy().astype(np.float32))
+
+
+def u_decode_rank(dev, meshes: dict, case, tmp: str) -> dict:
+    """A decode case on this rank, on each of its meshes: the cell's
+    ``smoke_inputs`` block filled from the seeded draws, ``len = S -
+    U_STEPS``, ``u_steps`` steps, twice (the second run's logits bitwise
+    the first's; the float32 twin once); every step's ms (the card
+    synchronised around it) and collectives, held against the layout's
+    prediction; rank 0 writes the first run's logits."""
+    import torch
+
+    from repro_torch.models import transformer
+    from repro_torch.sharding import collectives
+    from repro_torch.training.tree import leaves
+    shape = case[2]
+    out = {}
+    for key, arch in u_decode_archs(case):
+        cfg = arch.cfg
+        b, s = arch.shapes[shape]["global_batch"], arch.shapes[shape][
+            "seq_len"]
+        kv = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim)
+        tokens = u_tokens(arch, shape, dev)
+        for ms in case[5]:
+            mesh = meshes[ms]
+            cell = arch.build_cell(shape, dev, mesh)
+            spec = cell.layout.cache_specs["k"]
+            full = transformer.init_params(cfg, u_gen(dev), dev)
+            local = cell.local_params(full)
+            del full
+            u_peak(dev, reset=True)
+            want = u_decode_counts(arch, shape, cell.layout, mesh)
+            runs = []
+            # the float32 twin, a witness of the order of sums, runs once
+            for run in range(1 if key.endswith("f") else 2):
+                block, _ = cell.smoke_inputs(u_gen(dev), dev)
+                u_fill_cache(block, kv, spec, mesh, dev)
+                block["len"].fill_(s - U_STEPS)
+                steps, digests, routes = [], [], []
+                for i in range(u_steps(key, run)):
+                    collectives.reset_counts()
+                    u_sync(dev)
+                    t0 = time.perf_counter()
+                    with ExpertLog() as experts:
+                        logits, block = cell.fn(local, block, tokens[i])
+                    u_sync(dev)
+                    routes.append([c.tolist() for c in experts.choices])
+                    got = collectives.counts()
+                    steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                                  **got})
+                    if got != want:
+                        fail(f"({key}) {ms} step {i}: collectives {got}, "
+                             f"the layout predicts {want}")
+                    print(f"[u] rank {mesh.rank}: ({key}) {u_mid(ms)} run "
+                          f"{run} step {i} {steps[-1]['ms']:.1f} ms",
+                          flush=True)
+                    digests.append(t_digest(logits))
+                    if run == 0 and mesh.rank == 0:
+                        u_save(os.path.join(tmp, "u", f"{key}-{u_mid(ms)}"),
+                               f"step{i}", logits)
+                runs.append((digests, steps, routes))
+                del block
+            if runs[0][0][:len(runs[-1][0])] != runs[-1][0]:
+                fail(f"({key}) {ms}: two runs differ on rank {mesh.rank}")
+            block_bytes = 2 * _numel_bytes(kv, cfg.dtype, spec, mesh)
+            param_bytes = sum(t.numel() * t.element_size()
+                              for t in leaves(local))
+            rows = u_rows(spec, mesh)
+            # each run's first step warms the card's caches (a float32
+            # twin has only that one)
+            warm = [s_["ms"] for r in runs for s_ in r[1][1:]]
+            out[f"{key} {u_mid(ms)}"] = {
+                "spec": str(tuple(spec)), "digests": runs[0][0],
+                "routes": runs[0][2], "row0": rows[0] * b // rows[1],
+                "ms": statistics.median(warm or [runs[0][1][0]["ms"]]),
+                "first_ms": [r[1][0]["ms"] for r in runs],
+                "wire_bytes": want["wire_bytes"], "calls": want["calls"],
+                "peak_gib": u_peak(dev), "block_gib": gib(block_bytes),
+                "local_params_gib": gib(param_bytes)}
+            del cell, local
+            u_peak(dev, reset=True)
+    return out
+
+
+def _numel_bytes(shape, dtype, spec, mesh) -> int:
+    import torch
+
+    from repro_torch.sharding.partitioning import local_shape
+    n = 1
+    for d in local_shape(shape, spec, mesh):
+        n *= d
+    return n * torch.empty((), dtype=dtype).element_size()
+
+
+def u4_arch():
+    return u_lm_arch(U4_ARCH, "encode", "prefill_32k", U4_BATCH, U4_LEN)
+
+
+def u5_archs():
+    return [(tag, u_lm_arch(U5_ARCH, "train", "train_4k", U5_BATCH, U5_LEN,
+                            U5_LAYERS, f32).variant(attn_chunk=U5_CHUNK))
+            for tag, f32 in (("u5", False), ("u5f", True))]
+
+
+def u4_rank(dev, mesh, tmp: str) -> dict:
+    """(u4) on this rank: the meshed prefill twice (bitwise), rank 0's
+    embeddings written; ms and collectives of each run."""
+    from repro_torch.models import transformer
+    from repro_torch.sharding import collectives
+    arch = u4_arch()
+    batch = arch.smoke_inputs("prefill_32k", u_gen(dev, 2000), dev)
+    cell = arch.build_cell("prefill_32k", dev, mesh)
+    full = transformer.init_params(arch.cfg, u_gen(dev), dev)
+    local = cell.local_params(full)
+    del full
+    u_peak(dev, reset=True)
+    want = u_encode_counts(arch, "prefill_32k", cell.layout, mesh)
+    runs = []
+    for run in range(2):
+        collectives.reset_counts()
+        u_sync(dev)
+        t0 = time.perf_counter()
+        emb = cell.fn(local, batch)
+        u_sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        if collectives.counts() != want:
+            fail(f"(u4) run {run}: collectives {collectives.counts()}, the "
+                 f"layout predicts {want}")
+        runs.append((t_digest(emb), ms))
+        if run == 0 and mesh.rank == 0:
+            u_save(os.path.join(tmp, "u", "u4"), "emb", emb)
+    if runs[0][0] != runs[1][0]:
+        fail(f"(u4) two runs differ on rank {mesh.rank}")
+    return {"digest": runs[0][0], "ms": [r[1] for r in runs],
+            "wire_bytes": want["wire_bytes"], "calls": want["calls"],
+            "peak_gib": u_peak(dev)}
+
+
+class RouteStats:
+    """Each ``transformer._route`` call's aux statistics, (2, E) float32:
+    the share of positions whose first choice is each expert and each
+    expert's mean probability, over the call's rows (recorded by wrapping
+    it here, in the script; the call returns what it would have)."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+        self.stats = []
+        route = self.inner = transformer._route
+
+        def logged(cfg, h, router, local_stats=False):
+            out = route(cfg, h, router, True)
+            self.stats.append(out[4].detach().float())
+            return out if local_stats else out[:4] + (
+                transformer._switch_aux(cfg, out[4]),)
+
+        transformer._route = logged
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer
+        transformer._route = self.inner
+
+
+def u5_aux(tag: str, cfg, aux: float, stats: list, oracle: dict, n: int,
+           dtype: str) -> dict:
+    """The whole batch's aux that the meshed ``forward_hidden`` returned,
+    and each MoE layer's aux statistics, against the oracle's.  The
+    statistics: the mean probabilities within T_TOL's loss tolerance of
+    their largest; the first choices (shares of ``n`` positions) equal but
+    for a few tokens whose first choice a float32 sum order tipped at a
+    near-tie (at most one in a thousand, at least one).  A moved first
+    choice moves one position's density from one expert to another, so
+    the aux by at most E x (1 / n) x the largest mean probability: the
+    returned aux is held within the tolerance plus that much for each
+    counted flip, and the aux with the oracle's first-choice shares and
+    these mean probabilities within the tolerance (a diagnostic of where
+    a gap comes from)."""
+    import torch
+    tol = T_TOL[dtype]["loss"]
+    flips, p_gap, rebuilt, p_max = 0, 0.0, 0.0, 0.0
+    for got, want in zip(stats, oracle["stats"]):
+        want = torch.tensor(want, dtype=torch.float64)
+        got = got.double().cpu()
+        flips += round(float((got[0] - want[0]).abs().sum()) * n / 2)
+        p_gap = max(p_gap, float((got[1] - want[1]).abs().max()
+                                 / want[1].abs().max()))
+        p_max = max(p_max, float(want[1].max()))
+        rebuilt += cfg.n_experts * float((want[0] * got[1]).sum())
+    aux_gap = abs(rebuilt - oracle["aux"]) / abs(oracle["aux"])
+    direct_gap = abs(aux - oracle["aux"])
+    direct_allowed = (tol * abs(oracle["aux"])
+                      + cfg.n_experts * flips / n * p_max)
+    if (len(stats) != len(oracle["stats"]) or p_gap > tol or aux_gap > tol
+            or direct_gap > direct_allowed
+            or flips > max(1, len(stats) * n // 1000)):
+        fail(f"({tag}) aux off the oracle's: the returned aux {aux!r} "
+             f"against {oracle['aux']!r} (gap {direct_gap:.3g}, allowed "
+             f"{direct_allowed:.3g}); mean probabilities {p_gap:.3g}, the "
+             f"aux at the oracle's first choices {aux_gap:.3g} (tolerance "
+             f"{tol}); {flips} first choices moved over {len(stats)} "
+             f"layers of {n} positions")
+    return {"flips": flips, "p_gap": p_gap, "aux_gap": aux_gap,
+            "direct_gap": direct_gap, "direct_allowed": direct_allowed}
+
+
+def u5_rank(dev, mesh, tmp: str) -> dict:
+    """(u5) on this rank: the cut granite's train_4k cell on the mesh, the
+    whole-batch aux that ``forward_hidden`` returns on this rank's rows
+    held against the oracle's (``u5_aux``),
+    T_STEPS steps twice (bitwise; the second run's state after one step
+    against the oracle's under T_TOL), then U5F_STEPS of the float32 twin
+    (its state after them held likewise); each step's collectives against
+    the layout's."""
+    import torch
+
+    from repro_torch.configs.base import init_train_state
+    from repro_torch.models import transformer
+    from repro_torch.sharding import collectives
+    from repro_torch.sharding.layout import batch_shard, batch_specs
+    from repro_torch.sharding.partitioning import data_axes
+    from repro_torch.training.tree import flatten
+
+    out = {}
+    for tag, arch in u5_archs():
+        dtype = str(arch.cfg.dtype).replace("torch.", "")
+        cell = arch.build_cell("train_4k", dev, mesh)
+        lay = cell.layout
+        batch = arch.smoke_inputs("train_4k", u_gen(dev, 3000), dev)
+        specs = {"params": lay.param_specs, "opt": lay.opt_specs}
+        local = batch_shard(batch, batch_specs(batch, lay.batch_axes, mesh,
+                                               lay.rules), mesh)
+        full = transformer.init_params(arch.cfg, u_gen(dev), dev)
+        with torch.no_grad(), RouteStats() as log:
+            aux = float(transformer.forward_hidden(
+                arch.cfg, full, local["passage"]["tokens"],
+                local["passage"]["mask"], mesh)[1])
+        # the whole batch's statistics, as forward_hidden averaged them
+        stats = [collectives.all_reduce(st, mesh, data_axes(mesh), "mean")
+                 for st in log.stats]
+        oracle = t_wait_oracle(tmp, tag)
+        aux_check = u5_aux(tag, arch.cfg, aux, stats, oracle,
+                           U5_BATCH * U5_LEN, dtype)
+        del full
+        want = u_train_counts(arch, lay, mesh)
+        gaps: dict = {}
+
+        def against(state, tag=tag, dtype=dtype, specs=specs):
+            gaps.update(t_against_oracle(
+                f"({tag})", {"params": state["params"],
+                             "opt": state["opt"]}, specs,
+                os.path.join(tmp, "oracle", tag), mesh, dev, dtype))
+
+        def run(after_first=None):
+            state = init_train_state(cell, transformer.init_params(
+                arch.cfg, u_gen(dev), dev))
+            return t_steps(dev, cell, state, batch, after_first)
+
+        u_peak(dev, reset=True)
+        if tag == "u5":
+            # two runs, the second's state after one step held
+            state, steps = run()
+            first = t_host_copy(state)
+            del state
+            state, again = run(against)
+            if [s["loss"] for s in again] != [s["loss"] for s in steps]:
+                fail(f"({tag}) two runs' losses differ")
+            t_bitwise(f"({tag})", first, {p: t for p, t in flatten(state)
+                                          if p != "step"})
+            del first
+            steps += again
+        else:
+            state = init_train_state(cell, transformer.init_params(
+                arch.cfg, u_gen(dev), dev))
+            state, steps = t_steps(dev, cell, state, batch, n=U5F_STEPS)
+            against(state)
+        del state
+        for i, st in enumerate(steps):
+            got = {"wire_bytes": st["wire_bytes"], "calls": st["calls"]}
+            if got != want:
+                fail(f"({tag}) step {i}: collectives {got}, the layout "
+                     f"predicts {want}")
+        t_losses(f"({tag})", steps, oracle["losses"], dtype)
+        out[tag] = {"aux": aux, "oracle_aux": oracle["aux"], **aux_check,
+                    "steps": steps, "gaps": gaps, "peak_gib": u_peak(dev)}
+        u_peak(dev, reset=True)
+    return out
+
+
+def u_rank(rank: int, tmp: str) -> int:
+    """One (u) rank process: join the gloo group, bind the (2, 2) and
+    (1, 4) meshes, run (u1)-(u5), write what the parent checks."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import torch
+
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import ops
+    from repro_torch.launch.distributed import init_distributed
+    from repro_torch.sharding import make_mesh
+
+    began = time.perf_counter()
+    with open(os.path.join(tmp, "u.json")) as f:
+        spec = json.load(f)
+    dev = resolve_device(spec["device"])
+    if dev.type == "cuda":
+        from repro_torch.kernels import _build
+        _build.load_library()
+    # the parent's sizes (a rehearsal patches them there)
+    glob = dict(spec["globals"])
+    glob["U_DECODE"] = tuple(tuple(c[:5]) + (tuple(map(tuple, c[5])), c[6])
+                             for c in glob["U_DECODE"])
+    globals().update(glob)
+    if init_distributed(init_method=f"file://{tmp}/rdzv",
+                        world_size=U_WORLD, rank=rank) != (rank, U_WORLD):
+        fail("(u) init_distributed")
+    try:
+        meshes = {m: make_mesh(m, U_AXES) for m in ((2, 2), (1, 4))}
+        ops.reset_launch_counts()
+        out = {"rank": rank, "start_s": time.perf_counter() - began,
+               "decode": {}, "seconds": {}}
+        for case in U_DECODE:
+            t0 = time.perf_counter()
+            out["decode"].update(u_decode_rank(dev, meshes, case, tmp))
+            out["seconds"][case[0]] = time.perf_counter() - t0
+            print(f"[u] rank {rank}: ({case[0]}) {out['seconds'][case[0]]:.1f}"
+                  " s", flush=True)
+        t0 = time.perf_counter()
+        out["u4"] = u4_rank(dev, meshes[(2, 2)], tmp)
+        out["seconds"]["u4"] = time.perf_counter() - t0
+        print(f"[u] rank {rank}: (u4) {out['seconds']['u4']:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        # bitwise runs: the embedding's backward adds into rows
+        torch.use_deterministic_algorithms(True)
+        try:
+            out["u5"] = u5_rank(dev, meshes[(2, 2)], tmp)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        out["seconds"]["u5"] = time.perf_counter() - t0
+        out["launches"] = ops.launch_counts()
+        with open(os.path.join(tmp, f"u-{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def u_oracle(dev, tmp: str) -> dict:
+    """The parent's one-process runs on the same seeded weights, caches and
+    tokens: each decode case's logits (the cell in its dtype and its
+    float32 twin), (u4)'s embeddings, (u5)'s state after its first step,
+    its losses and its whole-batch aux; seconds of each."""
+    import torch
+
+    from repro_torch.configs.base import init_train_state
+    from repro_torch.models import transformer
+
+    seconds = {}
+    for case in U_DECODE:
+        t0 = time.perf_counter()
+        shape = case[2]
+        for key, arch in u_decode_archs(case):
+            cfg = arch.cfg
+            b, s = (arch.shapes[shape]["global_batch"],
+                    arch.shapes[shape]["seq_len"])
+            params = transformer.init_params(cfg, u_gen(dev), dev)
+            cache = transformer.init_cache(cfg, b, s, dev)
+            u_fill_cache(cache, tuple(cache["k"].shape), None, None, dev)
+            cache["len"].fill_(s - U_STEPS)
+            tokens = u_tokens(arch, shape, dev)
+            cell = arch.build_cell(shape, dev)
+            routes = []
+            for i in range(u_steps(key)):
+                with ExpertLog() as experts:
+                    logits, cache = cell.fn(params, cache, tokens[i])
+                routes.append([c.tolist() for c in experts.choices])
+                u_save(os.path.join(tmp, "u", f"{key}-oracle"), f"step{i}",
+                       logits)
+            with open(os.path.join(tmp, "u", f"{key}-oracle",
+                                   "routes.json"), "w") as f:
+                json.dump(routes, f)
+            del params, cache, logits
+            u_peak(dev, reset=True)
+        seconds[case[0]] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arch = u4_arch()
+    batch = arch.smoke_inputs("prefill_32k", u_gen(dev, 2000), dev)
+    params = transformer.init_params(arch.cfg, u_gen(dev), dev)
+    u_save(os.path.join(tmp, "u", "u4-oracle"), "emb",
+           arch.build_cell("prefill_32k", dev).fn(params, batch))
+    del params
+    seconds["u4"] = time.perf_counter() - t0
+    for tag, arch in u5_archs():
+        t0 = time.perf_counter()
+        cell = arch.build_cell("train_4k", dev)
+        batch = arch.smoke_inputs("train_4k", u_gen(dev, 3000), dev)
+        params = transformer.init_params(arch.cfg, u_gen(dev), dev)
+        with torch.no_grad(), RouteStats() as log:
+            aux = float(transformer.forward_hidden(
+                arch.cfg, params, batch["passage"]["tokens"],
+                batch["passage"]["mask"])[1])
+        stats = [st.tolist() for st in log.stats]
+        state = init_train_state(cell, params)
+        losses = [float(cell.fn(state, batch)[1]["loss"])]
+        t_save_tree(os.path.join(tmp, "oracle", tag), state)
+        losses += [float(cell.fn(state, batch)[1]["loss"]) for _ in range(
+            (T_STEPS if tag == "u5" else U5F_STEPS) - 1)]
+        t_oracle_done(os.path.join(tmp, "oracle"), tag,
+                      {"losses": losses, "aux": aux, "stats": stats})
+        del state, params
+        u_peak(dev, reset=True)
+        seconds[tag] = time.perf_counter() - t0
+    return seconds
+
+
+def u_held_rows(tmp: str, key: str, ranks: list, name: str,
+                b: int) -> list:
+    """Per step, the rows whose experts (as sets, at every MoE layer of
+    every step so far) are the oracle's: a bf16 rounding can tip a router
+    near a tie, and such a row's token then takes other experts, which is
+    no rounding of the oracle's (phase (q2) holds its rows likewise).  A
+    dense cell holds every row."""
+    import numpy as np
+    with open(os.path.join(tmp, "u", f"{key}-oracle", "routes.json")) as f:
+        want = json.load(f)
+    got = [[[None] * b for _ in layers] for layers in want]
+    for out in ranks:
+        d = out["decode"][name]
+        for i, layers in enumerate(d["routes"]):
+            for j, rows in enumerate(layers):
+                for r, choice in enumerate(rows):
+                    got[i][j][d["row0"] + r] = choice
+    held, same = [], np.ones(b, bool)
+    for i, layers in enumerate(want):
+        for j, rows in enumerate(layers):
+            same &= np.array([set(got[i][j][r]) == set(rows[r])
+                              for r in range(b)], bool)
+        held.append(same.copy())
+    return held
+
+
+def u_gap(got, want, f32: bool, n_layers: int) -> tuple[float, float]:
+    """(gap, limit): float32, the largest entry's gap against U_F32_TOL x
+    max(1, max |oracle|); bf16, the largest row's relative 2-norm gap
+    against ``u_bf16_bound``."""
+    import numpy as np
+    if f32:
+        return (float(np.abs(got - want).max()),
+                U_F32_TOL * max(1.0, float(np.abs(want).max())))
+    d = got.astype(np.float64) - want
+    rows = np.linalg.norm(d, axis=-1) / np.maximum(
+        np.linalg.norm(want.astype(np.float64), axis=-1), 1e-30)
+    return float(rows.max()), u_bf16_bound(n_layers)
+
+
+def phase_lm_mesh(dev, card: str) -> dict:
+    """(u) the LM cells on a mesh: U_WORLD rank processes (this script
+    with ``--u-rank``) over a gloo group on the one card, bound (2, 2) and
+    (1, 4) meshes.  The parent runs the one-process oracles while they
+    run, then holds each rank's results against them.  Returns each
+    rank's kernel launches over its whole (u) run (none: no kernel of the
+    repo is on these paths)."""
+    import numpy as np
+    import torch
+
+    paths: dict = {}
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "u.json"), "w") as f:
+            json.dump({"device": str(dev), "globals": {
+                "U_DECODE": U_DECODE, "U_STEPS": U_STEPS,
+                "U_TWIN_STEPS": U_TWIN_STEPS, "U_AGAIN_STEPS": U_AGAIN_STEPS,
+                "U_TWIN_LAYERS": U_TWIN_LAYERS, "U_REDUCED": U_REDUCED,
+                "U4_BATCH": U4_BATCH, "U4_LEN": U4_LEN,
+                "U5_LAYERS": U5_LAYERS, "U5_BATCH": U5_BATCH,
+                "U5_LEN": U5_LEN, "U5F_STEPS": U5F_STEPS,
+                "T_STEPS": T_STEPS}}, f)
+        logs = [os.path.join(tmp, f"u-{r}.log") for r in range(U_WORLD)]
+        t0 = time.perf_counter()
+        procs = []
+        try:
+            for r in range(U_WORLD):
+                with open(logs[r], "w") as log:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, os.path.abspath(__file__),
+                         "--u-rank", str(r), tmp], stdout=log,
+                        stderr=subprocess.STDOUT))
+            oracle = u_oracle(dev, tmp)
+            wait_all(procs, U_JOIN_S)
+            waited = time.perf_counter() - t0
+            bad = []
+            for r, proc in enumerate(procs):
+                if proc.returncode != 0:
+                    with open(logs[r]) as f:
+                        tail = f.read()[-3000:]
+                    bad.append(f"(u) rank {r} " + (
+                        f"still running after {waited:.1f} s (limit "
+                        f"{U_JOIN_S} s), killed" if proc.returncode is None
+                        else f"exited {proc.returncode}") + f":\n{tail}")
+            if bad:
+                fail("\n".join(bad))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=60)
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(U_WORLD):
+            with open(os.path.join(tmp, f"u-{r}.json")) as f:
+                ranks.append(json.load(f))
+        print(f"[u] (u) {U_WORLD} rank processes on {card}, a gloo group, "
+              f"meshes (2, 2) and (1, 4): {wall:.1f} s wall with their "
+              f"start; the parent's oracles beside them "
+              f"{json.dumps({k: round(v, 1) for k, v in oracle.items()})} s")
+        for out in ranks:
+            paths[f"(u) LM mesh rank {out['rank']}"] = out["launches"]
+            if any(out["launches"].values()):
+                fail(f"(u) rank {out['rank']} launched "
+                     f"{out['launches']}: no kernel is on these paths")
+        print(f"[e] (u) every rank: launches {json.dumps(ranks[0]['launches'])}"
+              " (as predicted: no kernel of the repo on the LM mesh paths)")
+        for case in U_DECODE:
+            for key, arch in u_decode_archs(case):
+                f32 = key.endswith("f")
+                for ms in case[5]:
+                    name = f"{key} {u_mid(ms)}"
+                    want_dig = ranks[0]["decode"][name]["digests"]
+                    for out in ranks[1:]:
+                        if out["decode"][name]["digests"] != want_dig:
+                            fail(f"({name}) rank {out['rank']}'s logits "
+                                 "differ from rank 0's")
+                    gaps = []
+                    held = u_held_rows(tmp, key, ranks, name,
+                                       arch.shapes[case[2]]["global_batch"])
+                    for i in range(u_steps(key)):
+                        got = np.load(os.path.join(
+                            tmp, "u", f"{key}-{u_mid(ms)}", f"step{i}.npy"))
+                        want = np.load(os.path.join(tmp, "u",
+                                                    f"{key}-oracle",
+                                                    f"step{i}.npy"))
+                        if 2 * held[i].sum() < len(held[i]):
+                            fail(f"({name}) step {i}: {int(held[i].sum())} of "
+                                 f"{len(held[i])} rows route as the oracle's")
+                        gap, lim = u_gap(got[held[i]], want[held[i]], f32,
+                                         arch.cfg.n_layers)
+                        if not np.isfinite(got).all() or gap > lim:
+                            fail(f"({name}) step {i}: logits off the "
+                                 f"oracle's by {gap:.3g} (limit {lim:.3g})")
+                        gaps.append(gap)
+                    d = ranks[0]["decode"][name]
+                    params_gib = gib(arch.cfg.param_count() * (
+                        2 if str(arch.cfg.dtype).endswith("bfloat16")
+                        else 4))
+                    print(f"[u] ({name}) {arch.name} {case[2]} "
+                          f"{'float32' if f32 else str(arch.cfg.dtype)[6:]}"
+                          f", {arch.cfg.n_layers} layers, B "
+                          f"{arch.shapes[case[2]]['global_batch']} x "
+                          f"{arch.shapes[case[2]]['seq_len']:,}, cache "
+                          f"{d['spec']} on {card}: step ms by rank "
+                          + ", ".join(f"{o['decode'][name]['ms']:.3f}"
+                                      for o in ranks)
+                          + " (medians past each run's first step, a "
+                          "twin's one step; first "
+                          + ", ".join(f"{o['decode'][name]['first_ms'][0]:.1f}"
+                                      for o in ranks) + ")"
+                          + f"; collective bytes out of a rank a step "
+                          f"{json.dumps(d['wire_bytes'])}, calls "
+                          f"{json.dumps(d['calls'])} (as the layout "
+                          f"predicts); peak GiB by rank "
+                          + ", ".join(f"{o['decode'][name]['peak_gib']:.2f}"
+                                      for o in ranks)
+                          + f" (reckoned {d['block_gib'] + d['local_params_gib'] + params_gib:.2f}: "
+                          f"block {d['block_gib']:.2f} + slices "
+                          f"{d['local_params_gib']:.2f} + gathered "
+                          f"{params_gib:.2f}); gap to the oracle by step "
+                          + ", ".join(f"{g:.3g}" for g in gaps)
+                          + f" (limit {lim:.3g})"
+                          + ("; rows held by step (an MoE row whose experts "
+                             "differ from the oracle's at any layer so far "
+                             "is not) " + ", ".join(
+                                 str(int(h.sum())) for h in held)
+                             if arch.cfg.moe else "")
+                          + ("" if f32 else "; two runs bitwise on every "
+                             "rank"))
+        want_dig = ranks[0]["u4"]["digest"]
+        if any(o["u4"]["digest"] != want_dig for o in ranks):
+            fail("(u4) the ranks' embeddings differ")
+        arch = u4_arch()
+        got = np.load(os.path.join(tmp, "u", "u4", "emb.npy"))
+        want = np.load(os.path.join(tmp, "u", "u4-oracle", "emb.npy"))
+        gap, lim = u_gap(got, want, False, arch.cfg.n_layers)
+        if not np.isfinite(got).all() or gap > lim:
+            fail(f"(u4) embeddings off the oracle's by {gap:.3g} (limit "
+                 f"{lim:.3g})")
+        u4 = ranks[0]["u4"]
+        print(f"[u] (u4) {arch.name} prefill_32k {U4_BATCH} x {U4_LEN:,} "
+              f"on (2, 2) on {card}: ms by rank "
+              + ", ".join(f"{o['u4']['ms'][0]:.1f} / {o['u4']['ms'][1]:.1f}"
+                          for o in ranks)
+              + f"; collective bytes {json.dumps(u4['wire_bytes'])}, calls "
+              f"{json.dumps(u4['calls'])} (as predicted); peak GiB by rank "
+              + ", ".join(f"{o['u4']['peak_gib']:.2f}" for o in ranks)
+              + f"; relative gap to the oracle {gap:.3g} (limit {lim:.3g});"
+              " two runs bitwise")
+        for tag, arch in u5_archs():
+            for out in ranks:
+                u5 = out["u5"][tag]
+                st = u5["steps"]
+                print(f"[u] ({tag}) {arch.name} train_4k "
+                      f"{arch.cfg.n_layers} layers, {U5_BATCH} x {U5_LEN:,}, "
+                      f"{str(arch.cfg.dtype)[6:]}, rank {out['rank']} on "
+                      f"{card}: step ms "
+                      + ", ".join(f"{s_['ms']:.3f}" for s_ in st)
+                      + (f" (two runs of {T_STEPS})" if tag == "u5" else "")
+                      + "; losses " + ", ".join(f"{s_['loss']:.6f}"
+                                                for s_ in st)
+                      + " (oracle " + ", ".join(
+                          f"{s_['oracle_loss']:.6f}" for s_ in st
+                          if "oracle_loss" in s_)
+                      + f"); collective bytes a step "
+                      f"{json.dumps(st[0]['wire_bytes'])}, calls "
+                      f"{json.dumps(st[0]['calls'])} (as the layout "
+                      f"predicts); aux {u5['aux']!r} (the oracle's "
+                      f"{u5['oracle_aux']!r}, gap {u5['direct_gap']:.3g} "
+                      f"of {u5['direct_allowed']:.3g} allowed; first "
+                      f"choices moved "
+                      f"{u5['flips']}, mean probabilities off by "
+                      f"{u5['p_gap']:.3g}, the aux at the oracle's first "
+                      f"choices by {u5['aux_gap']:.3g}); gaps "
+                      f"to the oracle {json.dumps(u5['gaps'])}; peak "
+                      f"{u5['peak_gib']:.2f} GiB")
+        for out in ranks:
+            print(f"[u] rank {out['rank']}: seconds "
+                  f"{json.dumps({k: round(v, 1) for k, v in out['seconds'].items()})}"
+                  f", its start {out['start_s']:.1f} s")
+    return paths
+
+
+
 def main() -> int:
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
@@ -9786,6 +10766,7 @@ def main() -> int:
     paths.update(mesh_paths)
     for name, rows in mesh_timings.items():
         kernels[name]["timings"] += rows
+    paths.update(timed("(u) LM mesh", phase_lm_mesh, dev, card))
 
     def profile():
         for t, call, reset, names in PROFILED:
@@ -9826,4 +10807,6 @@ if __name__ == "__main__":
         sys.exit(h4_rank(int(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == ["--t-rank"]:
         sys.exit(t_rank(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--u-rank"]:
+        sys.exit(u_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

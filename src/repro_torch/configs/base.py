@@ -46,9 +46,10 @@ from repro_torch.training.tree import flatten, tree_map, unflatten
 @dataclasses.dataclass(frozen=True)
 class Layout:
     """A cell's sharding on a mesh: specs of the parameters
-    (``param_specs``) and of the optimizer state (``opt_specs``, train
-    cells), the batch's logical axes, the rules, and the parameter paths
-    the model consumes as local slices (``keep``)."""
+    (``param_specs``), of the optimizer state (``opt_specs``, train
+    cells) and of the KV cache (``cache_specs``, serve cells), the
+    batch's logical axes, the rules, and the parameter paths the model
+    consumes as local slices (``keep``)."""
     mesh: Any
     rules: AxisRules
     param_specs: Any
@@ -56,6 +57,7 @@ class Layout:
     opt_specs: Any = None
     opt_shapes: Any = None
     keep: tuple = ()
+    cache_specs: Any = None         # serve cells: the KV cache's specs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +68,9 @@ class Cell:
     fn: Callable                    # fn(params, batch); train: (state, batch)
     optimizer: str = ""             # train cells: the optimizer's name
     layout: Layout | None = None    # on a mesh
+    # a meshed serve cell: (generator, device) -> this rank's block of the
+    # zeroed cache and the whole batch's tokens
+    smoke_inputs: Callable | None = None
 
     def local_params(self, params):
         """This rank's slices of full ``params`` under the cell's layout
@@ -85,9 +90,10 @@ def _meta(shapes):
 
 def make_layout(mesh, rules: AxisRules, param_shapes, param_axes,
                 batch_axes, optimizer: str | None = None,
-                keep=()) -> Layout:
+                keep=(), cache: tuple | None = None) -> Layout:
     """The specs of a cell's parameters (and, for ``optimizer``, its
-    state) on ``mesh``; ``param_shapes`` is a tree of shape tuples."""
+    state; for ``cache = (shapes, logical axes)``, a KV cache's) on
+    ``mesh``; ``param_shapes`` is a tree of shape tuples."""
     param_specs = tree_pspecs(param_shapes, param_axes, mesh, rules)
     opt_specs = opt_shapes = None
     if optimizer is not None:
@@ -97,8 +103,9 @@ def make_layout(mesh, rules: AxisRules, param_shapes, param_axes,
                               opt_init(_meta(param_shapes)))
         opt_specs = tree_pspecs(opt_shapes, opt_state_logical_axes(
             cfg, param_axes, param_shapes), mesh, rules)
+    cache_specs = None if cache is None else tree_pspecs(*cache, mesh, rules)
     return Layout(mesh, rules, param_specs, batch_axes, opt_specs,
-                  opt_shapes, tuple(keep))
+                  opt_shapes, tuple(keep), cache_specs)
 
 
 def make_train_cell(arch_name: str, shape_name: str, *,

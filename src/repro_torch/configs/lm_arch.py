@@ -10,17 +10,26 @@ step at 4k tokens (forward, backward and the arch's optimizer through
 ``encode`` kind (``transformer.encode`` over a batch of token rows, the
 corpus-encoding prefill); and ``decode_32k`` / ``long_500k``, the
 ``serve`` kind (``transformer.decode_step``: one token a row against a
-KV cache of the shape's length).  ``train_4k`` runs on a mesh too
-(``build_cell(shape, device, mesh)``): the parameters and optimizer state
-laid out by ``transformer.LM_RULES`` (FSDP rows over the data axes, heads
-and FFN over "model"), the token rows over the data axes, and the
-in-batch scores over the whole batch's embeddings
-(``sharding.layout.gather_rows``).  The encode and serve cells on a mesh,
-and an MoE stack's ``train_4k`` there (its load-balance loss over a
-split batch), raise naming ROADMAP queue 1 item 10.  At full width the
-reference runs ``train_4k`` at 256 x 4096 on a mesh, and its serve
-shapes' caches (up to 1,792 GiB) on one too; one card takes a cut batch
-or depth (the reckonings are in ``PERF.md``).
+KV cache of the shape's length).
+
+Every cell runs on a mesh too (``build_cell(shape, device, mesh)``),
+its parameters (and optimizer state) laid out by
+``transformer.LM_RULES`` (FSDP rows over the data axes, heads and FFN
+over "model"):
+  * ``train_4k``: the token rows over the data axes, the in-batch scores
+    over the whole batch's embeddings (``sharding.layout.gather_rows``)
+    and an MoE's load-balance loss over the whole batch's statistics
+    (``transformer.forward_hidden(..., mesh)``);
+  * ``prefill_32k``: ``make_infer_cell``, the rows over the data axes
+    and the embeddings gathered (an MoE's capacity is per row, so its
+    rows split exactly);
+  * the serve shapes: the cache laid out by
+    ``transformer.cache_logical_axes`` (batch, KV heads or sequence split
+    across ranks), each rank holding its block
+    (``transformer.decode_step`` with its ``mesh``).
+At full width the reference runs ``train_4k`` at 256 x 4096 on a mesh,
+and its serve shapes' caches (up to 1,792 GiB) on one too; one card
+takes a cut batch or depth (the reckonings are in ``PERF.md``).
 """
 
 from __future__ import annotations
@@ -29,11 +38,12 @@ import dataclasses
 
 import torch
 
-from repro_torch.configs.base import Cell, make_layout, make_train_cell
+from repro_torch.configs.base import (Cell, make_infer_cell, make_layout,
+                                      make_train_cell)
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.losses import InfoNCELoss
-from repro_torch.sharding.layout import gather_rows
+from repro_torch.sharding.layout import gather_rows, gather_tree, local_zeros
 
 LM_SHAPES = {
     "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
@@ -67,12 +77,6 @@ def reduced_config(cfg: transformer.LMConfig) -> transformer.LMConfig:
         remat=False)
 
 
-def _not_ported(shape: str, items: str, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{shape} needs {what}, which the port does not have yet "
-        f"(ROADMAP queue 1 item {items})")
-
-
 class LMArch:
     family = "lm"
 
@@ -104,7 +108,8 @@ class LMArch:
         in-batch scores at temperature 0.02, InfoNCE on the diagonal plus
         0.01 x the passages' MoE aux loss (0.0 for a dense stack; the
         queries' aux is dropped, as in the reference).  On a mesh the
-        batch is this rank's rows and the scores are the whole batch's."""
+        batch is this rank's rows, and the scores and the aux are the
+        whole batch's."""
         loss = InfoNCELoss()
         cfg = self.cfg
 
@@ -113,7 +118,7 @@ class LMArch:
                                    batch["query"]["mask"])
             hidden, aux = transformer.forward_hidden(
                 cfg, params, batch["passage"]["tokens"],
-                batch["passage"]["mask"])
+                batch["passage"]["mask"], mesh=mesh)
             p = transformer.pool(cfg, hidden, batch["passage"]["mask"])
             q, p = gather_rows(q, mesh), gather_rows(p, mesh)
             scores = torch.einsum("qd,pd->qp", q, p) / 0.02
@@ -135,16 +140,16 @@ class LMArch:
         without gradients.  ``serve`` gives a cell whose ``fn(params,
         cache, tokens)`` is ``transformer.decode_step`` without
         gradients: ``(logits (B, V) float32, cache)``, the cache written
-        in place (the reference donates it)."""
+        in place (the reference donates it).  On a ``mesh`` the cell
+        carries its ``Layout``: a train cell's state and an encode or serve
+        cell's ``params`` are this rank's slices, a serve cell's cache this
+        rank's block (``cell.smoke_inputs``), and every rank returns the
+        whole batch's answer."""
         resolve_device(device)
         kind = self.shapes[shape_name]["kind"]
-        if mesh is not None and (kind != "train" or self.cfg.moe):
-            raise _not_ported(shape_name, "10",
-                              "the KV cache or the encode on a mesh"
-                              if kind != "train" else
-                              "an MoE load-balance loss over a split batch")
+        cfg = self.cfg
+        layout = None
         if kind == "train":
-            layout = None
             if mesh is not None:
                 tok = {"tokens": ("batch", None), "mask": ("batch", None)}
                 layout = make_layout(
@@ -155,8 +160,10 @@ class LMArch:
             return make_train_cell(self.name, shape_name,
                                    loss_fn=self._contrastive_loss(mesh),
                                    optimizer=self.optimizer, layout=layout)
-        cfg = self.cfg
         if kind == "serve":
+            if mesh is not None:
+                return self._meshed_serve_cell(shape_name, mesh)
+
             def serve_fn(params, cache, tokens):
                 with torch.no_grad():
                     return transformer.decode_step(cfg, params, cache,
@@ -169,7 +176,57 @@ class LMArch:
                 return transformer.encode(cfg, params, batch["tokens"],
                                           batch["mask"])
 
-        return Cell(self.name, shape_name, "encode", encode_fn)
+        if mesh is not None:
+            layout = make_layout(
+                mesh, self.axis_rules(), transformer.param_shapes(cfg),
+                self.param_logical_axes(),
+                {"tokens": ("batch", None), "mask": ("batch", None)})
+        return make_infer_cell(self.name, shape_name, "encode", encode_fn,
+                               layout, out_axes="tokens")
+
+    def _meshed_serve_cell(self, shape_name: str, mesh) -> Cell:
+        """A serve cell on ``mesh``: the cache laid out by
+        ``cache_logical_axes`` (the KV heads split over "model" where they
+        divide it), ``fn(params, cache, tokens)`` on this rank's parameter
+        slices and cache block with the whole batch's tokens, the
+        parameters gathered each step; ``cell.smoke_inputs(generator,
+        device)`` gives this rank's block of the zeroed cache with ``len
+        = seq_len - 1`` (never the whole cache) and the tokens
+        ``smoke_inputs`` draws."""
+        cfg = self.cfg
+        spec = self.shapes[shape_name]
+        b, s = spec["global_batch"], spec["seq_len"]
+        tp = mesh.shape.get("model", 1)
+        kv = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim)
+        layout = make_layout(
+            mesh, self.axis_rules(), transformer.param_shapes(cfg),
+            self.param_logical_axes(), {"tokens": ("batch",)},
+            cache=({"k": kv, "v": kv, "len": ()},
+                   transformer.cache_logical_axes(
+                       cfg, b, tp_divides_kv=(cfg.n_kv_heads % tp == 0))))
+        kv_spec = layout.cache_specs["k"]
+
+        def serve_fn(params, cache, tokens):
+            with torch.no_grad():
+                full = gather_tree(params, layout.param_specs, mesh)
+                return transformer.decode_step(cfg, full, cache, tokens,
+                                               mesh, kv_spec)
+
+        def inputs(generator: torch.Generator,
+                   device: str | torch.device = "cuda"):
+            dev = resolve_device(device)
+            block = local_zeros({"k": kv, "v": kv}, {"k": kv_spec,
+                                                     "v": kv_spec}, mesh,
+                                dev, cfg.dtype)
+            block["len"] = torch.full((), s - 1, dtype=torch.int32,
+                                      device=dev)
+            tokens = torch.randint(3, cfg.vocab_size, (b,),
+                                   generator=generator,
+                                   device=generator.device)
+            return block, tokens.to(device=dev, dtype=torch.int32)
+
+        return Cell(self.name, shape_name, "serve", serve_fn, layout=layout,
+                    smoke_inputs=inputs)
 
     def reduced(self) -> "LMArch":
         """A small config of the same family, for CPU tests (the

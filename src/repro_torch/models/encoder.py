@@ -77,11 +77,13 @@ class DefaultEncoder(PretrainedEncoder):
         return transformer.encode(self.cfg, params, batch["tokens"],
                                   batch["mask"])
 
-    def encode_with_aux(self, params, batch):
+    def encode_with_aux(self, params, batch, mesh=None):
         """(embeddings, aux loss): an MoE backbone's load-balance loss, so
-        the retriever can weight it in (0.0 for a dense one)."""
+        the retriever can weight it in (0.0 for a dense one); on a
+        ``mesh``, ``batch`` is this rank's rows and the aux the whole
+        batch's (``transformer.forward_hidden``)."""
         hidden, aux = transformer.forward_hidden(
-            self.cfg, params, batch["tokens"], batch["mask"])
+            self.cfg, params, batch["tokens"], batch["mask"], mesh)
         return transformer.pool(self.cfg, hidden, batch["mask"]), aux
 
 

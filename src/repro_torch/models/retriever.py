@@ -23,7 +23,7 @@ from repro_torch.models.encoder import PretrainedEncoder, get_encoder
 from repro_torch.models.losses import biencoder_scores, get_loss
 from repro_torch.sharding import collectives
 from repro_torch.sharding.layout import gather_rows
-from repro_torch.sharding.partitioning import data_axes, data_parallelism
+from repro_torch.sharding.partitioning import data_axes
 
 RETRIEVER_REGISTRY: dict[str, type["PretrainedRetriever"]] = {}
 
@@ -85,26 +85,23 @@ class BiEncoderRetriever(PretrainedRetriever):
         rules)`` the batch is this rank's rows along the data axes, and
         the embeddings (and labels) of every rank's rows are gathered
         before the scores, so the loss is the whole batch's, in-batch
-        negatives included (``sharding.layout.gather_rows``).
+        negatives included (``sharding.layout.gather_rows``), and an MoE
+        encoder's aux is the whole batch's too.
         """
         aux = None
+        mesh = None if ctx is None else ctx[0]
         if self.aux_loss_weight and hasattr(self.encoder, "encode_with_aux"):
-            q_emb, aux_q = self.encoder.encode_with_aux(params,
-                                                        batch["query"])
-            p_emb, aux_p = self.encoder.encode_with_aux(params,
-                                                        batch["passage"])
+            # on a mesh each aux is the whole batch's
+            q_emb, aux_q = self.encoder.encode_with_aux(
+                params, batch["query"], mesh)
+            p_emb, aux_p = self.encoder.encode_with_aux(
+                params, batch["passage"], mesh)
             aux = aux_q + aux_p
         else:
             q_emb = self.encode_query(params, batch["query"])
             p_emb = self.encode_passage(params, batch["passage"])
         labels = batch.get("labels")
-        if ctx is not None:
-            mesh = ctx[0]
-            moe = getattr(getattr(self.encoder, "cfg", None), "moe", False)
-            if moe and data_parallelism(mesh) > 1:
-                raise NotImplementedError(
-                    "an MoE load-balance loss over a batch split across "
-                    "ranks is not ported yet (ROADMAP queue 1 item 10)")
+        if mesh is not None:
             q_emb, p_emb = gather_rows(q_emb, mesh), gather_rows(p_emb, mesh)
             if labels is not None:
                 labels = collectives.all_gather(labels, mesh,

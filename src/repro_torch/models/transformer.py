@@ -89,6 +89,16 @@ heads (GQA), never the cache repeated.  An MoE layer's decode FFN is
 :func:`_moe_token`: the reference's top-k with no capacity, so no token
 is dropped, computed per chosen expert (each expert's weights read once
 a step), not by gathering (t, k, d, f) weights.
+
+On a mesh of rank processes (``sharding.make_mesh``) the reference's
+GSPMD results are computed explicitly.  :func:`forward_hidden` with a
+``mesh`` takes this rank's rows and returns the whole batch's MoE aux:
+each layer's two E-vectors (:func:`_route`'s ``local_stats``) averaged
+over the data axes before their product.  :func:`decode_step` on a
+mesh steps this rank's block of a cache laid out by
+:func:`cache_logical_axes`: its rows, its KV heads (the attention output
+gathered in head order) and its range of positions (a softmax over every
+rank's range, :func:`_decode_attention_split`).
 """
 
 from __future__ import annotations
@@ -102,7 +112,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.sharding.partitioning import AxisRules
+from repro_torch.sharding import collectives
+from repro_torch.sharding.layout import mean_over_data
+from repro_torch.sharding.partitioning import (AxisRules, data_parallelism,
+                                               spec_axes)
 from repro_torch.training.tree import leaves
 
 Params = dict[str, Any]
@@ -330,7 +343,8 @@ def capacity(cfg: LMConfig, s: int) -> int:
                          * cfg.capacity_factor), 1)
 
 
-def _route(cfg: LMConfig, h: torch.Tensor, router: torch.Tensor):
+def _route(cfg: LMConfig, h: torch.Tensor, router: torch.Tensor,
+           local_stats: bool = False):
     """Token-choice top-k routing of normed rows ``h`` (B, S, d) over
     ``router`` (d, E): ``(gates, choice, slot, keep, aux)``.
 
@@ -341,7 +355,10 @@ def _route(cfg: LMConfig, h: torch.Tensor, router: torch.Tensor):
     ``E * cap`` where ``keep`` is false (the expert's ``cap`` slots were
     taken by earlier pairs, counted s-major), and ``aux`` the Switch
     load-balance loss ``E * sum_e density_e * mean_prob_e`` over every
-    position, padding included."""
+    position, padding included.  With ``local_stats`` the last output is
+    the aux's two E-vectors instead, (2, E) float32: the share of
+    positions whose first choice is each expert (no gradient) and each
+    expert's mean probability (:func:`_switch_aux` takes them)."""
     b, s, _ = h.shape
     e, kk = cfg.n_experts, cfg.top_k
     cap = capacity(cfg, s)
@@ -352,23 +369,35 @@ def _route(cfg: LMConfig, h: torch.Tensor, router: torch.Tensor):
     gates, choice = gates[..., :kk], choice[..., :kk]
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     density = F.one_hot(choice[..., 0], e).float().mean((0, 1))
-    aux = e * (density * probs.mean((0, 1))).sum()
+    stats = torch.stack([density, probs.mean((0, 1))])
     e_flat = choice.reshape(b, s * kk)
     onehot = F.one_hot(e_flat, e)
     pos = (onehot.cumsum(1) - onehot).gather(-1, e_flat[..., None])[..., 0]
     keep = pos < cap
     slot = torch.where(keep, e_flat * cap + pos,
                        torch.full_like(e_flat, e * cap))
-    return gates, choice, slot, keep, aux
+    return gates, choice, slot, keep, (stats if local_stats
+                                       else _switch_aux(cfg, stats))
 
 
-def _moe_ffn(cfg: LMConfig, lp: Params, x):
-    """The MoE FFN of one layer: ``(x + ffn(norm(x)), aux)``."""
+def _switch_aux(cfg: LMConfig, stats: torch.Tensor) -> torch.Tensor:
+    """The Switch load-balance loss of :func:`_route`'s (2, E) local
+    statistics: ``E * sum_e density_e * mean_prob_e``."""
+    return cfg.n_experts * (stats[0] * stats[1]).sum()
+
+
+def _moe_ffn(cfg: LMConfig, lp: Params, x, local_stats: bool = False):
+    """The MoE FFN of one layer: ``(x + ffn(norm(x)), aux)``, or with
+    ``local_stats`` ``(x + ffn(norm(x)), stats)``, the aux's two
+    E-vectors over these rows (:func:`_route`), for a caller that
+    averages them over a batch split across ranks first."""
     b, s, d = x.shape
     e, kk = cfg.n_experts, cfg.top_k
     cap = capacity(cfg, s)
     h = _norm(x, lp["ln2"], lp.get("ln2_b"), cfg.norm)
-    gates, _, slot, _, aux = _route(cfg, h, lp["router"])
+    gates, _, slot, _, aux = (_route(cfg, h, lp["router"], True)
+                              if local_stats else
+                              _route(cfg, h, lp["router"]))
     # dispatch: each kept slot's token index (s, a zero row, elsewhere);
     # the dropped pairs all write the sentinel column, which is cut off
     tok = torch.arange(s * kk, device=x.device).div(
@@ -399,8 +428,10 @@ def _dense_layer(cfg: LMConfig, lp: Params, x, positions, mask):
     return _dense_ffn(cfg, lp, _attn_block(cfg, lp, x, positions, mask))
 
 
-def _moe_layer(cfg: LMConfig, lp: Params, x, positions, mask):
-    return _moe_ffn(cfg, lp, _attn_block(cfg, lp, x, positions, mask))
+def _moe_layer(cfg: LMConfig, lp: Params, x, positions, mask,
+               local_stats: bool = False):
+    return _moe_ffn(cfg, lp, _attn_block(cfg, lp, x, positions, mask),
+                    local_stats)
 
 
 def _unstack(stack: Params) -> list[Params]:
@@ -427,10 +458,19 @@ def _stack_order(cfg: LMConfig, params: Params) -> list:
 
 
 def forward_hidden(cfg: LMConfig, params: Params, tokens: torch.Tensor,
-                   attn_mask: torch.Tensor):
+                   attn_mask: torch.Tensor, mesh=None):
     """tokens (B, S) int, attn_mask (B, S) {0,1} -> (hidden (B, S, d), the
     MoE aux loss summed over layers: a float32 scalar, 0.0 for a dense
-    stack)."""
+    stack).
+
+    On a ``mesh`` whose data axes split the batch, ``tokens`` are this
+    rank's rows and the aux is the whole batch's: each MoE layer returns
+    its rows' two E-vectors, which are averaged over the data axes
+    outside the layer (a checkpointed layer recomputes in the backward,
+    and a collective must not run twice) before their product
+    (``sharding.layout.mean_over_data``, whose backward hands each rank
+    the cotangent unchanged, as the meshed step's gradient mean
+    expects)."""
     b, s = tokens.shape
     x = params["embed"][tokens.long()].to(cfg.dtype)
     if cfg.name.startswith("gemma"):
@@ -442,16 +482,21 @@ def forward_hidden(cfg: LMConfig, params: Params, tokens: torch.Tensor,
     mask = causal[None] & attn_mask[:, None, :].bool()
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
+    split = mesh is not None and data_parallelism(mesh) > 1
     for is_moe, lp in _stack_order(cfg, params):
         layer = _moe_layer if is_moe else _dense_layer
+        extra = (True,) if is_moe and split else ()
         if remat:
-            # a MoE layer's aux is an output of its checkpoint
-            out = checkpoint(layer, cfg, lp, x, positions, mask,
+            # a MoE layer's aux (or statistics) is an output of its
+            # checkpoint
+            out = checkpoint(layer, cfg, lp, x, positions, mask, *extra,
                              use_reentrant=False, preserve_rng_state=False)
         else:
-            out = layer(cfg, lp, x, positions, mask)
+            out = layer(cfg, lp, x, positions, mask, *extra)
         if is_moe:
             x, a = out
+            if split:
+                a = _switch_aux(cfg, mean_over_data(a, mesh))
             aux = aux + a
         else:
             x = out
@@ -537,33 +582,61 @@ def _decode_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     b, _, h, hd = q.shape
     kh = kc.shape[2]
     qg = q.reshape(b, kh, h // kh, hd).float()
-    chunk = max(1, DECODE_CHUNK_BYTES // (4 * b * kh * hd))
-    spans = [(lo, min(n, lo + chunk)) for lo in range(0, n, chunk)]
-
-    def f32(cache, lo, hi):
-        out = torch.empty((b, kh, hi - lo, hd), dtype=torch.float32,
-                          device=cache.device)
-        return out.copy_(cache[:, lo:hi].transpose(1, 2))
-
-    scores = torch.empty((b, kh, h // kh, n), dtype=torch.float32,
-                         device=q.device)
-    for lo, hi in spans:
-        scores[..., lo:hi] = qg @ f32(kc, lo, hi).transpose(-1, -2)
-    scores.div_(math.sqrt(hd))
+    spans = _decode_spans(qg, n)
+    scores = _decode_scores(qg, kc, spans, n)
     probs = torch.softmax(scores, dim=-1)
     del scores
+    return _decode_pv(probs, vc, spans, qg).to(vc.dtype).reshape(
+        b, 1, h, hd)
+
+
+def _decode_spans(qg: torch.Tensor, n: int) -> list:
+    """The chunks of positions ``[0, n)`` whose float32 copy of K or V
+    for ``qg`` (B, K, G, hd) stays within DECODE_CHUNK_BYTES."""
+    b, kh, _, hd = qg.shape
+    chunk = max(1, DECODE_CHUNK_BYTES // (4 * b * kh * hd))
+    return [(lo, min(n, lo + chunk)) for lo in range(0, n, chunk)]
+
+
+def _f32_chunk(cache: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Positions ``[lo, hi)`` of a layer's cache (B, S, K, hd) as float32,
+    laid out (B, K, hi - lo, hd)."""
+    b, _, kh, hd = cache.shape
+    out = torch.empty((b, kh, hi - lo, hd), dtype=torch.float32,
+                      device=cache.device)
+    return out.copy_(cache[:, lo:hi].transpose(1, 2))
+
+
+def _decode_scores(qg: torch.Tensor, kc: torch.Tensor, spans: list,
+                   n: int) -> torch.Tensor:
+    """float32 scores (B, K, G, n) of ``qg`` against the first ``n``
+    positions of ``kc``, divided by sqrt(hd)."""
+    b, kh, g, hd = qg.shape
+    scores = torch.empty((b, kh, g, n), dtype=torch.float32,
+                         device=qg.device)
+    for lo, hi in spans:
+        scores[..., lo:hi] = qg @ _f32_chunk(kc, lo, hi).transpose(-1, -2)
+    return scores.div_(math.sqrt(hd))
+
+
+def _decode_pv(probs: torch.Tensor, vc: torch.Tensor, spans: list,
+               qg: torch.Tensor) -> torch.Tensor:
+    """float32 (B, K, G, hd): ``probs`` (B, K, G, n) rounded to the cache
+    dtype, times the first n positions of ``vc`` in float32, a chunk's
+    runs of PV_SPLIT positions summed apart, then added."""
+    b, kh, g, hd = qg.shape
     out = torch.zeros_like(qg)
     for lo, hi in spans:
         p = probs[..., lo:hi].to(vc.dtype).float()
-        vf = f32(vc, lo, hi)
+        vf = _f32_chunk(vc, lo, hi)
         runs = (hi - lo) // PV_SPLIT
         cut = runs * PV_SPLIT
         out += p[..., cut:] @ vf[:, :, cut:]
         if runs:
-            pp = p[..., :cut].reshape(b, kh, h // kh, runs, PV_SPLIT)
+            pp = p[..., :cut].reshape(b, kh, g, runs, PV_SPLIT)
             vv = vf[:, :, :cut].reshape(b, kh, runs, PV_SPLIT, hd)
             out += (pp.transpose(2, 3) @ vv).sum(2)
-    return out.to(vc.dtype).reshape(b, 1, h, hd)
+    return out
 
 
 def _moe_token(cfg: LMConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
@@ -606,24 +679,87 @@ def _moe_token(cfg: LMConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def _decode_attention_split(q: torch.Tensor, kc: torch.Tensor,
+                            vc: torch.Tensor, n: int, mesh,
+                            axes: tuple) -> torch.Tensor:
+    """:func:`_decode_attention` over a cache whose positions are split
+    over the mesh ``axes``: this rank's kc / vc hold one contiguous range,
+    of which the first ``n`` (0 to all) are at or before ``len``.
+
+    As the reference's softmax under GSPMD: local float32 scores; each
+    rank's max and sum of exponentials, all-gathered and combined in rank
+    order into the global ones; the probabilities normalised globally,
+    then rounded to the cache dtype; the local product with V in float32;
+    the (B, K, G, hd) partials summed over ``axes`` in rank order.  (A
+    combine of unnormalised outputs, flash-decoding's, would round the
+    probabilities before normalising them.)"""
+    b, _, h, hd = q.shape
+    kh = kc.shape[2]
+    qg = q.reshape(b, kh, h // kh, hd).float()
+    spans = _decode_spans(qg, n)
+    scores = _decode_scores(qg, kc, spans, n)
+    if n:
+        top = scores.amax(-1)
+        total = torch.exp(scores - top[..., None]).sum(-1)
+    else:
+        top = torch.full(qg.shape[:-1], -math.inf, device=q.device)
+        total = torch.zeros_like(top)
+    ranks = collectives.all_gather(torch.stack([top, total])[None], mesh,
+                                   axes, dim=0)
+    top = ranks[:, 0].amax(0)
+    total = torch.zeros_like(top)
+    for r in range(ranks.shape[0]):
+        total += ranks[r, 1] * torch.exp(ranks[r, 0] - top)
+    probs = scores.sub_(top[..., None]).exp_().div_(total[..., None])
+    out = collectives.all_reduce(_decode_pv(probs, vc, spans, qg), mesh,
+                                 axes)
+    return out.to(vc.dtype).reshape(b, 1, h, hd)
+
+
 def decode_step(cfg: LMConfig, params: Params, cache: Params,
-                tokens: torch.Tensor):
+                tokens: torch.Tensor, mesh=None, spec=()):
     """One decode step: tokens (B,) int -> (logits (B, V) float32, cache).
 
     Each row's token sits at position ``len``: per layer, its K / V are
     written into the cache at ``len`` in place, then it attends to
     positions ``0..len``.  The cache returned is the one passed in, its
     ``len`` advanced by one in place.  ``len`` is read on the host here
-    (a sync with the card once a step)."""
-    b = tokens.shape[0]
+    (a sync with the card once a step).
+
+    On a ``mesh``, ``cache`` is this rank's block of a cache laid out by
+    ``spec`` (the k / v spec of :func:`cache_logical_axes` resolved on
+    ``mesh``), with the whole parameters and the whole batch's ``tokens``;
+    every rank returns the whole (B, V) logits:
+
+      * **rows**: where the batch dim is split, the rank embeds and runs
+        only its rows; the logits are gathered over those axes;
+      * **KV heads**: where they are split, the rank attends only with its
+        KV heads and their query groups, and the (B, 1, H, hd) output is
+        gathered over those axes in head order before ``wo``;
+      * **positions**: where the sequence is split, each rank holds a
+        contiguous range and attends as :func:`_decode_attention_split`.
+
+    The rank that holds position ``len`` writes the new K / V there (its
+    rows and heads); ``len`` is replicated and every rank advances it.
+    The projections, FFN, :func:`_moe_token` and :func:`lm_logits` run on
+    the rank's rows, repeated on ranks that share them.  With no axis
+    split (no mesh) the views are whole and no collective runs."""
+    dims = tuple(spec) + (None,) * (5 - len(spec))
+    rows, seq, heads = (spec_axes(e) for e in dims[1:4])
+    b_loc, s_loc, kh_loc = cache["k"].shape[1:4]
     pos = int(cache["len"])
-    max_len = cache["k"].shape[2]
+    max_len = s_loc * (mesh.axis_size(seq) if seq else 1)
     if not 0 <= pos < max_len:
         raise ValueError(f"cache len {pos} outside [0, {max_len})")
-    x = params["embed"][tokens.long()[:, None]].to(cfg.dtype)
+    r0 = mesh.shard_index(rows) * b_loc if rows else 0
+    k0 = mesh.shard_index(heads) * kh_loc if heads else 0
+    lo = mesh.shard_index(seq) * s_loc if seq else 0
+    g = cfg.n_heads // cfg.n_kv_heads
+    toks = tokens[r0: r0 + b_loc]
+    x = params["embed"][toks.long()[:, None]].to(cfg.dtype)
     if cfg.name.startswith("gemma"):
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
-    positions = torch.full((b, 1), pos, dtype=torch.int32,
+    positions = torch.full((b_loc, 1), pos, dtype=torch.int32,
                            device=tokens.device)
     for i, (is_moe, lp) in enumerate(_stack_order(cfg, params)):
         hn = _norm(x, lp["ln1"], lp.get("ln1_b"), cfg.norm)
@@ -632,12 +768,21 @@ def decode_step(cfg: LMConfig, params: Params, cache: Params,
         v = torch.einsum("bsd,dhk->bshk", hn, lp["wv"])
         if cfg.qkv_bias:
             q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-        q = _rope(q, positions, cfg.rope_theta)
-        k = _rope(k, positions, cfg.rope_theta)
+        q = _rope(q, positions, cfg.rope_theta)[:, :, k0 * g:
+                                                (k0 + kh_loc) * g]
+        k = _rope(k, positions, cfg.rope_theta)[:, :, k0: k0 + kh_loc]
+        v = v[:, :, k0: k0 + kh_loc]
         kc, vc = cache["k"][i], cache["v"][i]
-        kc[:, pos] = k[:, 0]
-        vc[:, pos] = v[:, 0]
-        out = _decode_attention(q, kc, vc, pos + 1)
+        if lo <= pos < lo + s_loc:
+            kc[:, pos - lo] = k[:, 0]
+            vc[:, pos - lo] = v[:, 0]
+        if seq:
+            out = _decode_attention_split(
+                q, kc, vc, min(max(pos + 1 - lo, 0), s_loc), mesh, seq)
+        else:
+            out = _decode_attention(q, kc, vc, pos + 1)
+        if heads:
+            out = collectives.all_gather(out, mesh, heads, dim=2)
         x = x + torch.einsum("bshk,hkd->bsd", out, lp["wo"])
         hn = _norm(x, lp["ln2"], lp.get("ln2_b"), cfg.norm)
         if is_moe:
@@ -647,7 +792,10 @@ def decode_step(cfg: LMConfig, params: Params, cache: Params,
                          lp["wo_ffn"])
     x = _norm(x, params["final_ln"], params.get("final_ln_b"), cfg.norm)
     cache["len"].add_(1)
-    return lm_logits(cfg, params, x)[:, 0], cache
+    logits = lm_logits(cfg, params, x)[:, 0]
+    if rows:
+        logits = collectives.all_gather(logits, mesh, rows, dim=0)
+    return logits, cache
 
 
 # ---------------------------------------------------------------------------

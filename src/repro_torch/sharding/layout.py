@@ -12,7 +12,8 @@ gives its shape).  A meshed step (:func:`meshed_grads`,
   2. forward and backward run on this rank's shard of the batch along
      the data axes, pod-major (:func:`batch_shard`); a loss over the
      whole batch (in-batch negatives) sees every row through
-     :func:`gather_rows`;
+     :func:`gather_rows`, a mean over it (an MoE's load-balance
+     statistics) through :func:`mean_over_data`;
   3. the gradients are averaged over the data axes, in rank order
      (``collectives.all_reduce(..., "mean")``);
   4. each leaf keeps its own slice of the gradient, clipped by the global
@@ -138,6 +139,33 @@ def gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
     if mesh is None or data_parallelism(mesh) == 1:
         return x
     return _GatherRows.apply(x, mesh)
+
+
+class _MeanOverData(torch.autograd.Function):
+    """The data-axis mean of a per-rank statistic, in rank order; the
+    backward hands this rank the cotangent unchanged: the statistic's
+    gradient through this rank's rows is 1 / R of it, and the meshed
+    step's data-axis mean of the ranks' gradients divides by R once
+    more, so each rank's gradient carries R x its rows' share, as
+    :class:`_GatherRows` arranges."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return collectives.all_reduce(x.contiguous(), mesh, data_axes(mesh),
+                                      "mean")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def mean_over_data(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` (a statistic over this rank's batch rows, the ranks' row
+    counts equal) -> its mean over the whole batch, on every rank alike
+    (differentiable; see :class:`_MeanOverData`)."""
+    if mesh is None or data_parallelism(mesh) == 1:
+        return x
+    return _MeanOverData.apply(x, mesh)
 
 
 def meshed_grads(loss_fn: Callable, local_params: Any, specs: Any,

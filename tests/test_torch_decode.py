@@ -24,8 +24,8 @@ the CPU.
 * The in-place write: the same storage returned, only position ``len``
   changed, ``len`` one more.
 * The serve cells at the reduced shapes against the reference's cell
-  ``fn``; a mesh raises naming item 10, ``device="cuda"`` without a card
-  raises.
+  ``fn``; on a shape-only mesh a serve cell builds with its cache's
+  specs and refuses to step; ``device="cuda"`` without a card raises.
 * granite's own capacity factor: decode differs from prefill where the
   prefill dropped token-slots, alike in both packages (a property of the
   reference: ``_moe_token`` has no capacity).
@@ -44,6 +44,7 @@ from repro.models import transformer as jtf
 from repro_torch.configs import get_arch
 from repro_torch.configs.lm_arch import REDUCED_SHAPES
 from repro_torch.models import transformer as tf
+from repro_torch.sharding import make_mesh
 from repro_torch.models.convert import (cache_from_jax, cache_to_numpy,
                                         params_from_jax)
 
@@ -359,9 +360,23 @@ def test_serve_cells_match_reference(name, shape):
 
 @pytest.mark.parametrize("shape", ["decode_32k", "long_500k"])
 def test_serve_cells_refuse_a_mesh_and_a_missing_card(shape):
+    """A mesh builds the serve cell (the meshed steps are in
+    ``tests/test_torch_mesh_lm.py``); a shape-only one refuses to step
+    it, and a missing card raises."""
     arch = get_arch("granite-moe-3b-a800m").reduced()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        arch.build_cell(shape, device="cpu", mesh=object())
+    mesh = make_mesh((2, 2), ("data", "model"))
+    cell = arch.build_cell(shape, device="cpu", mesh=mesh)
+    # 2 KV heads over "model"; the batch of 4 over "data", a batch of 1
+    # keeps its sequence there
+    want = ((None, "data", None, "model", None) if shape == "decode_32k"
+            else (None, None, "data", "model", None))
+    assert tuple(cell.layout.cache_specs["k"]) == want
+    assert tuple(cell.layout.cache_specs["len"]) == ()
+    params = tf.init_params(arch.cfg, torch.Generator().manual_seed(0),
+                            "cpu")
+    with pytest.raises(RuntimeError, match="shape-only"):
+        cell.fn(params, *arch.smoke_inputs(shape, torch.Generator(),
+                                           device="cpu"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             arch.build_cell(shape)

@@ -274,19 +274,25 @@ def test_encode_cell_matches_reference_cell(name):
 
 @pytest.mark.parametrize("shape", ["train_4k", "decode_32k", "long_500k"])
 def test_unported_cells_raise_naming_their_item(shape):
-    """On a mesh ``train_4k`` builds with its layout and the decode cells
-    raise naming item 10; on one device every cell builds and steps:
-    ``train_4k`` one optimizer step, the decode shapes one decode step
-    from ``smoke_inputs``' cache."""
+    """On a mesh every cell builds with its layout: ``train_4k`` its
+    parameters' and optimizer state's specs, the decode cells their
+    cache's, and ``prefill_32k`` beside them (stepping them needs the mesh
+    bound to a process group, ``tests/test_torch_mesh_lm.py``); on one
+    device every cell builds and steps: ``train_4k`` one optimizer step,
+    the decode shapes one decode step from ``smoke_inputs``' cache."""
     arch = get_arch("qwen2-0.5b").reduced()
     mesh = make_mesh((2, 2), ("data", "model"))
+    layout = arch.build_cell(shape, device="cpu", mesh=mesh).layout
+    assert tuple(layout.param_specs["embed"]) == ("model", None)
     if shape == "train_4k":
-        layout = arch.build_cell(shape, device="cpu", mesh=mesh).layout
-        assert tuple(layout.param_specs["embed"]) == ("model", None)
         assert set(layout.opt_specs) == {"mu", "nu"}
     else:
-        with pytest.raises(NotImplementedError, match="item 10"):
-            arch.build_cell(shape, device="cpu", mesh=mesh)
+        assert tuple(layout.cache_specs["k"]) == (
+            (None, "data", None, "model", None) if shape == "decode_32k"
+            else (None, None, "data", "model", None))
+    encode = arch.build_cell("prefill_32k", device="cpu", mesh=mesh)
+    assert encode.kind == "encode"
+    assert encode.layout.batch_axes["tokens"] == ("batch", None)
     params = tf.init_params(arch.cfg, torch.Generator().manual_seed(0),
                             "cpu")
     cell = arch.build_cell(shape, device="cpu")

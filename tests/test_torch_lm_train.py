@@ -214,8 +214,8 @@ def test_arch_optimizers_and_refusals(name):
     """Adafactor at full width, AdamW reduced (the reference's defaults);
     ``train_4k`` builds on a mesh with its layout (stepping it needs the
     mesh bound to a process group, ``tests/test_torch_mesh.py``) and the
-    decode cell raises there naming item 10; the reduced decode cell
-    builds and steps."""
+    decode cell builds there with its cache's specs; the reduced decode
+    cell builds and steps."""
     arch, jarch = get_arch(name), ref_get_arch(name)
     assert arch.optimizer == jarch.optimizer == "adafactor"
     assert arch.reduced().optimizer == jarch.reduced().optimizer == "adamw"
@@ -228,8 +228,9 @@ def test_arch_optimizers_and_refusals(name):
     with pytest.raises(RuntimeError, match="shape-only"):
         cell.fn({}, arch.reduced().smoke_inputs(
             "train_4k", torch.Generator(), device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        arch.reduced().build_cell("decode_32k", device="cpu", mesh=mesh)
+    serve = arch.reduced().build_cell("decode_32k", device="cpu", mesh=mesh)
+    assert serve.layout.mesh is mesh
+    assert tuple(serve.layout.cache_specs["k"])[1] == "data"
     small = arch.reduced()
     cache, tokens = small.smoke_inputs("decode_32k", torch.Generator(),
                                        device="cpu")

@@ -24,6 +24,7 @@ report,hillclimb}``) against the reference's, on the CPU.
   and refusals, ``--multi-pod`` raising item 10.
 """
 
+import inspect
 import json
 import os
 
@@ -37,6 +38,7 @@ from repro_torch.configs import ARCH_NAMES, all_cells, get_arch
 from repro_torch.kernels import embedding_bag as bag
 from repro_torch.kernels import ops, topk
 from repro_torch.launch import dryrun, hillclimb, memmodel, report, roofline
+from repro_torch.models import transformer
 
 CELLS = ref_configs.all_cells()
 META = torch.device("meta")
@@ -48,6 +50,14 @@ PORT_INPUTS = {("graphsage-reddit", "full_graph_sm"),
 HOST_READS = {"lm serve": "src/repro_torch/models/transformer.py",
               "gnn full": "src/repro_torch/models/gnn.py",
               "gnn batched": "src/repro_torch/models/gnn.py"}
+
+
+def _decode_read() -> str:
+    """An LM serve cell's ``flops_source``: the line of the decode step
+    that reads the cache's ``len`` on the host."""
+    lines, first = inspect.getsourcelines(transformer.decode_step)
+    at = next(i for i, t in enumerate(lines) if 'int(cache["len"])' in t)
+    return f"analytic: {HOST_READS['lm serve']}:{first + at}"
 
 
 class _OneDevice:
@@ -366,8 +376,7 @@ def test_run_cell_at_full_width(cell):
     assert rec["wall_s"] <= MINI[cell]
     assert rec["cost"]["flops"] > 0
     if cell == ("granite-moe-3b-a800m", "decode_32k"):
-        assert rec["flops_source"] == \
-            "analytic: src/repro_torch/models/transformer.py:619"
+        assert rec["flops_source"] == _decode_read()
         assert rec["cost"]["flops"] == roofline.model_flops(
             get_arch(name), shape)
     else:
@@ -400,7 +409,7 @@ def test_main_writes_records_that_report_reads(tmp_path, capsys,
     recs = [report.enrich(r) for r in recs]
     text = report.table(recs)
     assert text.count("\n") == 2 + 3 - 1
-    assert "analytic: src/repro_torch/models/transformer.py:619" in text
+    assert _decode_read() in text
     assert "(!)" not in text.split("deepfm")[1].split("\n")[0]
     detail = report.dryrun_table(recs)
     assert "embedding_bag 2" in detail
